@@ -12,8 +12,14 @@ Phases (any failure raises, and the script exits non-zero):
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
-     5 pivots; check the output tree, finite frames and that both kernels
-     were launched;
+     5 pivots; check the output tree, finite frames, that K1 and K2 were
+     launched and that K3 and K4 were not. Then, counters zeroed again,
+     the SDEdit path at 768p
+     with the GroupNorm kernel on: preprocess 24 frames, an 8-step SDEdit
+     edit with 3 pivots and a 2-step --vanilla run; all four kernels must
+     launch (K3 at the 96x96 level). The edit runs once more with the
+     GroupNorm kernel off, for its step time. Last, one pivotal and one
+     propagation UNet call on the card against the CPU's plain path;
   4. print one JSON line with the kernel table, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
@@ -38,15 +44,39 @@ K2_MAX_FLIP_SHARE = 1e-3
 # the main path's UNet on the card against the CPU's plain fp32 path
 REF_REL_L2 = 5e-2
 
+# K4 against its plain version: at most this many bf16 steps, counted at
+# the magnitude of the plain result but never below GN_ULP_FLOOR (fp32 sums
+# in another order move the statistics by ~1e-6 relative; near zero the
+# fp32 rounding of the affine's terms exceeds a bf16 step of the result)
+GN_MAX_ULPS = 2
+GN_ULP_FLOOR = 2.0**-6
+
 K1_SHAPES = [  # (B, Sq, Skv, H) with D = 64
-    (2, 20480, 20480, 5),  # pivotal extended attention, 64x64 level
-    (2, 5120, 5120, 10),  # pivotal extended attention, 32x32 level
-    (2, 1280, 1280, 20),  # pivotal extended attention, 16x16 level
-    (40, 4096, 4096, 5),  # inversion self-attention, 40 frames at 64x64
+    (2, 20480, 20480, 5),  # PnP 512^2: pivotal extended attention, 64x64 level
+    (2, 5120, 5120, 10),  # PnP 512^2: pivotal extended attention, 32x32 level
+    (2, 1280, 1280, 20),  # PnP 512^2: pivotal extended attention, 16x16 level
+    (40, 4096, 4096, 5),  # PnP 512^2: inversion self-attention, 40 frames
+    (2, 27648, 27648, 5),  # SDEdit 768p: pivotal extended attention, 96x96
+    (2, 6912, 6912, 10),  # SDEdit 768p: pivotal extended attention, 48x48
+    (2, 1728, 1728, 20),  # SDEdit 768p: pivotal extended attention, 24x24
+    (24, 9216, 9216, 5),  # SDEdit 768p: inversion / vanilla self-attention
     (2, 1000, 3000, 5),  # ragged Q and KV tails
 ]
-K2_SHAPES = [(4096, 320), (1024, 640), (256, 1280), (9216, 320)]  # (S, D)
+K2_SHAPES = [  # (S, D)
+    (4096, 320), (1024, 640), (256, 1280),  # PnP 512^2 sites
+    (2304, 640), (576, 1280),  # SDEdit 768p sites below the top level
+    (9216, 320),  # the 768p top level (K3's site), K2 off its path
+]
 K2_F, K2_K, K2_NS = 40, 5, 3
+K3_S, K3_D, K3_F, K3_K, K3_NS = 9216, 320, 24, 3, 3  # SDEdit 768p top level
+GN_SHAPES = [  # (B, C, H, W), groups 32
+    (9, 320, 96, 96),  # pivotal pass, 96^2 (resident spans)
+    (24, 640, 48, 48),  # propagation chunk, 48^2
+    (24, 2560, 12, 12),  # propagation chunk, 12^2 (80 channels per group)
+    (24, 960, 96, 96),  # up-block at 96^2 (split spans)
+    (10, 128, 768, 768),  # VAE decoder at pixel resolution (split spans)
+    (3, 96, 7, 9),  # ragged: 3 channels x 63 per group
+]
 
 
 def card_line() -> str:
@@ -79,6 +109,16 @@ def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
         return torch.where(i < 0, -(i & 0x7FFF), i)
 
     return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def bf16_ulps_floored(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 steps at max(|want|, GN_ULP_FLOOR)."""
+    worst = 0.0
+    for g, w in zip(got.reshape(-1).split(1 << 26), want.reshape(-1).split(1 << 26)):
+        g, w = g.float(), w.float()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(GN_ULP_FLOOR))) - 7)
+        worst = max(worst, float(((g - w).abs() / ulp).max().item()))
+    return worst
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -124,39 +164,58 @@ def check_flash(gen: torch.Generator) -> dict:
     }
 
 
-def _k2_inputs(gen, s, d, mode):
+def _match_inputs(gen, s, d, mode, f=K2_F, k=K2_K, ns=K2_NS):
     from tokenflow_torch.ops.propagation import propagation_indices
 
     pa, pb, w1 = (
-        torch.as_tensor(a, device="cuda")
-        for a in propagation_indices(K2_F, K2_F // K2_K)
+        torch.as_tensor(a, device="cuda") for a in propagation_indices(f, f // k)
     )
     if mode == "random":
-        x = torch.randn((K2_F, s, d), generator=gen, device="cuda")
-        p = torch.randn((K2_K, s, d), generator=gen, device="cuda")
+        x = torch.randn((f, s, d), generator=gen, device="cuda")
+        p = torch.randn((k, s, d), generator=gen, device="cuda")
     elif mode == "separated":  # pivot rows: permuted base rows plus noise
         base = torch.randn((s, d), generator=gen, device="cuda")
 
         def perm():
             return torch.randperm(s, generator=gen, device="cuda")
 
-        x = torch.stack([base[perm()] for _ in range(K2_F)])
-        p = torch.stack([base[perm()] for _ in range(K2_K)])
+        x = torch.stack([base[perm()] for _ in range(f)])
+        p = torch.stack([base[perm()] for _ in range(k)])
         x = x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
         p = p + 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
     else:  # "ties": every pivot row appears twice, at 2m and 2m + 1
         base = torch.randn((s // 2, d), generator=gen, device="cuda")
-        pick = torch.randint(0, s // 2, (K2_F, s), generator=gen, device="cuda")
-        x = base[pick] + 0.01 * torch.randn((K2_F, s, d), generator=gen, device="cuda")
+        pick = torch.randint(0, s // 2, (f, s), generator=gen, device="cuda")
+        x = base[pick] + 0.01 * torch.randn((f, s, d), generator=gen, device="cuda")
         p = torch.stack([
             base[torch.randperm(s // 2, generator=gen, device="cuda")]
-            for _ in range(K2_K)
+            for _ in range(k)
         ])
         p = p + 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
         p = p.repeat_interleave(2, dim=1)
     p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
-    kf = torch.randn((K2_NS, K2_K, s, d), generator=gen, device="cuda")
+    kf = torch.randn((ns, k, s, d), generator=gen, device="cuda")
     return x.bfloat16(), p_hat.bfloat16(), kf.bfloat16(), pa, pb, w1
+
+
+def _match_verdict(tag, mode, idx, ref_idx, out, ref):
+    """(line, flipped share, max|err|) of a token-match kernel against its
+    plain version; raises past the tolerances of ``mode``: identical
+    indices and <= 1 ulp on separated or duplicated-row inputs (ties to the
+    earlier row), <= K2_MAX_FLIP_SHARE flipped on random ones."""
+    flipped = float((idx.long() != ref_idx).float().mean().item())
+    err = float((out.float() - ref.float()).abs().max().item())
+    same = (idx.long() == ref_idx).all(dim=0)  # (F, S) tokens matched alike
+    ulps = bf16_ulp_diff(out[:, same], ref[:, same]) if same.any() else 0
+    line = f"{tag} {mode}: flipped={flipped:.3e} max|err|={err:.3e} ulps(same idx)={ulps}"
+    if mode in ("separated", "ties"):
+        if flipped != 0.0 or ulps > 1:
+            raise AssertionError(f"{line}: indices must agree, <= 1 ulp")
+        if mode == "ties" and bool((idx % 2).any()):
+            raise AssertionError(f"{line}: a tie resolved to the later row")
+    elif flipped > K2_MAX_FLIP_SHARE or ulps > 1:
+        raise AssertionError(f"{line}: above {K2_MAX_FLIP_SHARE} flipped")
+    return line, flipped, err
 
 
 def check_token_match(gen: torch.Generator) -> dict:
@@ -167,26 +226,16 @@ def check_token_match(gen: torch.Generator) -> dict:
     cases += [(s, d, "random") for s, d in K2_SHAPES]
     cases += [(K2_SHAPES[0][0], K2_SHAPES[0][1], "ties")]
     for s, d, mode in cases:
-        args = _k2_inputs(gen, s, d, mode)
+        args = _match_inputs(gen, s, d, mode)
         out, idx = tm.token_match_gather_kernel(*args, return_indices=True)
         ref, ref_idx = tm.token_match_gather_plain(*args, return_indices=True)
         torch.cuda.synchronize()
-        flipped = float((idx.long() != ref_idx).float().mean().item())
-        err = float((out.float() - ref.float()).abs().max().item())
-        same = (idx.long() == ref_idx).all(dim=0)  # (F, S) tokens matched alike
-        ulps = bf16_ulp_diff(out[:, same], ref[:, same]) if same.any() else 0
-        line = (
-            f"[K2] F={K2_F} K={K2_K} ns={K2_NS} S={s} D={d} {mode}: "
-            f"flipped={flipped:.3e} max|err|={err:.3e} ulps(same idx)={ulps}"
+        line, flipped, err = _match_verdict(
+            f"[K2] F={K2_F} K={K2_K} ns={K2_NS} S={s} D={d}", mode, idx, ref_idx,
+            out, ref,
         )
-        if mode in ("separated", "ties"):
-            if flipped != 0.0 or ulps > 1:
-                raise AssertionError(f"{line}: indices must agree, <= 1 ulp")
-            if mode == "ties" and bool((idx % 2).any()):
-                raise AssertionError(f"{line}: a tie resolved to the later row")
+        if mode != "random":
             worst = max(worst, err)
-        elif flipped > K2_MAX_FLIP_SHARE or ulps > 1:
-            raise AssertionError(f"{line}: above {K2_MAX_FLIP_SHARE} flipped")
         ms = median_ms(lambda: tm.token_match_gather_kernel(*args))
         plain_ms = median_ms(lambda: tm.token_match_gather_plain(*args), runs=5)
         print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
@@ -201,6 +250,112 @@ def check_token_match(gen: torch.Generator) -> dict:
         "source": "tokenflow_torch/csrc/token_match.cu",
         "replaces": "tokenflow_tpu/kernels/token_match.py:105",
         "max_abs_err": worst,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "shapes": rows,
+    }
+
+
+def check_token_match_split(gen: torch.Generator) -> dict:
+    """K3 at the 768p top level against its plain version, with K2's
+    tolerances; its indices must also equal K2's (the two kernels run the
+    same tile arithmetic)."""
+    from tokenflow_torch.kernels import token_match as tm
+    from tokenflow_torch.kernels import token_match_split as tms
+
+    s, d = K3_S, K3_D
+    if not tms.use_split(s, d, K3_NS):
+        raise AssertionError(f"(S, D) = ({s}, {d}) is not a K3 site")
+    worst, rows = 0.0, []
+    for mode in ("separated", "random", "ties"):
+        args = _match_inputs(gen, s, d, mode, f=K3_F, k=K3_K, ns=K3_NS)
+        out, ia, ib = tms.token_match_gather_split_kernel(*args, return_indices=True)
+        ref, ref_ia, ref_ib = tms.token_match_gather_split_plain(
+            *args, return_indices=True
+        )
+        torch.cuda.synchronize()
+        if ia.shape != (K3_F, 1, s) or ia.dtype != torch.int32:
+            raise AssertionError(f"K3 indices {tuple(ia.shape)} {ia.dtype}")
+        idx = torch.stack([ia[:, 0], ib[:, 0]])
+        ref_idx = torch.stack([ref_ia[:, 0], ref_ib[:, 0]]).long()
+        line, flipped, err = _match_verdict(
+            f"[K3] F={K3_F} K={K3_K} ns={K3_NS} S={s} D={d}", mode, idx, ref_idx,
+            out, ref,
+        )
+        k2_out, k2_idx = tm.token_match_gather_kernel(*args, return_indices=True)
+        if not (torch.equal(k2_idx, idx) and torch.equal(k2_out, out)):
+            raise AssertionError(f"{line}: K3 and K2 disagree")
+        if mode != "random":
+            worst = max(worst, err)
+        ms = median_ms(lambda: tms.token_match_gather_split_kernel(*args))
+        plain_ms = median_ms(lambda: tms.token_match_gather_split_plain(*args), runs=5)
+        k2_ms = median_ms(lambda: tm.token_match_gather_kernel(*args))
+        print(
+            f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K2 on the same "
+            f"inputs {k2_ms:.3f} ms",
+            flush=True,
+        )
+        rows.append({"shape": [K3_F, s, d], "mode": mode, "flipped": flipped,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "k2_ms": k2_ms})
+        del args, out, ia, ib, ref, ref_ia, ref_ib, k2_out, k2_idx
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return {
+        "name": "token_match_gather_split",
+        "route": "cuda",
+        "source": "tokenflow_torch/csrc/token_match_split.cu",
+        "replaces": "tokenflow_tpu/kernels/token_match_split.py:123",
+        "max_abs_err": worst,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "shapes": rows,
+    }
+
+
+def check_group_norm(gen: torch.Generator) -> dict:
+    """K4 against its plain version at the SDEdit path's GroupNorm shapes,
+    SiLU on (resnet norms, eps 1e-5) and off (transformer norms, eps 1e-6),
+    bf16 inputs with a mean offset, weights around 1."""
+    from tokenflow_torch.kernels import group_norm as gn
+
+    worst_err, worst_ulps, rows = 0.0, 0.0, []
+    for shape in GN_SHAPES:
+        c = shape[1]
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3).bfloat16()
+        w = (1 + 0.5 * torch.randn((c,), generator=gen, device="cuda")).bfloat16()
+        b = (0.5 * torch.randn((c,), generator=gen, device="cuda")).bfloat16()
+        for act, eps in (("silu", 1e-5), (None, 1e-6)):
+            out = gn.group_norm_kernel(x, w, b, 32, eps, act)
+            ref = gn.group_norm_plain(x, w, b, 32, eps, act)
+            torch.cuda.synchronize()
+            ulps = bf16_ulps_floored(out, ref)
+            err = float((out.float() - ref.float()).abs().max().item())
+            line = (
+                f"[K4] {tuple(shape)} act={act} eps={eps}: max|err|={err:.3e} "
+                f"ulps={ulps:.3f}"
+            )
+            if not (torch.isfinite(out).all() and ulps <= GN_MAX_ULPS):
+                raise AssertionError(f"{line}: above {GN_MAX_ULPS} bf16 ulps")
+            ms = median_ms(lambda: gn.group_norm_kernel(x, w, b, 32, eps, act))
+            plain_ms = median_ms(
+                lambda: gn.group_norm_plain(x, w, b, 32, eps, act), runs=5
+            )
+            print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+            rows.append({"shape": list(shape), "act": act, "ulps": ulps,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+            worst_err, worst_ulps = max(worst_err, err), max(worst_ulps, ulps)
+            del out, ref
+        del x, w, b
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return {
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "tokenflow_torch/csrc/group_norm.cu",
+        "replaces": "tokenflow_tpu/kernels/group_norm.py:170",
+        "max_abs_err": worst_err,
+        "max_ulps": worst_ulps,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "shapes": rows,
@@ -222,20 +377,39 @@ def write_frames(root: str, n: int, hw: int) -> str:
     return data
 
 
+def kernel_modules() -> dict:
+    """The wrapper module of each kernel, by its name in the kernels line."""
+    from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.kernels import group_norm as gn
+    from tokenflow_torch.kernels import token_match as tm
+    from tokenflow_torch.kernels import token_match_split as tms
+
+    return {"flash_attention": fa, "token_match_gather": tm,
+            "token_match_gather_split": tms, "group_norm": gn}
+
+
+def zero_counts() -> None:
+    for m in kernel_modules().values():
+        m.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: m.launches for name, m in kernel_modules().items()}
+
+
 def run_main_path(root: str) -> dict:
+    """PnP at 512^2 with the GroupNorm kernel off: K1 and K2 must launch;
+    K3 (no site past its table size at 512^2) and K4 (off) must not."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_pnp
-    from tokenflow_torch.kernels import flash_attention as fa
-    from tokenflow_torch.kernels import token_match as tm
 
     n_frames, inv_steps, edit_steps = 40, 20, 10
     write_frames(root, n_frames, 512)
     cwd = os.getcwd()
     os.chdir(root)
     try:
-        fa.launches = 0
-        tm.launches = 0
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         pre = preprocess.main([
@@ -263,7 +437,7 @@ def run_main_path(root: str) -> dict:
         t_edit = time.perf_counter() - t0
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        counts = {"flash_attention": fa.launches, "token_match_gather": tm.launches}
+        counts = read_counts()
         out_dir = run_pnp.resolve_output_path(dict(config))["output_path"]
         for name in (
             "img_ode/00000.png", "tokenflow_PnP_fps_10.mp4", "vae_recon_10.mp4",
@@ -281,9 +455,12 @@ def run_main_path(root: str) -> dict:
             metrics = json.load(f)
     finally:
         os.chdir(cwd)
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("flash_attention", "token_match_gather"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in ("token_match_gather_split", "group_norm"):
+        if counts[name] != 0:
+            raise AssertionError(f"kernel {name} ran on the 512^2 PnP path")
     ph = metrics["phases_seconds"]
     report = {
         "launches": counts,
@@ -300,6 +477,114 @@ def run_main_path(root: str) -> dict:
     }
     for k, v in report.items():
         print(f"[main path] {k}: {v}", flush=True)
+    return report
+
+
+def _edit_report(out_dir: str, n_steps: int) -> dict:
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        ph = json.load(f)["phases_seconds"]
+    return {
+        "pivotal_seconds_per_step": ph["edit_pivotal"] / n_steps,
+        "propagate_seconds_per_step": ph["edit_propagate"] / n_steps,
+        "edit_loop_seconds": ph["edit_loop"],
+        "decode_seconds": ph["decode"],
+    }
+
+
+def run_sdedit_path(root: str) -> dict:
+    """The SDEdit editor at 768p through the port's CLIs, with the GroupNorm
+    kernel on: preprocess 24 synthetic 768x768 frames (SD-2.1, random
+    weights, bf16), an SDEdit edit with window 8 (3 pivots) and
+    propagation chunks of 8 frames, and a 2-step --vanilla run. All four
+    kernels must launch in this phase (K3 at the 96x96 level). Then the
+    same edit once more with the GroupNorm kernel off, for its step time."""
+    import yaml
+
+    from tokenflow_torch.cli import preprocess, run_sdedit
+    from tokenflow_torch.diffusion import ddim
+
+    n_frames, inv_steps, n_timesteps, hw = 24, 10, 10, 768
+    write_frames(root, n_frames, hw)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pre = preprocess.main([
+            "--data_path", "data/clip", "--H", str(hw), "--W", str(hw),
+            "--sd_version", "2.1", "--init", "random", "--dtype", "bf16",
+            "--n_frames", str(n_frames), "--batch_size", str(n_frames),
+            "--steps", str(inv_steps), "--save_steps", str(n_timesteps),
+            "--device", "cuda", "--group_norm_kernel",
+        ])
+        t_pre = time.perf_counter() - t0
+        config = {
+            "seed": 1, "device": "cuda", "output_path": "results",
+            "data_path": "data/clip", "latents_path": "latents",
+            "n_frames": n_frames, "sd_version": "2.1", "init": "random",
+            "dtype": "bf16", "guidance_scale": 7.5, "n_timesteps": n_timesteps,
+            "prompt": "a shiny silver robotic wolf",
+            "negative_prompt": "ugly, blurry, low res",
+            "batch_size": 8, "propagate_chunk": 8, "start": 0.9,
+            "image_size": hw, "group_norm_kernel": True,
+        }
+        decoded, out_dirs = {}, {}
+
+        def edit(name, cfg, *flags):
+            with open(f"config_{name}.yaml", "w") as f:
+                yaml.safe_dump(cfg, f)
+            decoded[name] = run_sdedit.main(["--config_path", f"config_{name}.yaml", *flags])
+            out_dirs[name] = run_sdedit.resolve_output_path(dict(cfg))["output_path"]
+
+        edit("sdedit", config)
+        edit("vanilla", dict(config, start=0.3), "--vanilla")  # 2 steps
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = {"sdedit_path": read_counts()}
+        zero_counts()
+        edit("sdedit_gn_off", dict(config, output_path="results_gn_off",
+                                   group_norm_kernel=False))
+        counts["gn_off_run"] = read_counts()
+        for name, files in (
+            ("sdedit", ("img_ode/00000.png", "tokenflow_SDEdit_fps_10.mp4",
+                        "input_fps10.mp4", "config.yaml", "metrics.json", "pivots.json")),
+            ("vanilla", ("img_ode_vanilla_sde/00000.png", "vanilla_sde.mp4",
+                         "metrics_vanilla.json")),
+            ("sdedit_gn_off", ("img_ode/00000.png", "metrics.json")),
+        ):
+            for f in files:
+                if not os.path.exists(os.path.join(out_dirs[name], f)):
+                    raise AssertionError(f"{name}: missing output {f}")
+            if decoded[name].shape != (n_frames, hw, hw, 3) or not np.isfinite(
+                decoded[name]
+            ).all():
+                raise AssertionError(f"{name}: decoded frames bad, {decoded[name].shape}")
+        n_steps = len(ddim.truncate_schedule(
+            ddim.make_schedule(n_timesteps), config["start"]
+        ).timesteps)
+        on = _edit_report(out_dirs["sdedit"], n_steps)
+        off = _edit_report(out_dirs["sdedit_gn_off"], n_steps)
+    finally:
+        os.chdir(cwd)
+    for name, n in counts["sdedit_path"].items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the SDEdit path")
+    if counts["gn_off_run"]["group_norm"] != 0:
+        raise AssertionError("the GroupNorm kernel ran with group_norm_kernel off")
+    report = {
+        "launches": counts["sdedit_path"],
+        "preprocess_seconds": t_pre,
+        "inversion_seconds_per_step": pre["inversion_seconds"] / inv_steps,
+        "reconstruction_seconds_per_step": pre["reconstruction_seconds"] / inv_steps,
+        "reconstruction_psnr": pre["reconstruction_psnr"],
+        "edit_steps": n_steps,
+        "gn_kernel_on": on,
+        "gn_kernel_off": off,
+        "peak_memory_bytes": peak,
+    }
+    for k, v in report.items():
+        print(f"[sdedit 768p] {k}: {v}", flush=True)
     return report
 
 
@@ -391,17 +676,27 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [check_flash(gen), check_token_match(gen)]
+    kernels = [
+        check_flash(gen), check_token_match(gen), check_token_match_split(gen),
+        check_group_norm(gen),
+    ]
 
-    # phase 3: the main path through the CLIs
+    # phase 3: the paths through the CLIs, each with the counts zeroed
+    # just before it and read just after
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         report = run_main_path(root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sdedit_") as root:
+        sdedit = run_sdedit_path(root)
     report["reference"] = check_small_reference()
+    by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"]}
     for entry in kernels:
-        entry["launches"] = report["launches"][entry["name"]]
+        entry["launches_by_path"] = {
+            path: counts[entry["name"]] for path, counts in by_path.items()
+        }
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     # phase 4: result lines
-    print(json.dumps({"main_path": report}), flush=True)
+    print(json.dumps({"main_path": report, "sdedit_path": sdedit}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({

@@ -1,6 +1,7 @@
 """The port's CLIs end to end on the tiny stack on the CPU: preprocess
-(inversion + reconstruction) then the PnP editor, in a fresh subprocess
-that must never import JAX. Checks the artifact tree that
+(inversion + reconstruction), then the PnP editor, the SDEdit editor (with
+every GroupNorm on the GroupNorm kernel's switch) and the vanilla SDEdit
+baseline, in a fresh subprocess that must never import JAX. Checks the artifact tree that
 tests/test_e2e_cli.py asserts for the JAX CLIs, that the trajectory reads
 back through tokenflow_tpu.io.latents, and the device rules.
 """
@@ -33,7 +34,7 @@ SCRIPT = textwrap.dedent(
     import torch
     torch.set_num_threads(2)
     import yaml
-    from tokenflow_torch.cli import preprocess, run_pnp
+    from tokenflow_torch.cli import preprocess, run_pnp, run_sdedit
 
     pre = preprocess.main([
         "--data_path", "data/clip", "--H", "{HW}", "--W", "{HW}",
@@ -54,11 +55,23 @@ SCRIPT = textwrap.dedent(
         yaml.safe_dump(config, f)
     decoded = run_pnp.main(["--config_path", "config_pnp.yaml"])
     out = run_pnp.resolve_output_path(dict(config))["output_path"]
+    sdedit = dict(config, start=0.9, group_norm_kernel=True)
+    for k in ("n_inversion_steps", "pnp_attn_t", "pnp_f_t"):
+        del sdedit[k]
+    with open("config_sdedit.yaml", "w") as f:
+        yaml.safe_dump(sdedit, f)
+    sd = run_sdedit.main(["--config_path", "config_sdedit.yaml"])
+    with open("config_vanilla.yaml", "w") as f:
+        yaml.safe_dump(dict(sdedit, group_norm_kernel=False), f)
+    van = run_sdedit.main(["--config_path", "config_vanilla.yaml", "--vanilla"])
     print("RESULT " + json.dumps({{
         "save_path": pre["save_path"],
         "output_path": out,
+        "sdedit_path": run_sdedit.resolve_output_path(dict(sdedit))["output_path"],
         "shape": list(decoded.shape),
         "finite": bool(np.isfinite(decoded).all()),
+        "sdedit_shapes": [list(sd.shape), list(van.shape)],
+        "sdedit_finite": bool(np.isfinite(sd).all() and np.isfinite(van).all()),
         "jax_loaded": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib")),
     }}))
     """
@@ -119,6 +132,43 @@ def test_pnp_artifacts(run_cli):
     assert metrics["device"] == "cpu" and metrics["n_steps"] == N_TIMESTEPS
     pivots = np.asarray(json.loads((out / "pivots.json").read_text())["pivot_indices"])
     assert pivots.shape == (N_TIMESTEPS, F // 2)
+
+
+@pytest.mark.parametrize("vanilla", [False, True])
+def test_sdedit_artifacts(run_cli, vanilla):
+    root, result = run_cli
+    assert result["sdedit_finite"]
+    assert result["sdedit_shapes"][int(vanilla)] == [F, HW, HW, 3]
+    out = root / result["sdedit_path"]
+    assert out.parts[-2:] == ("batch_size_2", f"{N_TIMESTEPS}start_0.9")
+    assert out.parts[-5].endswith("results_sdedit")
+    if vanilla:
+        names = ("img_ode_vanilla_sde/00000.png", "vanilla_sde.mp4",
+                 "vanilla_sde_fps20.mp4", "vanilla_sde_fps30.mp4",
+                 "metrics_vanilla.json")
+    else:
+        names = ("img_ode/00000.png", "tokenflow_SDEdit_fps_10.mp4",
+                 "tokenflow_SDEdit_fps_20.mp4", "tokenflow_SDEdit_fps_30.mp4",
+                 "input_fps10.mp4", "config.yaml", "metrics.json", "pivots.json")
+    for name in names:
+        assert (out / name).exists(), name
+    metrics = json.loads((out / ("metrics_vanilla.json" if vanilla else "metrics.json")).read_text())
+    phases = metrics["phases_seconds"]
+    assert {"edit_loop", "decode", "decode_and_save"} <= set(phases)
+    if not vanilla:
+        assert {"edit_pivotal", "edit_propagate"} <= set(phases)
+    # start 0.9 of 4 timesteps: timesteps[int(1 - 3.6):], two steps
+    assert metrics["n_steps"] == 2 and metrics["vanilla"] is vanilla
+
+
+def test_sdedit_config_keys():
+    base = dict.fromkeys(common.REQUIRED_KEYS["base"], 0)
+    base.update(batch_size=2, device="cpu")
+    with pytest.raises(KeyError, match="start"):
+        common.validate_config(base, "sdedit")
+    common.validate_config(dict(base, start=0.9, group_norm_kernel=True), "sdedit")
+    with pytest.raises(ValueError, match="group_norm_kernel"):
+        common.validate_config(dict(base, start=0.9, group_norm_kernel="yes"), "sdedit")
 
 
 def test_device_rules():

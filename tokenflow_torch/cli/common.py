@@ -1,6 +1,8 @@
 """Shared editor-CLI plumbing (config loading, data and latents assembly,
-outputs) for the port's PnP editor; the counterpart of the main-path part
-of ``tokenflow_tpu/cli/common.py``. Same YAML keys and output tree.
+outputs) for the port's PnP and SDEdit editors; the counterpart of the
+main-path part of ``tokenflow_tpu/cli/common.py``. Same YAML keys and
+output tree, plus ``group_norm_kernel`` (bool, default false): run every
+UNet and VAE GroupNorm through K4.
 """
 
 from __future__ import annotations
@@ -31,13 +33,15 @@ REQUIRED_KEYS = {
         "negative_prompt", "batch_size",
     ),
     "pnp": ("n_inversion_steps", "pnp_attn_t", "pnp_f_t"),
+    "sdedit": ("start",),
 }
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def validate_config(config: dict, mode: str) -> dict:
-    """Fail fast on missing keys, a bad propagate_chunk or device."""
+    """Fail fast on missing keys, a bad propagate_chunk, device, dtype or
+    group_norm_kernel."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
@@ -53,6 +57,8 @@ def validate_config(config: dict, mode: str) -> dict:
     utils.resolve_device(config.get("device", "cuda"))
     if config.get("dtype", "bf16") not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+    if not isinstance(config.get("group_norm_kernel", False), bool):
+        raise ValueError("group_norm_kernel must be true or false")
     return config
 
 
@@ -106,11 +112,13 @@ class EditorData:
     embeds3: torch.Tensor  # (3, 77, D) [inv | uncond | cond]
 
 
-def setup_editor(config: dict) -> EditorData:
+def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
     """Common editor init (reference TokenFlow.__init__,
     run_tokenflow_pnp.py:25-68): resolve the latents dir, load and clamp
     frames, VAE-encode, recover the inversion endpoint noise, build the
-    three text embeddings."""
+    three text embeddings. ``use_steps_dir=False`` (SDEdit) looks for the
+    latents under every ``steps_*`` dir (reference
+    run_tokenflow_sdedit.py:81-92)."""
     device = utils.resolve_device(config.get("device", "cuda"))
     sd_version = config["sd_version"]
     stack = runtime.load_stack(
@@ -119,12 +127,13 @@ def setup_editor(config: dict) -> EditorData:
         model_dir=config.get("model_dir"),
         dtype=DTYPES[config.get("dtype", "bf16")],
         init=config.get("init", "auto"),
+        group_norm_kernel=config.get("group_norm_kernel", False),
     )
     save_path, n_frames = latents_io.find_latents_path(
         config["latents_path"],
         sd_version,
         Path(config["data_path"]).stem,
-        config["n_inversion_steps"],
+        config["n_inversion_steps"] if use_steps_dir else None,
         config["n_frames"],
         config["batch_size"],
     )

@@ -59,6 +59,7 @@ def run(opt) -> dict:
     stack = runtime.load_stack(
         opt.sd_version, device=device, model_dir=opt.model_dir,
         dtype=DTYPES[opt.dtype], init=opt.init,
+        group_norm_kernel=opt.group_norm_kernel,
     )
     frames = video_io.load_frames(opt.data_path, opt.n_frames, resize_square=opt.H)
     lat = stack.encode_frames(frames)  # (F, h, w, 4) fp32
@@ -123,6 +124,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--skip_reconstruction", action="store_true",
         help="skip the DDIM reconstruction sanity pass",
+    )
+    p.add_argument(
+        "--group_norm_kernel", action="store_true",
+        help="run every UNet and VAE GroupNorm through the GroupNorm kernel",
     )
     return p
 

@@ -1,9 +1,8 @@
 // Token match + gather for Hopper (sm_90a), bf16 tables, fp32 math.
 //
 // Replaces the Pallas TPU kernel tokenflow_tpu/kernels/token_match.py
-// (token_match_gather_pallas / _kernel) and covers the large-S contract of
-// tokenflow_tpu/kernels/token_match_split.py with no size gate. For each
-// frame f:
+// (token_match_gather_pallas / _kernel); the large-S sites go to K3
+// (token_match_split.cu), chosen as in the JAX package. For each frame f:
 //   i1[s] = first argmax_z  x[f,s] . p_hat[pa[f], z]
 //   i2[s] = first argmax_z  x[f,s] . p_hat[pb[f], z]
 //   out[c,f,s] = w1[f] * kf[c,pa[f],i1[s]] + (1 - w1[f]) * kf[c,pb[f],i2[s]]
@@ -29,13 +28,13 @@
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBZ = 64;  // pivot tokens per tile
-constexpr int kBD = 64;  // head-dim chunk per tile
-constexpr int kThreads = 128;
-constexpr int kLdp = kBD + 8;
+using tf::kMatchBD;
+using tf::kMatchBQ;
+using tf::kMatchBZ;
+using tf::kMatchLdp;
+using tf::kMatchThreads;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMatchThreads)
 match_kernel(const __nv_bfloat16* __restrict__ x,     // (F, S, D)
              const __nv_bfloat16* __restrict__ phat,  // (K, S, D)
              const int* __restrict__ pa, const int* __restrict__ pb,
@@ -43,93 +42,35 @@ match_kernel(const __nv_bfloat16* __restrict__ x,     // (F, S, D)
              int f_total, int s_len, int d, int d_pad) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldx = d_pad + 8;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kBQ][ldx]
-  __nv_bfloat16* ps = xs + kBQ * ldx;                             // [kBZ][kLdp]
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][ldx]
+  __nv_bfloat16* ps = xs + kMatchBQ * ldx;                        // [BZ][Ldp]
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kMatchBQ;
   const int f = blockIdx.y;
   const int which = blockIdx.z;  // 0: pivot pa[f], 1: pivot pb[f]
   const int piv = which == 0 ? pa[f] : pb[f];
-
-  const __nv_bfloat16* xf = x + (long long)f * s_len * d;
   const __nv_bfloat16* pp = phat + (long long)piv * s_len * d;
-  const int chunks = d_pad / 8;
 
-  // the block's query rows, zero-padded to d_pad columns and kBQ rows
-  for (int i = tid; i < kBQ * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i % chunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < s_len && c < d)
-      val = *reinterpret_cast<const uint4*>(xf + (long long)(q0 + r) * d + c);
-    *reinterpret_cast<uint4*>(xs + r * ldx + c) = val;
-  }
+  tf::load_query_tile(xs, ldx, x + (long long)f * s_len * d, q0, s_len, d,
+                      d_pad);
 
   const int row0 = warp * 16 + g;  // this thread's two rows in the tile
   float best0 = tf::neg_inf(), best1 = tf::neg_inf();
   int bidx0 = 0, bidx1 = 0;
 
-  for (int z0 = 0; z0 < s_len; z0 += kBZ) {
+  for (int z0 = 0; z0 < s_len; z0 += kMatchBZ) {
     float s[8][4];
 #pragma unroll
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-
-    for (int d0 = 0; d0 < d_pad; d0 += kBD) {
+    for (int d0 = 0; d0 < d_pad; d0 += kMatchBD) {
       __syncthreads();  // previous pivot tile consumed (and xs written)
-      for (int i = tid; i < kBZ * (kBD / 8); i += kThreads) {
-        const int r = i >> 3, c = (i & 7) * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (z0 + r < s_len && d0 + c < d)
-          val = *reinterpret_cast<const uint4*>(
-              pp + (long long)(z0 + r) * d + d0 + c);
-        *reinterpret_cast<uint4*>(ps + r * kLdp + c) = val;
-      }
+      tf::load_pivot_tile(ps, pp, z0, d0, s_len, d);
       __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBD / 16; ++kk) {
-        const __nv_bfloat16* xa = xs + row0 * ldx + d0 + kk * 16 + 2 * t;
-        uint32_t a[4];
-        a[0] = tf::ld32(xa);
-        a[1] = tf::ld32(xa + 8 * ldx);
-        a[2] = tf::ld32(xa + 8);
-        a[3] = tf::ld32(xa + 8 * ldx + 8);
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const __nv_bfloat16* pr = ps + (n * 8 + g) * kLdp + kk * 16 + 2 * t;
-          tf::mma_16816(s[n], a, tf::ld32(pr), tf::ld32(pr + 8));
-        }
-      }
+      tf::match_tile_mma(s, xs, ldx, ps, row0, d0, g, t);
     }
-
-    // first maximum of this tile per row: ascending column scan with '>'
-    float tv0 = tf::neg_inf(), tv1 = tf::neg_inf();
-    int ti0 = 0x7fffffff, ti1 = 0x7fffffff;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = z0 + n * 8 + 2 * t + e;
-        if (col < s_len) {
-          if (s[n][e] > tv0) { tv0 = s[n][e]; ti0 = col; }
-          if (s[n][2 + e] > tv1) { tv1 = s[n][2 + e]; ti1 = col; }
-        }
-      }
-    }
-    // combine the quad (its four threads cover the row's 64 columns)
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float ov0 = __shfl_xor_sync(0xffffffffu, tv0, off);
-      const int oi0 = __shfl_xor_sync(0xffffffffu, ti0, off);
-      const float ov1 = __shfl_xor_sync(0xffffffffu, tv1, off);
-      const int oi1 = __shfl_xor_sync(0xffffffffu, ti1, off);
-      if (ov0 > tv0 || (ov0 == tv0 && oi0 < ti0)) { tv0 = ov0; ti0 = oi0; }
-      if (ov1 > tv1 || (ov1 == tv1 && oi1 < ti1)) { tv1 = ov1; ti1 = oi1; }
-    }
-    // an earlier tile keeps ties
-    if (tv0 > best0) { best0 = tv0; bidx0 = ti0; }
-    if (tv1 > best1) { best1 = tv1; bidx1 = ti1; }
+    tf::first_max_update(s, z0, s_len, t, best0, bidx0, best1, bidx1);
   }
 
   if (t == 0) {
@@ -190,15 +131,15 @@ __global__ void gather_blend_kernel(
 extern "C" int tf_token_match(const void* x, const void* phat, const int* pa,
                               const int* pb, int* idx, int f_total, int s_len,
                               int d, void* stream) {
-  const int d_pad = (d + kBD - 1) / kBD * kBD;
-  const size_t smem =
-      (size_t)(kBQ * (d_pad + 8) + kBZ * kLdp) * sizeof(__nv_bfloat16);
+  const int d_pad = (d + kMatchBD - 1) / kMatchBD * kMatchBD;
+  const size_t smem = (size_t)(kMatchBQ * (d_pad + 8) + kMatchBZ * kMatchLdp) *
+                      sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(
       match_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s_len + kBQ - 1) / kBQ, f_total, 2);
-  match_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((s_len + kMatchBQ - 1) / kMatchBQ, f_total, 2);
+  match_kernel<<<grid, kMatchThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(phat), pa, pb, idx, f_total, s_len, d,
       d_pad);

@@ -1,5 +1,6 @@
 """The TokenFlow edit loop, the counterpart of
-``tokenflow_tpu/editing/pipeline.py`` in its two-pass exact mode.
+``tokenflow_tpu/editing/pipeline.py`` in its two-pass exact mode, and the
+per-frame SDEdit baseline (:func:`vanilla_sample_loop`).
 
 Per denoising step:
   1. pivotal pass: one UNet call over the keyframes (3-stream
@@ -183,4 +184,38 @@ def tokenflow_sample_loop(
             x = ddim.ddim_step(
                 x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
             ).to(x.dtype)
+    return x
+
+
+@torch.inference_mode()
+def vanilla_sample_loop(
+    unet_apply: UNetApply,
+    x_init: torch.Tensor,  # (F, h, w, 4) noisy start latents
+    embeds2: torch.Tensor,  # (2, 77, D) [uncond | cond]
+    schedule: EditSchedule,
+    *,
+    guidance_scale: float,
+    frame_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-frame SDEdit baseline (no TokenFlow): 2-stream [uncond|cond] CFG
+    sampling over chunks of ``frame_chunk`` frames (the JAX ``lax.map``
+    over chunks, tokenflow_tpu/editing/pipeline.py:498-542). Returns the
+    denoised latents in x_init's dtype."""
+    f_total = x_init.shape[0]
+    chunk = frame_chunk or f_total
+    if f_total % chunk:
+        raise ValueError(f"frame_chunk {chunk} must divide {f_total} frames")
+    embeds = embeds2.repeat(chunk, 1, 1)  # frame-major [uncond, cond]
+    x = x_init
+    for i in range(len(schedule.timesteps)):
+        t = int(schedule.timesteps[i])
+        eps = []
+        for c0 in range(0, f_total, chunk):
+            x_c = x[c0 : c0 + chunk]
+            eps2, _ = unet_apply(_stack_streams(x_c, x_c), t, embeds, None)
+            eps2 = eps2.reshape(chunk, 2, *eps2.shape[1:])
+            eps.append(ddim.classifier_free_guidance(eps2[:, 0], eps2[:, 1], guidance_scale))
+        x = ddim.ddim_step(
+            x, torch.cat(eps), schedule.alpha_t[i], schedule.alpha_prev[i]
+        ).to(x.dtype)
     return x

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``tokenflow_torch/csrc``).
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with a
-plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build
-takes seconds). The library lands in ``build/tokenflow_torch/`` at the repo
+All ``csrc/*.cu`` files compile with ``nvcc``, one process per source, all
+started together, and link into ONE shared library with a plain C
+interface, loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
+seconds). The library lands in ``build/tokenflow_torch/`` at the repo
 root, named by a content hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing here runs at
 import time: the first kernel launch builds.
@@ -23,9 +24,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tokenflow_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-lineinfo",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,9 @@ SIGNATURES = {
     + [ctypes.c_float, _P],
     "tf_token_match": [_P] * 5 + [_I] * 3 + [_P],
     "tf_token_gather": [_P] * 6 + [_I] * 5 + [_P],
+    "tf_token_match_split": [_P] * 6 + [_I] * 3 + [_P],
+    "tf_group_norm": [_P] * 5 + [_I] * 3 + [_L] * 2
+    + [ctypes.c_float, _I, _P],
 }
 
 
@@ -58,7 +63,7 @@ def sources() -> list[Path]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -76,20 +81,33 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    # compile to a private name, then rename: concurrent builders never
+    nvcc = find_nvcc()
+    # build in a private directory, then rename: concurrent builders never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for cu in sorted(CSRC.glob("*.cu")):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu),
+                   "-o", os.path.join(tmp, cu.stem + ".o")]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failed = []
+        for cmd, proc in jobs:  # wait for every compile before raising
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *LINK_FLAGS, "-o", lib, *(c[-1] for c, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(lib, out)
     return out
 
 

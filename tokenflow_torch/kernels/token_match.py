@@ -2,11 +2,11 @@
 version.
 
 Replaces the Pallas TPU kernel ``tokenflow_tpu/kernels/token_match.py``
-(``token_match_gather_pallas``, kernel ``_kernel``) and, with no size gate,
-the large-S contract of ``kernels/token_match_split.py``. For each frame f
-and query token s: the first argmax over pivot tokens of ``x . p_hat`` for
-pivots ``pa[f]`` and ``pb[f]``, then ``w1[f] * kf[:, pa[f], i1] +
-(1 - w1[f]) * kf[:, pb[f], i2]`` for all streams. The CUDA source is
+(``token_match_gather_pallas``, kernel ``_kernel``); the large-S sites go to
+K3 (``kernels/token_match_split.py``), chosen as in the JAX package. For
+each frame f and query token s: the first argmax over pivot tokens of
+``x . p_hat`` for pivots ``pa[f]`` and ``pb[f]``, then ``w1[f] * kf[:, pa[f],
+i1] + (1 - w1[f]) * kf[:, pb[f], i2]`` for all streams. The CUDA source is
 ``tokenflow_torch/csrc/token_match.cu`` (its header gives the design): a
 tensor-core match stage with a running first-max per row writes (2, F, S)
 int32 indices, and a gather stage blends with indexed 16-byte loads. Bound
@@ -73,6 +73,45 @@ def token_match_gather_plain(
     return (out, idx) if return_indices else out
 
 
+def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1, max_d):
+    """The checks shared by the token-match wrappers (K2 and K3): one CUDA
+    device, bf16 tables, agreeing shapes, D % 8 == 0 and D <= max_d, pivot
+    indices in [0, K) (IndexError; the kernels address the tables with them
+    directly). Returns contiguous tables, int32 pa/pb and fp32 w1."""
+    dev = norm_h.device
+    tensors = (norm_h, p_hat, kf_attn, pa, pb, w1)
+    if not norm_h.is_cuda or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name} needs every operand on one CUDA device")
+    if not (norm_h.dtype == p_hat.dtype == kf_attn.dtype == torch.bfloat16):
+        raise NotImplementedError(
+            "the CUDA token-match kernels are instantiated for bf16 tables; got "
+            f"{norm_h.dtype}, {p_hat.dtype}, {kf_attn.dtype}"
+        )
+    f_total, s, d = norm_h.shape
+    k = kf_attn.shape[1]
+    if p_hat.shape != (k, s, d) or kf_attn.shape[2:] != (s, d):
+        raise ValueError(
+            f"shapes disagree: norm_h {tuple(norm_h.shape)}, p_hat "
+            f"{tuple(p_hat.shape)}, kf_attn {tuple(kf_attn.shape)}"
+        )
+    if pa.shape != (f_total,) or pb.shape != (f_total,) or w1.shape != (f_total,):
+        raise ValueError("pa, pb and w1 must have one entry per frame")
+    if d % 8 or d > max_d:
+        raise NotImplementedError(
+            f"{name} needs D % 8 == 0 and D <= {max_d}, got {d}"
+        )
+    if f_total > 65535:
+        raise ValueError(f"{f_total} frames exceed the grid limit")
+    piv = torch.cat([pa.reshape(-1), pb.reshape(-1)])
+    if piv.numel() and bool(((piv < 0) | (piv >= k)).any()):
+        raise IndexError(f"pivot indices must lie in [0, {k})")
+    return (
+        norm_h.contiguous(), p_hat.contiguous(), kf_attn.contiguous(),
+        pa.to(torch.int32).contiguous(), pb.to(torch.int32).contiguous(),
+        w1.to(torch.float32).contiguous(),
+    )
+
+
 def token_match_gather_kernel(
     norm_h: torch.Tensor,  # (F, S, D) bf16
     p_hat: torch.Tensor,  # (K, S, D) bf16, pre-normalized
@@ -84,43 +123,16 @@ def token_match_gather_kernel(
     return_indices: bool = False,
 ):
     """Launch K2 (match stage, then gather stage) on CUDA tensors. Pivot
-    indices outside [0, K) raise IndexError. Returns a new (ns, F, S, D) bf16 tensor, and with ``return_indices``
-    also the (2, F, S) int32 matched token indices."""
+    indices outside [0, K) raise IndexError. Returns a new (ns, F, S, D)
+    bf16 tensor, and with ``return_indices`` also the (2, F, S) int32
+    matched token indices."""
     global launches
+    norm_h, p_hat, kf_attn, pa, pb, w1 = prepare_operands(
+        "token_match_gather_kernel", norm_h, p_hat, kf_attn, pa, pb, w1, _MAX_D
+    )
     dev = norm_h.device
-    tensors = (norm_h, p_hat, kf_attn, pa, pb, w1)
-    if not norm_h.is_cuda or any(t.device != dev for t in tensors):
-        raise ValueError(
-            "token_match_gather_kernel needs every operand on one CUDA device"
-        )
-    if not (norm_h.dtype == p_hat.dtype == kf_attn.dtype == torch.bfloat16):
-        raise NotImplementedError(
-            "the CUDA token-match kernel is instantiated for bf16 tables; got "
-            f"{norm_h.dtype}, {p_hat.dtype}, {kf_attn.dtype}"
-        )
     f_total, s, d = norm_h.shape
     ns, k = kf_attn.shape[:2]
-    if p_hat.shape != (k, s, d) or kf_attn.shape[2:] != (s, d):
-        raise ValueError(
-            f"shapes disagree: norm_h {tuple(norm_h.shape)}, p_hat "
-            f"{tuple(p_hat.shape)}, kf_attn {tuple(kf_attn.shape)}"
-        )
-    if pa.shape != (f_total,) or pb.shape != (f_total,) or w1.shape != (f_total,):
-        raise ValueError("pa, pb and w1 must have one entry per frame")
-    if d % 8 or d > _MAX_D:
-        raise NotImplementedError(
-            f"token-match kernel needs D % 8 == 0 and D <= {_MAX_D}, got {d}"
-        )
-    if f_total > 65535:
-        raise ValueError(f"{f_total} frames exceed the grid limit")
-    # the kernels address the tables with these directly
-    piv = torch.cat([pa.reshape(-1), pb.reshape(-1)])
-    if piv.numel() and bool(((piv < 0) | (piv >= k)).any()):
-        raise IndexError(f"pivot indices must lie in [0, {k})")
-    norm_h, p_hat, kf_attn = (t.contiguous() for t in (norm_h, p_hat, kf_attn))
-    pa = pa.to(torch.int32).contiguous()
-    pb = pb.to(torch.int32).contiguous()
-    w1 = w1.to(torch.float32).contiguous()
     idx = torch.empty((2, f_total, s), dtype=torch.int32, device=dev)
     out = torch.empty((ns, f_total, s, d), dtype=kf_attn.dtype, device=dev)
     if f_total == 0 or s == 0:

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tokenflow_torch.kernels.group_norm import group_norm_kernel, group_norm_plain
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.attention import flash_attention, merge_heads, split_heads
 from tokenflow_torch.ops.extended_attention import extended_attention, inject_source_qk
@@ -27,16 +28,30 @@ from tokenflow_torch.ops.propagation import token_propagation
 
 class FusedGroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics and an optional fused SiLU, cast back
-    to the input dtype (the jnp path of the JAX FusedGroupNorm,
-    tokenflow_tpu/models/layers.py:91-109; its Pallas kernel is opt-in
-    there and not part of this port)."""
+    to the input dtype: the JAX FusedGroupNorm
+    (tokenflow_tpu/models/layers.py:91-109).
+
+    ``use_kernel`` (default off, set by ``runtime.load_stack``) is the
+    counterpart of the JAX opt-in ``TOKENFLOW_PALLAS_GN=1``. Off: the
+    ``F.group_norm`` path, the counterpart of the JAX default flax
+    GroupNorm. On: K4 (``kernels/group_norm.py``) for CUDA tensors and its
+    plain version (fp32 ``E[x^2] - E[x]^2``) for CPU tensors."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  act: Optional[str] = None):
         super().__init__(num_groups, num_channels, eps=eps)
         self.act = act
+        self.use_kernel = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_kernel:
+            if x.is_cuda:
+                norm = group_norm_kernel
+            elif x.device.type == "cpu":
+                norm = group_norm_plain
+            else:
+                raise ValueError(f"no GroupNorm path for device {x.device}")
+            return norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
         y = F.group_norm(
             x.float(), self.num_groups, self.weight.float(), self.bias.float(),
             self.eps,

@@ -19,6 +19,10 @@ from tokenflow_torch.kernels.token_match import (
     token_match_gather_kernel,
     token_match_gather_plain as match_gather,
 )
+from tokenflow_torch.kernels.token_match_split import (
+    token_match_gather_split_kernel,
+    use_split,
+)
 
 __all__ = ["match_gather", "propagation_indices", "token_propagation"]
 
@@ -51,16 +55,20 @@ def token_propagation(
     w1: torch.Tensor,  # (F,)
 ) -> torch.Tensor:
     """Gather per-frame attention outputs from the keyframe cache; returns
-    (ns, F, S, D) in kf_attn's dtype. CUDA tensors launch K2 with the
+    (ns, F, S, D) in kf_attn's dtype. CUDA tensors launch K3 where
+    :func:`use_split` holds (the large-S sites) and K2 elsewhere, with the
     normalized pivots cast to the query dtype (as the TPU dispatch does,
-    tokenflow_tpu/ops/propagation.py:186-194); CPU tensors run the plain
+    tokenflow_tpu/ops/propagation.py:186-209); CPU tensors run the plain
     version on fp32 normalized pivots."""
     p = pivot_h_src.float()
     p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
     if norm_h_src.is_cuda:
-        return token_match_gather_kernel(
-            norm_h_src, p_hat.to(norm_h_src.dtype), kf_attn, pa, pb, w1
+        _, s, d = norm_h_src.shape
+        kernel = (
+            token_match_gather_split_kernel if use_split(s, d, kf_attn.shape[0])
+            else token_match_gather_kernel
         )
+        return kernel(norm_h_src, p_hat.to(norm_h_src.dtype), kf_attn, pa, pb, w1)
     if norm_h_src.device.type != "cpu":
         raise ValueError(f"no propagation path for device {norm_h_src.device}")
     return match_gather(norm_h_src, p_hat, kf_attn, pa, pb, w1)

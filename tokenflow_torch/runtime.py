@@ -20,6 +20,7 @@ import torch
 
 from tokenflow_torch.models import weights as weights_lib
 from tokenflow_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from tokenflow_torch.models.layers import FusedGroupNorm
 from tokenflow_torch.models.unet2d import UNet2DConditionModel, UNet2DConfig
 from tokenflow_torch.models.vae import AutoencoderKL, AutoencoderKLConfig
 from tokenflow_tpu.io.tokenizer import CLIPTokenizer, HashTokenizer
@@ -144,14 +145,24 @@ def load_stack(
     dtype: torch.dtype = torch.bfloat16,
     init: str = "auto",  # "auto" | "pretrained" | "random"
     seed: int = 0,
+    group_norm_kernel: bool = False,
 ) -> SDStack:
     """Build the SD model stack on ``device``. The most recent stack is
     held, so chained stages in one process (preprocess, then the editor)
-    share one set of weights; a different request replaces it."""
+    share one set of weights; a different request replaces it.
+    ``group_norm_kernel`` sets ``use_kernel`` on every GroupNorm of the UNet
+    and the VAE (the sites the JAX switch ``TOKENFLOW_PALLAS_GN=1``
+    reaches); it is applied on every call, so it never sticks to the held
+    stack."""
     found = None if init == "random" else resolve_model_dir(sd_version, model_dir)
     if init == "pretrained" and found is None:
         raise FileNotFoundError(
             f"no checkpoint for sd_version={sd_version} (model_dir={model_dir!r}, "
             "$TOKENFLOW_MODELS, HF cache); pass init='random' for weightless runs"
         )
-    return _build_stack(sd_version, found, dtype, init, seed, torch.device(device))
+    stack = _build_stack(sd_version, found, dtype, init, seed, torch.device(device))
+    for model in (stack.unet, stack.vae):
+        for m in model.modules():
+            if isinstance(m, FusedGroupNorm):
+                m.use_kernel = group_norm_kernel
+    return stack
