@@ -8,7 +8,12 @@ Phases (any failure raises, and the script exits non-zero):
   1. build the hand-written CUDA kernels from ``tokenflow_torch/csrc``;
   2. hold each kernel against its plain PyTorch version at the main path's
      shapes (seeded inputs), with error, flipped-index share and median
-     times (CUDA events) per shape;
+     times (CUDA events) per shape, beside the bound (bytes over 3.35 TB/s
+     or bf16 flops over 989 TFLOP/s, whichever is larger) and, where one
+     PyTorch call computes the same function, that call's time (SDPA for
+     K1, F.group_norm for K4 without SiLU; the port calls neither). K1 also
+     runs on the strided head-split views the pivotal pass gives it, under
+     a watchdog that ends the run if its checks hang;
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
@@ -18,19 +23,24 @@ Phases (any failure raises, and the script exits non-zero):
      with the GroupNorm kernel on: preprocess 24 frames, an 8-step SDEdit
      edit with 3 pivots and a 2-step --vanilla run; all four kernels must
      launch (K3 at the 96x96 level). The edit runs once more with the
-     GroupNorm kernel off, for its step time. Last, one pivotal and one
-     propagation UNet call on the card against the CPU's plain path;
+     GroupNorm kernel off, for its step time. Launches are read after each
+     CLI, so each path reports them per step of its preprocess and edit.
+     Last, one pivotal and one propagation UNet call on the card against
+     the CPU's plain path;
   4. print one JSON line with the kernel table, then the result line
      ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -38,6 +48,14 @@ import torch
 
 # tolerances (see PERF.md "H100 port"): K1 bf16 output, unit-normal inputs
 K1_ATOL = 2e-2
+# K1 against its plain version, per shape: max|err| at most K1_MAX_ULPS
+# bf16 steps at that shape's largest |output| (never above K1_ATOL), and
+# relative L2 at most K1_REL_L2. Another block order of the same numerics
+# (bf16 P, bf16 output) sits at 1 step and ~2e-3; a ragged KV tail counted
+# as zero logits instead of masked gives the 1000 x 3000 row 1.4e-2 at only
+# 2 steps (tests/test_torch_attention.py holds both limits to such cases)
+K1_MAX_ULPS = 4
+K1_REL_L2 = 5e-3
 # K2 on random inputs: share of matched indices allowed to differ from the
 # plain version (fp32 sums in another order break near-ties)
 K2_MAX_FLIP_SHARE = 1e-3
@@ -62,6 +80,14 @@ K1_SHAPES = [  # (B, Sq, Skv, H) with D = 64
     (24, 9216, 9216, 5),  # SDEdit 768p: inversion / vanilla self-attention
     (2, 1000, 3000, 5),  # ragged Q and KV tails
 ]
+# K1's checks end the run if they take longer (a hung kernel)
+K1_PHASE_SECONDS = 300
+# (K pivots, S, heads, inner): PnP 512^2 pivotal pass at the 64x64 level
+K1_STRIDED = (5, 4096, 5, 320)
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
+# dense bf16 tensor-core FLOP/s, at the 700 W power limit
+H100_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
 K2_SHAPES = [  # (S, D)
     (4096, 320), (1024, 640), (256, 1280),  # PnP 512^2 sites
     (2304, 640), (576, 1280),  # SDEdit 768p sites below the top level
@@ -121,35 +147,118 @@ def bf16_ulps_floored(got: torch.Tensor, want: torch.Tensor) -> float:
     return worst
 
 
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and to do
+    ``flops`` bf16 tensor-core operations, at the H100's published peaks."""
+    by_bytes, by_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """Ends the process (exit 3) if the block has not finished in time: a
+    kernel that hangs fails the run instead of eating its limit."""
+
+    def fire():
+        print(f"[watchdog] {what} did not finish in {seconds} s", flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def k1_mismatch(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """K1's output against its plain version: max|err|, its limit at this
+    output's scale, and the relative L2 error."""
+    o, r = out.float(), ref.float()
+    peak = max(float(r.abs().max()), 2.0**-126)
+    return {
+        "max_abs_err": float((o - r).abs().max()),
+        "max_abs_limit": min(K1_ATOL, K1_MAX_ULPS * 2.0 ** (math.floor(math.log2(peak)) - 7)),
+        "rel_l2": float((o - r).norm() / r.norm().clamp_min(1e-30)),
+    }
+
+
+def k1_within_limits(m: dict) -> bool:
+    return m["max_abs_err"] <= m["max_abs_limit"] and m["rel_l2"] <= K1_REL_L2
+
+
+def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
+    """K1 on (q, k, v) against its plain version, with its time, SDPA's on
+    the same tensors (as (B, H, S, D) views: the port never calls it) and
+    the bound."""
+    import torch.nn.functional as F
+
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    out = fa.flash_attention_kernel(q, k, v)
+    ref = fa.flash_attention_plain(q, k, v, kv_block=1024)
+    torch.cuda.synchronize()
+    m = k1_mismatch(out, ref)
+    del out, ref
+    err = m["max_abs_err"]
+    if not k1_within_limits(m):
+        raise AssertionError(
+            f"K1 at {label}: max|err| {err} (limit {m['max_abs_limit']}), "
+            f"rel L2 {m['rel_l2']} (limit {K1_REL_L2})"
+        )
+    ms = median_ms(lambda: fa.flash_attention_kernel(q, k, v))
+    plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, kv_block=1024), runs=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    flops = 4.0 * b * h * sq * skv * d
+    bound_ms, bound_by = bound(2.0 * d * b * h * (2 * sq + 2 * skv), flops)
+    tflops = flops / ms * 1e-9
+    print(
+        f"[K1] {label}: max|err|={err:.3e} (limit {m['max_abs_limit']:.3e}) "
+        f"rel L2 {m['rel_l2']:.3e}, kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
+        f"SDPA {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms",
+        flush=True,
+    )
+    return {"shape": [b, sq, skv, h], "strided": strided, **m,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops}
+
+
 def check_flash(gen: torch.Generator) -> dict:
     from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.ops.attention import split_heads
 
-    worst, rows = 0.0, []
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    rows = []
     for b, sq, skv, h in K1_SHAPES:
-        q = torch.randn((b, sq, h, 64), generator=gen, device="cuda").bfloat16()
-        k = torch.randn((b, skv, h, 64), generator=gen, device="cuda").bfloat16()
-        v = torch.randn((b, skv, h, 64), generator=gen, device="cuda").bfloat16()
-        out = fa.flash_attention_kernel(q, k, v)
-        ref = fa.flash_attention_plain(q, k, v, kv_block=1024)
-        torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max().item())
-        if not err <= K1_ATOL:
-            raise AssertionError(
-                f"K1 at B={b} Sq={sq} Skv={skv} H={h}: max|err| {err} > {K1_ATOL}"
-            )
-        ms = median_ms(lambda: fa.flash_attention_kernel(q, k, v))
-        plain_ms = median_ms(
-            lambda: fa.flash_attention_plain(q, k, v, kv_block=1024), runs=5
+        rows.append(_k1_row(
+            fa, randn(b, sq, h, 64), randn(b, skv, h, 64), randn(b, skv, h, 64),
+            f"B={b} Sq={sq} Skv={skv} H={h} D=64",
+        ))
+        torch.cuda.empty_cache()
+    # the pivotal pass's extended attention as ops/extended_attention.py
+    # passes it: head-split views of the (3, K, S, inner) projections, uncond
+    # and cond streams over K frames; q and k either injected from the
+    # source stream (a broadcast view, which the wrapper copies for TMA) or
+    # the streams' own (injection off, and every SDEdit pivotal pass), so
+    # that all three operands reach the kernel as views
+    kf, s, heads, inner = K1_STRIDED
+    for injected in (True, False):
+        q3, k3 = (
+            randn(1, kf, s, inner).expand(3, kf, s, inner) if injected
+            else randn(3, kf, s, inner) for _ in range(2)
         )
-        print(
-            f"[K1] B={b} Sq={sq} Skv={skv} H={h} D=64: max|err|={err:.3e} "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-            flush=True,
-        )
-        rows.append({"shape": [b, sq, skv, h], "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
-        worst = max(worst, err)
-        del q, k, v, out, ref
+        v3 = randn(3, kf, s, inner)
+        q, k, v = (split_heads(t[1:].reshape(2, kf * s, inner), heads) for t in (q3, k3, v3))
+        rows.append(_k1_row(
+            fa, q, k, v, f"extended attention views K={kf} S={s} H={heads}, q/k "
+            f"{'injected' if injected else 'own'}, strides q {q.stride()} "
+            f"v {v.stride()}", strided=True,
+        ))
+        del q3, k3, v3, q, k, v
         torch.cuda.empty_cache()
     main = rows[0]
     return {
@@ -157,11 +266,22 @@ def check_flash(gen: torch.Generator) -> dict:
         "route": "cuda",
         "source": "tokenflow_torch/csrc/flash_attention.cu",
         "replaces": "tokenflow_tpu/kernels/flash_attention.py:133",
-        "max_abs_err": worst,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "rel_l2": max(r["rel_l2"] for r in rows),
+        **{key: main[key] for key in
+           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops")},
         "shapes": rows,
     }
+
+
+NO_LIBRARY_CALL = "no single PyTorch call computes the match, gather and blend"
+
+
+def _match_bound(f: int, s: int, d: int, k: int, ns: int) -> tuple[float, str]:
+    """Bound of the token match + gather: each frame's (S, D) rows against
+    its two pivots' S rows (4 F S^2 D flops); x, the pivot table and the
+    kf tables read once, the (ns, F, S, D) output written once."""
+    return bound(2.0 * d * s * (f + k + ns * k + ns * f), 4.0 * f * s * s * d)
 
 
 def _match_inputs(gen, s, d, mode, f=K2_F, k=K2_K, ns=K2_NS):
@@ -238,9 +358,12 @@ def check_token_match(gen: torch.Generator) -> dict:
             worst = max(worst, err)
         ms = median_ms(lambda: tm.token_match_gather_kernel(*args))
         plain_ms = median_ms(lambda: tm.token_match_gather_plain(*args), runs=5)
-        print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        bound_ms, bound_by = _match_bound(K2_F, s, d, K2_K, K2_NS)
+        print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.3f} ms", flush=True)
         rows.append({"shape": [K2_F, s, d], "mode": mode, "flipped": flipped,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
         del args, out, idx, ref, ref_idx
         torch.cuda.empty_cache()
     main = rows[0]
@@ -250,8 +373,9 @@ def check_token_match(gen: torch.Generator) -> dict:
         "source": "tokenflow_torch/csrc/token_match.cu",
         "replaces": "tokenflow_tpu/kernels/token_match.py:105",
         "max_abs_err": worst,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library": NO_LIBRARY_CALL,
         "shapes": rows,
     }
 
@@ -290,14 +414,15 @@ def check_token_match_split(gen: torch.Generator) -> dict:
         ms = median_ms(lambda: tms.token_match_gather_split_kernel(*args))
         plain_ms = median_ms(lambda: tms.token_match_gather_split_plain(*args), runs=5)
         k2_ms = median_ms(lambda: tm.token_match_gather_kernel(*args))
+        bound_ms, bound_by = _match_bound(K3_F, s, d, K3_K, K3_NS)
         print(
             f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K2 on the same "
-            f"inputs {k2_ms:.3f} ms",
+            f"inputs {k2_ms:.3f} ms, bound {bound_ms:.3f} ms",
             flush=True,
         )
         rows.append({"shape": [K3_F, s, d], "mode": mode, "flipped": flipped,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "k2_ms": k2_ms})
+                     "k2_ms": k2_ms, "bound_ms": bound_ms, "bound_by": bound_by})
         del args, out, ia, ib, ref, ref_ia, ref_ib, k2_out, k2_idx
         torch.cuda.empty_cache()
     main = rows[0]
@@ -307,8 +432,9 @@ def check_token_match_split(gen: torch.Generator) -> dict:
         "source": "tokenflow_torch/csrc/token_match_split.cu",
         "replaces": "tokenflow_tpu/kernels/token_match_split.py:123",
         "max_abs_err": worst,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library": NO_LIBRARY_CALL,
         "shapes": rows,
     }
 
@@ -341,14 +467,23 @@ def check_group_norm(gen: torch.Generator) -> dict:
             plain_ms = median_ms(
                 lambda: gn.group_norm_plain(x, w, b, 32, eps, act), runs=5
             )
-            print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+            # one PyTorch call computes the variant without SiLU
+            library_ms = None if act else median_ms(
+                lambda: torch.nn.functional.group_norm(x, 32, w, b, eps)
+            )
+            bound_ms, bound_by = bound(2.0 * 2 * x.numel(), 0.0)
+            lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
+            print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"F.group_norm {lib}, bound {bound_ms:.3f} ms", flush=True)
             rows.append({"shape": list(shape), "act": act, "ulps": ulps,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
             worst_err, worst_ulps = max(worst_err, err), max(worst_ulps, ulps)
             del out, ref
         del x, w, b
         torch.cuda.empty_cache()
-    main = rows[0]
+    main = rows[1]  # the first shape without SiLU, which F.group_norm computes
     return {
         "name": "group_norm",
         "route": "cuda",
@@ -356,8 +491,9 @@ def check_group_norm(gen: torch.Generator) -> dict:
         "replaces": "tokenflow_tpu/kernels/group_norm.py:170",
         "max_abs_err": worst_err,
         "max_ulps": worst_ulps,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
+        "main": {"shape": main["shape"], "act": main["act"]},
+        **{key: main[key] for key in
+           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "shapes": rows,
     }
 
@@ -397,6 +533,16 @@ def read_counts() -> dict:
     return {name: m.launches for name, m in kernel_modules().items()}
 
 
+def per_step(pre: dict, after_edit: dict, steps: dict) -> dict:
+    """Launches per denoising step of each kernel: the preprocess CLI's
+    (inversion + reconstruction) and the edit CLI's (its pivotal and
+    propagation passes and the final decode), from the counts read after
+    each."""
+    edit = {n: after_edit[n] - pre[n] for n in pre}
+    return {phase: {n: c / steps[phase] for n, c in counts.items()}
+            for phase, counts in (("inversion+reconstruction", pre), ("edit", edit))}
+
+
 def run_main_path(root: str) -> dict:
     """PnP at 512^2 with the GroupNorm kernel off: K1 and K2 must launch;
     K3 (no site past its table size at 512^2) and K4 (off) must not."""
@@ -420,6 +566,7 @@ def run_main_path(root: str) -> dict:
             "--device", "cuda",
         ])
         t_pre = time.perf_counter() - t0
+        pre_counts = read_counts()
         config = {
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
@@ -464,6 +611,10 @@ def run_main_path(root: str) -> dict:
     ph = metrics["phases_seconds"]
     report = {
         "launches": counts,
+        "launches_per_step": per_step(
+            pre_counts, counts, {"inversion+reconstruction": 2 * inv_steps,
+                                 "edit": edit_steps},
+        ),
         "preprocess_seconds": t_pre,
         "inversion_seconds_per_step": pre["inversion_seconds"] / inv_steps,
         "reconstruction_seconds_per_step": pre["reconstruction_seconds"] / inv_steps,
@@ -519,6 +670,7 @@ def run_sdedit_path(root: str) -> dict:
             "--device", "cuda", "--group_norm_kernel",
         ])
         t_pre = time.perf_counter() - t0
+        pre_counts = read_counts()
         config = {
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
@@ -538,6 +690,7 @@ def run_sdedit_path(root: str) -> dict:
             out_dirs[name] = run_sdedit.resolve_output_path(dict(cfg))["output_path"]
 
         edit("sdedit", config)
+        edit_counts = read_counts()
         edit("vanilla", dict(config, start=0.3), "--vanilla")  # 2 steps
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
@@ -574,6 +727,10 @@ def run_sdedit_path(root: str) -> dict:
         raise AssertionError("the GroupNorm kernel ran with group_norm_kernel off")
     report = {
         "launches": counts["sdedit_path"],
+        "launches_per_step": per_step(
+            pre_counts, edit_counts, {"inversion+reconstruction": 2 * inv_steps,
+                                      "edit": n_steps},
+        ),
         "preprocess_seconds": t_pre,
         "inversion_seconds_per_step": pre["inversion_seconds"] / inv_steps,
         "reconstruction_seconds_per_step": pre["reconstruction_seconds"] / inv_steps,
@@ -676,10 +833,10 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = [
-        check_flash(gen), check_token_match(gen), check_token_match_split(gen),
-        check_group_norm(gen),
-    ]
+    with watchdog(K1_PHASE_SECONDS, "K1's checks"):
+        kernels = [check_flash(gen)]
+    kernels += [check_token_match(gen), check_token_match_split(gen),
+                check_group_norm(gen)]
 
     # phase 3: the paths through the CLIs, each with the counts zeroed
     # just before it and read just after

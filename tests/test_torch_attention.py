@@ -7,6 +7,9 @@ order differs). The Pallas kernel runs in interpret mode, as
 tests/test_kernels.py runs it.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,6 +94,82 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_kernel(q, q, q)
+
+
+def _operand_case(case):
+    base = torch.zeros(3, 16, 320, dtype=torch.bfloat16)
+    if case == "contiguous":
+        return torch.zeros(2, 16, 5, 64, dtype=torch.bfloat16), True
+    if case == "head_split_view":  # ext() of ops/extended_attention.py
+        return base[1:].reshape(2, 16, 5, 64), True
+    if case == "broadcast":  # the injected source-stream q/k
+        return base[:1].expand(3, 16, 320)[1:].reshape(2, 16, 5, 64), False
+    if case == "stride_not_16_bytes":
+        return torch.zeros(2, 16, 5, 68, dtype=torch.bfloat16)[..., :64], False
+    assert case == "base_not_16_bytes"
+    return torch.zeros(2 * 16 * 5 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 16, 5, 64), False
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["contiguous", "head_split_view", "broadcast", "stride_not_16_bytes",
+     "base_not_16_bytes"],
+)
+def test_kernel_operand_meets_tma_rules(case):
+    """K1's TMA tensor maps need a 16-byte aligned base and byte strides
+    that are positive multiples of 16: other tensors are copied first,
+    views that meet the rules are passed as they are."""
+    t, kept = _operand_case(case)
+    got = tfa._kernel_operand(t)
+    assert torch.equal(got, t)
+    assert (got.data_ptr() == t.data_ptr()) is kept
+    assert got.stride(-1) == 1 and got.data_ptr() % 16 == 0
+    assert all(s > 0 and s % 8 == 0 for s in got.stride()[:3])
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize(
+    "case,passes",
+    [("other_block_order", True), ("exact_fp64_rounded", True),
+     ("tail_as_zero_logits", False), ("last_tile_dropped", False)],
+)
+def test_k1_limits_separate_right_from_wrong(case, passes):
+    """chip_smoke.py's K1 limits at its ragged row (1000 x 3000, K1's KV
+    tiles of 128 tokens): outputs with K1's numerics in another block order,
+    or the exact softmax rounded to bf16, pass; a KV tail that takes TMA's
+    zero-filled rows as logit 0 (72 of them) instead of masking them, or a
+    last KV tile left out, fail."""
+    smoke = _chip_smoke()
+    b, sq, skv, h = smoke.K1_SHAPES[-1]
+    assert (sq, skv) == (1000, 3000)
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((b, n, h, 64), generator=g).bfloat16() for n in (sq, skv, skv))
+    ref = tfa.flash_attention_plain(q, k, v, kv_block=1024)
+    tile = 128
+    if case == "other_block_order":
+        out = tfa.flash_attention_plain(q, k, v, kv_block=tile)
+    elif case == "exact_fp64_rounded":
+        out = torch.nn.functional.scaled_dot_product_attention(
+            *(x.double().transpose(1, 2) for x in (q, k, v))
+        ).transpose(1, 2).bfloat16()
+    elif case == "tail_as_zero_logits":
+        pad = k.new_zeros(b, -skv % tile, h, 64)
+        out = tfa.flash_attention_plain(
+            q, torch.cat([k, pad], 1), torch.cat([v, pad], 1), kv_block=tile
+        )
+    else:
+        kept = skv - skv % tile
+        out = tfa.flash_attention_plain(q, k[:, :kept], v[:, :kept], kv_block=tile)
+    m = smoke.k1_mismatch(out, ref)
+    print(case, m)
+    assert smoke.k1_within_limits(m) is passes, m
 
 
 @pytest.mark.parametrize("gate", [None, False, True])

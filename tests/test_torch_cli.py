@@ -1,7 +1,8 @@
 """The port's CLIs end to end on the tiny stack on the CPU: preprocess
 (inversion + reconstruction), then the PnP editor, the SDEdit editor (with
 every GroupNorm on the GroupNorm kernel's switch) and the vanilla SDEdit
-baseline, in a fresh subprocess that must never import JAX. Checks the artifact tree that
+baseline, in a fresh subprocess that must never import JAX or any module
+of the JAX package. Checks the artifact tree that
 tests/test_e2e_cli.py asserts for the JAX CLIs, that the trajectory reads
 back through tokenflow_tpu.io.latents, and the device rules.
 """
@@ -72,7 +73,10 @@ SCRIPT = textwrap.dedent(
         "finite": bool(np.isfinite(decoded).all()),
         "sdedit_shapes": [list(sd.shape), list(van.shape)],
         "sdedit_finite": bool(np.isfinite(sd).all() and np.isfinite(van).all()),
-        "jax_loaded": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib")),
+        "jax_loaded": sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "flax", "jaxlib", "tokenflow_tpu")
+        ),
     }}))
     """
 )

@@ -21,8 +21,8 @@ import yaml
 from tokenflow_torch import runtime, utils
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.editing import pipeline
-from tokenflow_tpu.io import latents as latents_io
-from tokenflow_tpu.io import video as video_io
+from tokenflow_torch.io import latents as latents_io
+from tokenflow_torch.io import video as video_io
 
 VAE_BATCH_SIZE = 10  # reference run_tokenflow_pnp.py:22
 
@@ -108,7 +108,7 @@ class EditorData:
     config: dict
     latents: torch.Tensor  # (F, h, w, 4) scaled, fp32
     eps: torch.Tensor  # (F, h, w, 4) implied inversion noise
-    trajectory: Any  # tokenflow_tpu.io.latents.LatentTrajectory
+    trajectory: Any  # tokenflow_torch.io.latents.LatentTrajectory
     embeds3: torch.Tensor  # (3, 77, D) [inv | uncond | cond]
 
 

@@ -21,8 +21,8 @@ import torch
 from tokenflow_torch import runtime, utils
 from tokenflow_torch.cli.common import DTYPES
 from tokenflow_torch.diffusion import ddim, inversion
-from tokenflow_tpu.io import latents as latents_io
-from tokenflow_tpu.io import video as video_io
+from tokenflow_torch.io import latents as latents_io
+from tokenflow_torch.io import video as video_io
 
 
 def build_eps_fn(stack: runtime.SDStack, cond: torch.Tensor, frame_chunk=None):

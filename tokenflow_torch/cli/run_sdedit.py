@@ -26,8 +26,8 @@ from tokenflow_torch import utils
 from tokenflow_torch.cli import common
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.editing import pipeline
-from tokenflow_tpu.io import video as video_io
-from tokenflow_tpu.profiling import PhaseMetrics
+from tokenflow_torch.io import video as video_io
+from tokenflow_torch.profiling import PhaseMetrics
 
 
 def start_noise(config: dict, eps: torch.Tensor) -> torch.Tensor:

@@ -6,221 +6,551 @@
 // KV tiles, so neither the (Sq, Skv) logits nor an fp32 accumulator ever
 // reach device memory.
 //
-// Design:
-//   - one block of 4 warps per (64-row query tile, head, batch); each warp
-//     owns 16 query rows and keeps their Q fragments, the 16x64 fp32 output
-//     accumulator and the per-row (m, l) in registers;
-//   - a loop over 64-row KV tiles replaces the Pallas sequential KV grid
-//     axis. K is staged row-major and V transposed in padded shared memory
-//     (row stride 72 bf16 keeps the fragment reads bank-conflict free);
-//   - both products run on the tensor cores with mma.sync m16n8k16 bf16 and
-//     fp32 accumulation. The S accumulator layout of two adjacent 8-column
-//     tiles is exactly the A-operand layout of the P V product, so P never
-//     leaves registers;
-//   - softmax in the exp2 domain (scale * log2 e folded into the fp32
-//     logits), the ragged KV tail masked to -inf, the ragged Q tail neither
-//     loaded nor stored.
-// Bound: at head dim 64 the two products do 4 * Sq * Skv * 64 flops against
-// (Sq + 2 Skv) * 64 * 2 bytes per (batch, head), far above the card's
-// ~300 flop/byte ridge, so the kernel is compute bound; what limits this
-// first version is mma.sync issue rate and the unpipelined tile loads
-// (a wgmma/TMA pipeline is later work).
+// Design (FlashAttention-3's structure, cut to what head dim 64 needs):
+//   - one block of four warpgroups per (192-row query tile, head, batch).
+//     Warpgroup 0 is the producer: one thread starts the TMA loads, and the
+//     warpgroup gives its registers to the consumers (setmaxnreg 24/160).
+//     Warpgroups 1-3 are consumers, each owning 64 query rows, so every K/V
+//     tile fetched serves 192 query rows;
+//   - Q (192 x 64) is loaded once by TMA; K and V tiles of 128 tokens x 64
+//     dims (16 KB each) stream through a ring of four stages in dynamic
+//     shared memory. Each stage has a "full" mbarrier for K, one for V (TMA
+//     transaction counts) and an "empty" mbarrier that the 12 consumer warps
+//     arrive on once the stage is read. A 64-dim bf16 row is 128 bytes, so
+//     the TMA boxes and the wgmma descriptors both use the 128-byte swizzle;
+//   - S = Q K^T runs as four wgmma.mma_async m64n128k16 per tile, both
+//     operands from shared memory (K is K-major as it lies in memory);
+//   - the softmax runs on the accumulator registers: row max and sum with
+//     quad shuffles, scale * log2 e applied in the exp2 domain. The
+//     m64nNk16 accumulator layout is the register A-operand layout of the
+//     next wgmma, so P is packed to bf16 in registers and never touches
+//     shared memory;
+//   - O += P V runs as eight wgmma m64n64k16 per tile with A = P from
+//     registers and B = V from shared memory in its natural (token, dim)
+//     layout, which is MN-major for this product (wgmma's transpose bit);
+//   - schedule: the consumers take turns (named barriers) to start Q K^T of
+//     tile j and P V of tile j - 1, so the tensor cores work through one
+//     warpgroup's products while the others run their softmax; and each
+//     warpgroup's softmax of tile j runs while its own P V of tile j - 1 is
+//     still on the tensor cores;
+//   - ragged tiles: TMA zero-fills rows past the tensor's end; the last KV
+//     tile masks its columns >= Skv to -inf, and Q rows >= Sq are not
+//     stored.
+// Bound: per (batch, head) the two products do 4 Sq Skv 64 flops against
+// (Sq + 2 Skv) 128 bytes read and Sq 128 written, thousands of flops per
+// byte at the path's lengths, so the kernel is compute bound (989 TFLOP/s
+// bf16). At head dim 64 the exponentials weigh as much as the products: a
+// score costs the SM 1/16 cycle in the tensor cores (256 flops) and 1/16
+// cycle in MUFU ex2, so the two have to overlap. Measured (PERF.md): about
+// half the bf16 peak at the path's long rows. Which part of the work sets
+// the time is not measured yet; known limits are the grid's partial last
+// wave (no persistent scheduler yet) and, at 4096 tokens, a block that
+// lives for only 32 KV tiles.
 //
 // Layout: tensors are (B, S, H, 64) with arbitrary batch/sequence/head
-// strides (in elements, multiples of 8) and unit stride along the head dim.
+// strides (in elements; positive multiples of 8, which TMA needs as byte
+// strides that are multiples of 16) and unit stride along the head dim.
+// The launcher builds the TMA tensor maps on every call, reaching
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
+// needs no -lcuda.
+#include <cuda.h>
+#include <stdio.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kD = 64;
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 128;
-constexpr int kLds = kD + 8;  // padded smem row (bf16 elements)
+constexpr int kConsumers = 3;         // consumer warpgroups, 64 query rows each
+constexpr int kBM = 64 * kConsumers;  // query rows per block
+constexpr int kBN = 128;              // KV tokens per tile
+constexpr int kStages = 4;
+constexpr int kThreads = 128 * (1 + kConsumers);
+// registers per thread after setmaxnreg: the producer warpgroup gives its
+// share to the consumers, within the SM's 65536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 160;
+static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
+              "register budget");
+constexpr uint32_t kRowBytes = kD * 2;               // 128: one swizzle row
+constexpr uint32_t kTileBytes = kBN * kRowBytes;     // one K or V tile
+constexpr uint32_t kQBytes = kBM * kRowBytes;
+// dynamic shared memory from a 1024-aligned base: Q, K stages, V stages,
+// then the barriers: full_q, full_k[kStages], full_v[kStages], empty[kStages]
+constexpr uint32_t kOffK = kQBytes;
+constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
+constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
+constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
+constexpr uint32_t kConsumerWarps = 4 * kConsumers;
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_d64(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int sq, int skv,
-              long long qsb, long long qss, long long qsh,
-              long long ksb, long long kss, long long ksh,
-              long long vsb, long long vss, long long vsh,
-              long long osb, long long oss, long long osh,
-              float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks_tile[kBK][kLds];
-  __shared__ __align__(16) __nv_bfloat16 vt_tile[kD][kLds];  // [d][kv]
+// error codes of the launcher besides cudaError_t values
+constexpr int kErrNoEncoder = -1;
+constexpr int kErrEncodeBase = -1000;  // minus the CUresult
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int r0 = blockIdx.x * kBQ + warp * 16 + g;
-  const int r1 = r0 + 8;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
 
-  // Q as A fragments, one per 16-wide slice of the head dim
-  uint32_t qf[4][4];
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box of the 4-D map at (c0, c1, c2, c3) -> shared memory, completing on bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+// Tiles are 1024-byte aligned, so the base offset field stays 0.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo_bytes >> 4) << 16 |
+         static_cast<uint64_t>(sbo_bytes >> 4) << 32 | 1ull << 62;
+}
+
+// K-major operand (the reduction dim contiguous, rows 128 bytes apart):
+// 8-row groups 1024 bytes apart; the leading offset is unused
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 16, 8 * kRowBytes);
+}
+
+// MN-major operand (V as (token, dim) for P V: N = dim contiguous, one
+// 128-byte swizzle atom wide): groups of 8 tokens 1024 bytes apart
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
+  return sw128_desc(addr, 8 * kRowBytes, 8 * kRowBytes);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving register reads or writes across the
+// asynchronous wgmma that owns these registers
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int c = s * 16 + 2 * t;
-    qf[s][0] = r0 < sq ? tf::ld32(qb + r0 * qss + c) : 0u;
-    qf[s][1] = r1 < sq ? tf::ld32(qb + r1 * qss + c) : 0u;
-    qf[s][2] = r0 < sq ? tf::ld32(qb + r0 * qss + c + 8) : 0u;
-    qf[s][3] = r1 < sq ? tf::ld32(qb + r1 * qss + c + 8) : 0u;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 128, fp32) = A (64 x 16, K-major smem) . B (16 x 128, K-major
+// smem) + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
+        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64, MN-major
+// smem)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// named barrier `id` between two consumer warpgroups (256 threads): the one
+// whose turn it is syncs, the one handing the turn over arrives
+__device__ __forceinline__ void named_bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// The online softmax of one KV tile on S's registers. The thread holds
+// rows g and g + 8 of its warp's 16: sc[4n], sc[4n + 1] at columns
+// 8n + 2t, 8n + 2t + 1 of row g; sc[4n + 2], sc[4n + 3] of row g + 8.
+// Masks columns >= skv (the ragged tail), moves the running maxima m to
+// the tile's, returns in c the factors that rescale the earlier sums, and
+// turns sc into P = exp2(S scale log2 e - m) in place, adding its row sums
+// to the partial sums l.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+                                             float (&l)[2], float (&c)[2], int kv0,
+                                             int skv, int t, float scale_log2) {
+  if (kv0 + kBN > skv) {
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (kv0 + n * 8 + 2 * t + e >= skv) {
+          sc[4 * n + e] = tf::neg_inf();
+          sc[4 * n + 2 + e] = tf::neg_inf();
+        }
   }
-
-  float acc[8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m0 = tf::neg_inf(), m1 = tf::neg_inf();
-  float l0 = 0.f, l1 = 0.f;  // per-thread partial row sums
-
-  for (int kv0 = 0; kv0 < skv; kv0 += kBK) {
-    __syncthreads();  // the previous tile is consumed
-    // K tile, row-major: consecutive threads read consecutive 16-byte chunks
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (kv0 + r < skv)
-        val = *reinterpret_cast<const uint4*>(kb + (kv0 + r) * kss + c);
-      *reinterpret_cast<uint4*>(&ks_tile[r][c]) = val;
-    }
-    // V tile, transposed: consecutive threads take consecutive rows so the
-    // scattered 2-byte stores land in distinct banks
-    for (int i = tid; i < kBK * (kD / 8); i += kThreads) {
-      const int r = i & (kBK - 1), c = (i / kBK) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (kv0 + r < skv)
-        val = *reinterpret_cast<const uint4*>(vb + (kv0 + r) * vss + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+  for (int r = 0; r < 2; ++r) {
+    // row maximum of the raw logits (scale > 0, so the maximum commutes
+    // with it), four independent chains, then across the quad, whose four
+    // threads hold the same two rows
+    float mx[4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt_tile[c + j][r] = e[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float s[8][4];
+    for (int i = 0; i < 4; ++i) mx[i] = fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 4; n < 16; ++n)
+      mx[n & 3] = fmaxf(mx[n & 3], fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+    float row_max = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+    const float mn = fmaxf(m[r], row_max * scale_log2);
+    c[r] = ex2(m[r] - mn);  // 0 on the first tile
+    m[r] = mn;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kr = &ks_tile[n * 8 + g][kk * 16 + 2 * t];
-        tf::mma_16816(s[n], qf[kk], tf::ld32(kr), tf::ld32(kr + 8));
-      }
-    }
-
-    // scale to the log2 domain, mask the ragged tail, row maxima
-    const bool ragged = kv0 + kBK > skv;
-    float mx0 = tf::neg_inf(), mx1 = tf::neg_inf();
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < 16; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s[n][e] *= scale_log2;
-        s[n][2 + e] *= scale_log2;
-        if (ragged && kv0 + n * 8 + 2 * t + e >= skv) {
-          s[n][e] = tf::neg_inf();
-          s[n][2 + e] = tf::neg_inf();
-        }
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][2 + e]);
+        float& x = sc[4 * n + 2 * r + e];
+        x = ex2(fmaf(x, scale_log2, -mn));
+        sum[n & 3] += x;
       }
-    }
-    // the four threads of a quad hold the same two rows
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);  // 0 on the first tile
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= c0;
-      acc[n][1] *= c0;
-      acc[n][2] *= c1;
-      acc[n][3] *= c1;
-    }
-
-    // P = exp2(S - m), packed straight into A fragments of the P V product
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float p[2][4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int n = 2 * kk + half;
-        p[half][0] = exp2f(s[n][0] - mn0);
-        p[half][1] = exp2f(s[n][1] - mn0);
-        p[half][2] = exp2f(s[n][2] - mn1);
-        p[half][3] = exp2f(s[n][3] - mn1);
-        l0 += p[half][0] + p[half][1];
-        l1 += p[half][2] + p[half][3];
-      }
-      pf[kk][0] = tf::pack_bf16(p[0][0], p[0][1]);
-      pf[kk][1] = tf::pack_bf16(p[0][2], p[0][3]);
-      pf[kk][2] = tf::pack_bf16(p[1][0], p[1][1]);
-      pf[kk][3] = tf::pack_bf16(p[1][2], p[1][3]);
-    }
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* vr = &vt_tile[n * 8 + g][kk * 16 + 2 * t];
-        tf::mma_16816(acc[n], pf[kk], tf::ld32(vr), tf::ld32(vr + 8));
-      }
-    }
+    l[r] = l[r] * c[r] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
   }
+}
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-
-  __nv_bfloat16* ob = o + b * osb + h * osh;
+// acc *= c (row g: c[0], row g + 8: c[1]), and P packed to bf16 straight
+// into the A fragments of the P V product: k-slice kk covers S columns
+// 16kk .. 16kk + 15, the accumulator's 8-column groups 2kk and 2kk + 1
+__device__ __forceinline__ void rescale_and_pack(const float (&sc)[64],
+                                                 float (&acc)[32],
+                                                 uint32_t (&pf)[8][4],
+                                                 const float (&c)[2]) {
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(ob + r0 * oss + c) =
-          tf::pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(ob + r1 * oss + c) =
-          tf::pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+    acc[4 * n] *= c[0];
+    acc[4 * n + 1] *= c[0];
+    acc[4 * n + 2] *= c[1];
+    acc[4 * n + 3] *= c[1];
   }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    pf[kk][0] = tf::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pf[kk][1] = tf::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pf[kk][2] = tf::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pf[kk][3] = tf::pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              __nv_bfloat16* __restrict__ o, int sq, int skv, long long osb,
+              long long oss, long long osh, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + kOffBar;
+  auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
+  const int nkv = (skv + kBN - 1) / kBN;
+  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kQBytes);
+      tma_load_4d(base, &tq, bar_q, 0, q0, h, b);
+      for (int j = 0; j < nkv; ++j) {
+        const int s = j % kStages;
+        mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_k(s), kTileBytes);
+        tma_load_4d(base + kOffK + s * kTileBytes, &tk, full_k(s), 0, j * kBN, h, b);
+        mbar_expect_tx(full_v(s), kTileBytes);
+        tma_load_4d(base + kOffV + s * kTileBytes, &tv, full_v(s), 0, j * kBN, h, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    const int wg = (threadIdx.x >> 7) - 1;
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const uint32_t q_s = base + wg * 64 * kRowBytes;
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float sc[64];
+    uint32_t pf[8][4];
+    float m[2] = {tf::neg_inf(), tf::neg_inf()};  // running max, log2 domain
+    float l[2] = {0.f, 0.f};  // per-thread partial row sums
+    float c[2];
+
+    // The consumer warpgroups take turns, in order, issuing their products
+    // (named barrier 1 + wg is this warpgroup's turn), so that one
+    // warpgroup's softmax runs while the tensor cores work through the
+    // others'. Warpgroup 0 takes the first turn; the last warpgroup skips
+    // its hand-over after its last turn, so every barrier is left balanced.
+    const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % kConsumers;
+    const int n_turns = nkv + 1;
+    int turn = 0;
+    auto take_turn = [&] { named_bar_sync(my_turn); };
+    auto pass_turn = [&] {
+      if (wg < kConsumers - 1 || ++turn < n_turns) named_bar_arrive(next_turn);
+    };
+    if (wg == kConsumers - 1) named_bar_arrive(next_turn);
+
+    // tile j's S = Q K^T: this warpgroup's 64 rows x 128 kv columns
+    auto mma_qk = [&](int j) {
+      const uint32_t k_s = base + kOffK + (j % kStages) * kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n128k16_ss(sc, kmajor_desc(q_s + kk * 32),
+                            kmajor_desc(k_s + kk * 32), kk);
+    };
+    // O += P V over tile j's 128 tokens, 16 per wgmma
+    auto mma_pv = [&](int j) {
+      const uint32_t v_s = base + kOffV + (j % kStages) * kTileBytes;
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_m64n64k16_rs(acc, pf[kk], mnmajor_desc(v_s + kk * 16 * kRowBytes));
+    };
+    auto release = [&](int j) {  // this warp is done with tile j's stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(j % kStages));
+    };
+    auto parity = [](int j) { return static_cast<uint32_t>((j / kStages) & 1); };
+
+    mbar_wait(bar_q, 0);
+    mbar_wait(full_k(0), 0);
+    take_turn();
+    wgmma_fence();
+    mma_qk(0);
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(sc, m, l, c, 0, skv, t, scale_log2);
+    rescale_and_pack(sc, acc, pf, c);
+    for (int j = 1; j < nkv; ++j) {
+      // Q K^T of this tile, then P V of the previous one, in one turn; the
+      // softmax of this tile runs while P V is still on the tensor cores
+      mbar_wait(full_k(j % kStages), parity(j));
+      mbar_wait(full_v((j - 1) % kStages), parity(j - 1));
+      take_turn();
+      fence_regs(acc);
+      fence_regs(pf);
+      wgmma_fence();
+      mma_qk(j);
+      wgmma_commit();
+      mma_pv(j - 1);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax_tile(sc, m, l, c, j * kBN, skv, t, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(j - 1);
+      rescale_and_pack(sc, acc, pf, c);
+    }
+    mbar_wait(full_v((nkv - 1) % kStages), parity(nkv - 1));
+    take_turn();
+    fence_regs(acc);
+    fence_regs(pf);
+    wgmma_fence();
+    mma_pv(nkv - 1);
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(nkv - 1);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+
+    const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
+    __nv_bfloat16* ob = o + b * osb + h * osh;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (r0 < sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
+            tf::pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      if (r1 < sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
+            tf::pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// 4-D map over (dim, seq, head, batch) of a (B, S, H, 64) bf16 tensor with
+// element strides (sb, ss, sh), boxes of `rows` tokens x 64 dims
+int make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int seq,
+             int heads, int batch, long long sb, long long ss, long long sh,
+             uint32_t rows) {
+  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kD, rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - static_cast<int>(r);
 }
 
 }  // namespace
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
+// Launches on `stream`; returns 0 on success, a cudaError_t of the launch,
+// or a negative code for a refused tensor map (tf_error_string).
 extern "C" int tf_flash_attention_d64(
     const void* q, const void* k, const void* v, void* o, int batch,
     int heads, int sq, int skv, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, float scale,
     void* stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  CUtensorMap tq, tk, tv;
+  int rc = make_map(&tq, encode, q, sq, heads, batch, qsb, qss, qsh, kBM);
+  if (rc == 0) rc = make_map(&tk, encode, k, skv, heads, batch, ksb, kss, ksh, kBN);
+  if (rc == 0) rc = make_map(&tv, encode, v, skv, heads, batch, vsb, vss, vsh, kBN);
+  if (rc != 0) return rc;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_d64, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((sq + kBM - 1) / kBM, heads, batch);
   const float scale_log2 = scale * 1.4426950408889634f;
-  flash_fwd_d64<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      skv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,
+  flash_fwd_d64<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, skv, osb, oss, osh,
       scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* tf_error_string(int code) {
+  static thread_local char buf[96];
+  if (code == kErrNoEncoder)
+    return "cudaGetDriverEntryPoint found no cuTensorMapEncodeTiled";
+  if (code <= kErrEncodeBase) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
+             kErrEncodeBase - code);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -4,15 +4,19 @@ Replaces the Pallas TPU kernel ``tokenflow_tpu/kernels/flash_attention.py``
 (``flash_attention_bhsd``, kernel ``_flash_kernel``): softmax(Q K^T scale) V
 with an online softmax that keeps (acc, m, l) in fp32 on chip across KV
 tiles. The CUDA source is ``tokenflow_torch/csrc/flash_attention.cu``; its
-header comment gives the design. Bound on the H100: compute (4 Sq Skv D
-flops against (Sq + 2 Skv) D bf16 bytes per head); this first version runs
-mma.sync bf16 tiles with fp32 accumulation and unpipelined tile loads.
+header comment gives the design (TMA loads into an mbarrier ring, wgmma
+products, a producer warpgroup and three consumer warpgroups). Bound on
+the H100: compute (4 Sq Skv D flops against (Sq + 2 Skv) D bf16 bytes per
+head).
 
 The wrapper takes the framework's (B, S, H, D) layout and passes strides
-to the kernel (no (B, H, S, D) copy); a tensor whose strides are not
-multiples of 8 elements or whose base is not 16-byte aligned is first made
-contiguous. Instantiated for bf16 and D = 64 (every SD-2.1 site); any other
-dtype or head dim on CUDA raises.
+to the kernel (no (B, H, S, D) copy), from which the kernel's TMA tensor
+maps are built. TMA needs a 16-byte aligned base and byte strides that are
+positive multiples of 16, so a tensor whose strides are not positive
+multiples of 8 elements (a broadcast ``expand`` view has stride 0) or whose
+base is not 16-byte aligned is first copied into a new contiguous tensor.
+Instantiated for bf16 and D = 64 (every SD-2.1 site); any other dtype or
+head dim on CUDA raises.
 """
 
 from __future__ import annotations
@@ -69,10 +73,12 @@ def flash_attention_plain(
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
     ok = (
         t.stride(-1) == 1
-        and all(s % 8 == 0 for s in t.stride()[:3])
+        and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
         and t.data_ptr() % 16 == 0
     )
-    return t if ok else t.contiguous()
+    # a clone, not .contiguous(), which returns a contiguous view at a
+    # misaligned base as it is
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_kernel(

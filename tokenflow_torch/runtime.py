@@ -23,7 +23,7 @@ from tokenflow_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from tokenflow_torch.models.layers import FusedGroupNorm
 from tokenflow_torch.models.unet2d import UNet2DConditionModel, UNet2DConfig
 from tokenflow_torch.models.vae import AutoencoderKL, AutoencoderKLConfig
-from tokenflow_tpu.io.tokenizer import CLIPTokenizer, HashTokenizer
+from tokenflow_torch.io.tokenizer import CLIPTokenizer, HashTokenizer
 
 MODEL_KEYS = {
     "2.1": "stabilityai/stable-diffusion-2-1-base",
