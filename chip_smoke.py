@@ -13,7 +13,10 @@ Phases (any failure raises, and the script exits non-zero):
      PyTorch call computes the same function, that call's time (SDPA for
      K1, F.group_norm for K4 without SiLU; the port calls neither). K1 also
      runs on the strided head-split views the pivotal pass gives it, under
-     a watchdog that ends the run if its checks hang;
+     a watchdog that ends the run if its checks hang. K2 and K3 run at
+     every site of both paths with the F the path passes, timed as the
+     wrapper call, the kernel launch and the launch without output (the
+     match stage alone), and once more against each other across S;
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
@@ -88,13 +91,23 @@ K1_STRIDED = (5, 4096, 5, 320)
 # dense bf16 tensor-core FLOP/s, at the 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
-K2_SHAPES = [  # (S, D)
-    (4096, 320), (1024, 640), (256, 1280),  # PnP 512^2 sites
-    (2304, 640), (576, 1280),  # SDEdit 768p sites below the top level
-    (9216, 320),  # the 768p top level (K3's site), K2 off its path
+K2_SHAPES = [  # (S, D, F, K): F frames per launch as the path passes them
+    (4096, 320, 40, 5), (1024, 640, 40, 5), (256, 1280, 40, 5),  # PnP 512^2 sites
+    (64, 1280, 40, 5),  # PnP 512^2 mid block
+    # SDEdit 768p sites below the top level, per propagate_chunk of 8 frames
+    (2304, 640, 8, 3), (576, 1280, 8, 3),
+    (144, 1280, 8, 3),  # 768p mid block, ragged against the core's 128-token tiles
+    (9216, 320, 40, 5),  # the 768p top level (K3's site), K2 off its path
 ]
-K2_F, K2_K, K2_NS = 40, 5, 3
-K3_S, K3_D, K3_F, K3_K, K3_NS = 9216, 320, 24, 3, 3  # SDEdit 768p top level
+K2_NS = 3
+# the ragged row where every real similarity is negative: a zero-filled tail
+# column read as similarity 0 would win every row
+K2_NEGATIVE = (144, 1280, 8, 3)
+K3_S, K3_D, K3_K, K3_NS = 9216, 320, 3, 3  # SDEdit 768p top level
+K3_F = 24  # three propagate_chunks of 8 frames in one launch
+K3_CHUNK_F = 8  # the per-chunk launch of the path
+# K2 against K3 on the same inputs across S at D = 320, one 8-frame chunk
+K2_K3_SWEEP = [(2304, 320), (4096, 320), (9216, 320)]
 GN_SHAPES = [  # (B, C, H, W), groups 32
     (9, 320, 96, 96),  # pivotal pass, 96^2 (resident spans)
     (24, 640, 48, 48),  # propagation chunk, 48^2
@@ -284,37 +297,58 @@ def _match_bound(f: int, s: int, d: int, k: int, ns: int) -> tuple[float, str]:
     return bound(2.0 * d * s * (f + k + ns * k + ns * f), 4.0 * f * s * s * d)
 
 
-def _match_inputs(gen, s, d, mode, f=K2_F, k=K2_K, ns=K2_NS):
+def _stage_bounds(f: int, s: int, d: int, k: int, ns: int) -> dict:
+    """The bound of each stage alone: the match reads x and the pivot table
+    and writes (2, F, S) int32 indices; the gather reads the indices and the
+    kf tables and writes the output."""
+    match_ms, _ = bound(2.0 * d * s * (f + k) + 8.0 * f * s, 4.0 * f * s * s * d)
+    gather_ms, _ = bound(2.0 * d * s * ns * (k + f) + 8.0 * f * s, 0.0)
+    return {"match_bound_ms": match_ms, "gather_bound_ms": gather_ms}
+
+
+def _match_inputs(gen, s, d, mode, f, k, ns=K2_NS, device="cuda"):
+    """Seeded (x, p_hat, kf, pa, pb, w1) on ``device``. Modes: "random";
+    "separated" (pivot rows are permuted base rows plus noise, so every
+    query has one clear match); "ties" (every pivot row appears four times,
+    at 2m and 2m + 1 in the first half and again in the second half, so
+    the first maximum is the even row of the first half, with its equals
+    in the same 128-token tile and in a later one); "negative" (positive
+    pivot rows, negative query rows: every real similarity is below 0)."""
     from tokenflow_torch.ops.propagation import propagation_indices
 
     pa, pb, w1 = (
-        torch.as_tensor(a, device="cuda") for a in propagation_indices(f, f // k)
+        torch.as_tensor(a, device=device)
+        for a in propagation_indices(f, -(-f // k))
     )
     if mode == "random":
-        x = torch.randn((f, s, d), generator=gen, device="cuda")
-        p = torch.randn((k, s, d), generator=gen, device="cuda")
+        x = torch.randn((f, s, d), generator=gen, device=device)
+        p = torch.randn((k, s, d), generator=gen, device=device)
     elif mode == "separated":  # pivot rows: permuted base rows plus noise
-        base = torch.randn((s, d), generator=gen, device="cuda")
+        base = torch.randn((s, d), generator=gen, device=device)
 
         def perm():
-            return torch.randperm(s, generator=gen, device="cuda")
+            return torch.randperm(s, generator=gen, device=device)
 
         x = torch.stack([base[perm()] for _ in range(f)])
         p = torch.stack([base[perm()] for _ in range(k)])
-        x = x + 0.01 * torch.randn(x.shape, generator=gen, device="cuda")
-        p = p + 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
-    else:  # "ties": every pivot row appears twice, at 2m and 2m + 1
-        base = torch.randn((s // 2, d), generator=gen, device="cuda")
-        pick = torch.randint(0, s // 2, (f, s), generator=gen, device="cuda")
-        x = base[pick] + 0.01 * torch.randn((f, s, d), generator=gen, device="cuda")
+        x = x + 0.01 * torch.randn(x.shape, generator=gen, device=device)
+        p = p + 0.01 * torch.randn(p.shape, generator=gen, device=device)
+    elif mode == "negative":
+        x = -torch.randn((f, s, d), generator=gen, device=device).abs()
+        p = torch.randn((k, s, d), generator=gen, device=device).abs()
+    else:  # "ties"
+        assert mode == "ties" and s % 4 == 0, (mode, s)
+        base = torch.randn((s // 4, d), generator=gen, device=device)
+        pick = torch.randint(0, s // 4, (f, s), generator=gen, device=device)
+        x = base[pick] + 0.01 * torch.randn((f, s, d), generator=gen, device=device)
         p = torch.stack([
-            base[torch.randperm(s // 2, generator=gen, device="cuda")]
+            base[torch.randperm(s // 4, generator=gen, device=device)]
             for _ in range(k)
         ])
-        p = p + 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
-        p = p.repeat_interleave(2, dim=1)
+        p = p + 0.01 * torch.randn(p.shape, generator=gen, device=device)
+        p = p.repeat_interleave(2, dim=1).repeat(1, 2, 1)
     p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
-    kf = torch.randn((ns, k, s, d), generator=gen, device="cuda")
+    kf = torch.randn((ns, k, s, d), generator=gen, device=device)
     return x.bfloat16(), p_hat.bfloat16(), kf.bfloat16(), pa, pb, w1
 
 
@@ -322,7 +356,8 @@ def _match_verdict(tag, mode, idx, ref_idx, out, ref):
     """(line, flipped share, max|err|) of a token-match kernel against its
     plain version; raises past the tolerances of ``mode``: identical
     indices and <= 1 ulp on separated or duplicated-row inputs (ties to the
-    earlier row), <= K2_MAX_FLIP_SHARE flipped on random ones."""
+    earlier row: an even row of the first half), <= K2_MAX_FLIP_SHARE
+    flipped on random and all-negative ones."""
     flipped = float((idx.long() != ref_idx).float().mean().item())
     err = float((out.float() - ref.float()).abs().max().item())
     same = (idx.long() == ref_idx).all(dim=0)  # (F, S) tokens matched alike
@@ -331,40 +366,81 @@ def _match_verdict(tag, mode, idx, ref_idx, out, ref):
     if mode in ("separated", "ties"):
         if flipped != 0.0 or ulps > 1:
             raise AssertionError(f"{line}: indices must agree, <= 1 ulp")
-        if mode == "ties" and bool((idx % 2).any()):
-            raise AssertionError(f"{line}: a tie resolved to the later row")
+        if mode == "ties" and bool(((idx % 2) | (idx >= idx.shape[-1] // 2)).any()):
+            raise AssertionError(f"{line}: a tie resolved to a later row")
     elif flipped > K2_MAX_FLIP_SHARE or ulps > 1:
         raise AssertionError(f"{line}: above {K2_MAX_FLIP_SHARE} flipped")
     return line, flipped, err
 
 
+def _stage_times(launch, tm, args) -> dict:
+    """Median times (CUDA events around each launch) of one launch of the
+    kernel alone, of the same launch with no output (the match stage: the
+    indices only), and their difference, the gather + blend epilogue.
+    ``launch(ops, idx, out)`` is K2's or K3's launcher."""
+    ops = tm.prepare_operands("stage timing", *args)
+    f, s, d = ops[0].shape
+    idx = torch.empty((2, f, s), dtype=torch.int32, device="cuda")
+    out = torch.empty((ops[2].shape[0], f, s, d), dtype=torch.bfloat16, device="cuda")
+    kernel_ms = median_ms(lambda: launch(ops, idx, out))
+    match_ms = median_ms(lambda: launch(ops, idx, None))
+    return {"kernel_ms": kernel_ms, "match_ms": match_ms,
+            "gather_ms": kernel_ms - match_ms}
+
+
+def _k3_launch(tms):
+    return lambda ops, idx, out: tms.launch(ops, idx[0, :, None], idx[1, :, None], out)
+
+
+def _match_row(tag, kernel, plain, launch, args, mode, f, s, d, k, extra=None):
+    """One token-match row: the kernel against its plain version (raises past
+    the tolerances of ``mode``), the pair's, the stages' and the plain
+    version's times, and the bounds. ``kernel`` and ``plain`` return (out,
+    (2, F, S) indices)."""
+    from tokenflow_torch.kernels import token_match as tm
+
+    out, idx = kernel(*args)
+    ref, ref_idx = plain(*args)
+    torch.cuda.synchronize()
+    line, flipped, err = _match_verdict(
+        f"{tag} F={f} K={k} ns={K2_NS} S={s} D={d}", mode, idx, ref_idx.long(), out, ref,
+    )
+    if extra is not None:
+        line += extra(out, idx)
+    ms = median_ms(lambda: kernel(*args))
+    stages = _stage_times(launch, tm, args)
+    plain_ms = median_ms(lambda: plain(*args), runs=5)
+    bound_ms, bound_by = _match_bound(f, s, d, k, K2_NS)
+    stage_bounds = _stage_bounds(f, s, d, k, K2_NS)
+    print(f"{line} wrapper {ms:.3f} ms, kernel {stages['kernel_ms']:.3f} (match "
+          f"{stages['match_ms']:.3f}, gather {stages['gather_ms']:.3f}), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"(match {stage_bounds['match_bound_ms']:.3f}, gather "
+          f"{stage_bounds['gather_bound_ms']:.3f})", flush=True)
+    return {"shape": [f, s, d], "k": k, "mode": mode, "flipped": flipped,
+            "max_abs_err": err, "ms": ms, **stages, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, **stage_bounds}
+
+
 def check_token_match(gen: torch.Generator) -> dict:
     from tokenflow_torch.kernels import token_match as tm
 
+    def kernel(*args):
+        return tm.token_match_gather_kernel(*args, return_indices=True)
+
+    def plain(*args):
+        return tm.token_match_gather_plain(*args, return_indices=True)
+
+    cases = [(row, "separated") for row in K2_SHAPES]
+    cases += [(row, "random") for row in K2_SHAPES]
+    cases += [(K2_SHAPES[0], "ties"), (K2_NEGATIVE, "negative")]
     worst, rows = 0.0, []
-    cases = [(s, d, "separated") for s, d in K2_SHAPES]
-    cases += [(s, d, "random") for s, d in K2_SHAPES]
-    cases += [(K2_SHAPES[0][0], K2_SHAPES[0][1], "ties")]
-    for s, d, mode in cases:
-        args = _match_inputs(gen, s, d, mode)
-        out, idx = tm.token_match_gather_kernel(*args, return_indices=True)
-        ref, ref_idx = tm.token_match_gather_plain(*args, return_indices=True)
-        torch.cuda.synchronize()
-        line, flipped, err = _match_verdict(
-            f"[K2] F={K2_F} K={K2_K} ns={K2_NS} S={s} D={d}", mode, idx, ref_idx,
-            out, ref,
-        )
+    for (s, d, f, k), mode in cases:
+        args = _match_inputs(gen, s, d, mode, f, k)
+        rows.append(_match_row("[K2]", kernel, plain, tm.launch, args, mode, f, s, d, k))
         if mode != "random":
-            worst = max(worst, err)
-        ms = median_ms(lambda: tm.token_match_gather_kernel(*args))
-        plain_ms = median_ms(lambda: tm.token_match_gather_plain(*args), runs=5)
-        bound_ms, bound_by = _match_bound(K2_F, s, d, K2_K, K2_NS)
-        print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms", flush=True)
-        rows.append({"shape": [K2_F, s, d], "mode": mode, "flipped": flipped,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-        del args, out, idx, ref, ref_idx
+            worst = max(worst, rows[-1]["max_abs_err"])
+        del args
         torch.cuda.empty_cache()
     main = rows[0]
     return {
@@ -373,7 +449,8 @@ def check_token_match(gen: torch.Generator) -> dict:
         "source": "tokenflow_torch/csrc/token_match.cu",
         "replaces": "tokenflow_tpu/kernels/token_match.py:105",
         "max_abs_err": worst,
-        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{key: main[key] for key in
+           ("ms", "kernel_ms", "match_ms", "gather_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "library": NO_LIBRARY_CALL,
         "shapes": rows,
@@ -381,49 +458,46 @@ def check_token_match(gen: torch.Generator) -> dict:
 
 
 def check_token_match_split(gen: torch.Generator) -> dict:
-    """K3 at the 768p top level against its plain version, with K2's
-    tolerances; its indices must also equal K2's (the two kernels run the
-    same tile arithmetic)."""
+    """K3 at the 768p top level, in one launch of three chunks and in the
+    path's per-chunk launch, and at the ragged all-negative row, against its
+    plain version with K2's tolerances; its indices and output must also
+    equal K2's bit for bit (the two entry points launch one match core).
+    Then K2 against K3 on the same inputs across S."""
     from tokenflow_torch.kernels import token_match as tm
     from tokenflow_torch.kernels import token_match_split as tms
 
-    s, d = K3_S, K3_D
-    if not tms.use_split(s, d, K3_NS):
-        raise AssertionError(f"(S, D) = ({s}, {d}) is not a K3 site")
-    worst, rows = 0.0, []
-    for mode in ("separated", "random", "ties"):
-        args = _match_inputs(gen, s, d, mode, f=K3_F, k=K3_K, ns=K3_NS)
+    if not tms.use_split(K3_S, K3_D, K3_NS):
+        raise AssertionError(f"(S, D) = ({K3_S}, {K3_D}) is not a K3 site")
+
+    def kernel(*args):
         out, ia, ib = tms.token_match_gather_split_kernel(*args, return_indices=True)
-        ref, ref_ia, ref_ib = tms.token_match_gather_split_plain(
-            *args, return_indices=True
-        )
-        torch.cuda.synchronize()
-        if ia.shape != (K3_F, 1, s) or ia.dtype != torch.int32:
+        if ia.shape != (args[0].shape[0], 1, args[0].shape[1]) or ia.dtype != torch.int32:
             raise AssertionError(f"K3 indices {tuple(ia.shape)} {ia.dtype}")
-        idx = torch.stack([ia[:, 0], ib[:, 0]])
-        ref_idx = torch.stack([ref_ia[:, 0], ref_ib[:, 0]]).long()
-        line, flipped, err = _match_verdict(
-            f"[K3] F={K3_F} K={K3_K} ns={K3_NS} S={s} D={d}", mode, idx, ref_idx,
-            out, ref,
-        )
-        k2_out, k2_idx = tm.token_match_gather_kernel(*args, return_indices=True)
-        if not (torch.equal(k2_idx, idx) and torch.equal(k2_out, out)):
-            raise AssertionError(f"{line}: K3 and K2 disagree")
+        return out, torch.stack([ia[:, 0], ib[:, 0]])
+
+    def plain(*args):
+        ref, ref_ia, ref_ib = tms.token_match_gather_split_plain(*args, return_indices=True)
+        return ref, torch.stack([ref_ia[:, 0], ref_ib[:, 0]])
+
+    def k2_line(args):
+        def extra(out, idx):
+            k2_out, k2_idx = tm.token_match_gather_kernel(*args, return_indices=True)
+            if not (torch.equal(k2_idx, idx) and torch.equal(k2_out, out)):
+                raise AssertionError("K3 and K2 disagree")
+            return ", K2 bitwise equal"
+        return extra
+
+    cases = [(K3_S, K3_D, K3_F, mode) for mode in ("separated", "random", "ties")]
+    cases += [(K3_S, K3_D, K3_CHUNK_F, mode) for mode in ("separated", "random")]
+    cases += [(K2_NEGATIVE[0], K2_NEGATIVE[1], K2_NEGATIVE[2], "negative")]
+    worst, rows = 0.0, []
+    for s, d, f, mode in cases:
+        args = _match_inputs(gen, s, d, mode, f, K3_K, K3_NS)
+        rows.append(_match_row("[K3]", kernel, plain, _k3_launch(tms), args, mode, f, s,
+                               d, K3_K, extra=k2_line(args)))
         if mode != "random":
-            worst = max(worst, err)
-        ms = median_ms(lambda: tms.token_match_gather_split_kernel(*args))
-        plain_ms = median_ms(lambda: tms.token_match_gather_split_plain(*args), runs=5)
-        k2_ms = median_ms(lambda: tm.token_match_gather_kernel(*args))
-        bound_ms, bound_by = _match_bound(K3_F, s, d, K3_K, K3_NS)
-        print(
-            f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, K2 on the same "
-            f"inputs {k2_ms:.3f} ms, bound {bound_ms:.3f} ms",
-            flush=True,
-        )
-        rows.append({"shape": [K3_F, s, d], "mode": mode, "flipped": flipped,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "k2_ms": k2_ms, "bound_ms": bound_ms, "bound_by": bound_by})
-        del args, out, ia, ib, ref, ref_ia, ref_ib, k2_out, k2_idx
+            worst = max(worst, rows[-1]["max_abs_err"])
+        del args
         torch.cuda.empty_cache()
     main = rows[0]
     return {
@@ -432,11 +506,46 @@ def check_token_match_split(gen: torch.Generator) -> dict:
         "source": "tokenflow_torch/csrc/token_match_split.cu",
         "replaces": "tokenflow_tpu/kernels/token_match_split.py:123",
         "max_abs_err": worst,
-        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{key: main[key] for key in
+           ("ms", "kernel_ms", "match_ms", "gather_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "library": NO_LIBRARY_CALL,
         "shapes": rows,
+        "k2_vs_k3": sweep_k2_k3(gen),
     }
+
+
+def sweep_k2_k3(gen: torch.Generator) -> list:
+    """K2 and K3 on the same separated inputs, one 8-frame chunk at D =
+    320 across S: the pairs' and the match stages' times (data for the
+    K2/K3 dispatch rule), outputs bitwise equal."""
+    from tokenflow_torch.kernels import token_match as tm
+    from tokenflow_torch.kernels import token_match_split as tms
+
+    rows = []
+    for s, d in K2_K3_SWEEP:
+        args = _match_inputs(gen, s, d, "separated", K3_CHUNK_F, K3_K, K3_NS)
+        k2_out = tm.token_match_gather_kernel(*args)
+        k3_out = tms.token_match_gather_split_kernel(*args)
+        if not torch.equal(k2_out, k3_out):
+            raise AssertionError(f"K2 and K3 disagree at S={s} D={d}")
+        row = {
+            "shape": [K3_CHUNK_F, s, d],
+            "k2_ms": median_ms(lambda: tm.token_match_gather_kernel(*args)),
+            "k3_ms": median_ms(lambda: tms.token_match_gather_split_kernel(*args)),
+            "k2_match_ms": _stage_times(tm.launch, tm, args)["match_ms"],
+            "k3_match_ms": _stage_times(_k3_launch(tms), tm, args)["match_ms"],
+            "use_split": tms.use_split(s, d, K3_NS),
+            "bound_ms": _match_bound(K3_CHUNK_F, s, d, K3_K, K3_NS)[0],
+        }
+        print(f"[K2 vs K3] F={K3_CHUNK_F} S={s} D={d}: K2 {row['k2_ms']:.3f} ms (match "
+              f"{row['k2_match_ms']:.3f}), K3 {row['k3_ms']:.3f} ms (match "
+              f"{row['k3_match_ms']:.3f}), bound {row['bound_ms']:.3f} ms, use_split "
+              f"{row['use_split']}", flush=True)
+        rows.append(row)
+        del args, k2_out, k3_out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_group_norm(gen: torch.Generator) -> dict:

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tokenflow_torch.kernels import flash_attention as tfa
+from tokenflow_torch.kernels._operands import tma_operand
 from tokenflow_torch.ops import attention as tatt
 from tokenflow_torch.ops import extended_attention as text
 from tokenflow_tpu.kernels.flash_attention import flash_attention_bhsd
@@ -120,7 +121,7 @@ def test_kernel_operand_meets_tma_rules(case):
     that are positive multiples of 16: other tensors are copied first,
     views that meet the rules are passed as they are."""
     t, kept = _operand_case(case)
-    got = tfa._kernel_operand(t)
+    got = tma_operand(t)
     assert torch.equal(got, t)
     assert (got.data_ptr() == t.data_ptr()) is kept
     assert got.stride(-1) == 1 and got.data_ptr() % 16 == 0

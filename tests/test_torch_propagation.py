@@ -7,6 +7,9 @@ exactly; gathered values then agree to fp32 rounding of the blend (atol
 1e-6). One case duplicates pivot rows to check the first-maximum rule.
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -105,6 +108,127 @@ def test_token_propagation_matches_jax(ns):
     want = jprop.token_propagation(*(jnp.asarray(a) for a in (x, p, kf, pa, pb, w1)))
     assert got.shape == (ns, f, s, d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("f,k,s,d", [(4, 2, 144, 16), (4, 3, 200, 24)])
+def test_match_gather_negative_similarities_match_jnp(f, k, s, d):
+    """Every similarity below 0 (negative query rows, positive pivot rows)
+    at a ragged S: the match must still pick the largest real similarity,
+    as jnp_match_gather does (a kernel tail read as 0 would win instead)."""
+    rng = np.random.default_rng(s + d)
+    x = -np.abs(rng.standard_normal((f, s, d))).astype(np.float32)
+    p_hat = _p_hat(np.abs(rng.standard_normal((k, s, d)))).astype(np.float32)
+    kf = rng.standard_normal((3, k, s, d)).astype(np.float32)
+    pa, pb, w1 = jprop.propagation_indices(f, -(-f // k))
+    got, idx = ttm.token_match_gather_plain(
+        *_torch_args(x, p_hat, kf, pa, pb, w1), return_indices=True
+    )
+    assert (np.einsum("fsd,fzd->fsz", x, p_hat[pa]) < 0).all()
+    want = jprop.jnp_match_gather(*(jnp.asarray(a) for a in (x, p_hat, kf, pa, pb, w1)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+    assert int(idx.max()) < s
+
+
+def _operand_case(case):
+    f, k, s = 2, 3, 16
+    d = ttm.MAX_D + 8 if case == "d_too_large" else 64
+    norm_h = torch.zeros(f, s, d, dtype=torch.bfloat16)
+    if case == "misaligned":  # contiguous, base 2 bytes past a 16-byte boundary
+        norm_h = torch.zeros(f * s * d + 1, dtype=torch.bfloat16)[1:].view(f, s, d)
+    elif case == "strided":  # every other row of a larger table
+        norm_h = torch.zeros(f, 2 * s, d, dtype=torch.bfloat16)[:, ::2]
+    args = (
+        norm_h, torch.zeros(k, s, d, dtype=torch.bfloat16),
+        torch.zeros(3, k, s, d, dtype=torch.bfloat16),
+        torch.zeros(f, dtype=torch.int32), torch.ones(f, dtype=torch.int32),
+        torch.full((f,), 0.5),
+    )
+    return args, case == "aligned"
+
+
+@pytest.mark.parametrize("case", ["aligned", "misaligned", "strided", "d_too_large"])
+def test_match_operands_meet_tma_rules(case):
+    """The match core loads x and p_hat by TMA with contiguous strides: the
+    wrappers' operands must be contiguous with a 16-byte aligned base (a
+    misaligned contiguous view is cloned, not passed through by
+    .contiguous()), and D past the core's limit raises."""
+    args, kept = _operand_case(case)
+    if case == "d_too_large":
+        with pytest.raises(NotImplementedError, match="D <="):
+            ttm.check_operands("test", *args)
+        return
+    got = ttm.check_operands("test", *args)
+    for t, g in zip(args[:3], got[:3]):
+        assert torch.equal(g, t) and g.is_contiguous() and g.data_ptr() % 16 == 0
+    assert (got[0].data_ptr() == args[0].data_ptr()) is kept
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _fold(sims, fault, tile=128):
+    """The match core's fold over z tiles of ``tile`` columns, in plain
+    torch, with one planted fault: "tail_as_zero" (the zero-filled columns
+    past S compared as similarity 0), "later_ties" (a tie inside a tile
+    resolved to the later column), "across_tiles_ge" ('>=' instead of a
+    strict '>' against earlier tiles), or none."""
+    s = sims.shape[-1]
+    fill = 0.0 if fault == "tail_as_zero" else float("-inf")
+    tiles = torch.cat(
+        [sims, sims.new_full((*sims.shape[:-1], -s % tile), fill)], -1
+    ).unflatten(-1, (-1, tile))
+    t_max = tiles.amax(-1)
+    t_arg = tiles.argmax(-1)  # the first maximum
+    if fault == "later_ties":
+        t_arg = tile - 1 - tiles.flip(-1).argmax(-1)
+    best = sims.new_full(sims.shape[:-1], float("-inf"))
+    idx = torch.zeros(sims.shape[:-1], dtype=torch.long)
+    for j in range(tiles.shape[-2]):
+        take = t_max[..., j] >= best if fault == "across_tiles_ge" else t_max[..., j] > best
+        best = torch.where(take, t_max[..., j], best)
+        idx = torch.where(take, j * tile + t_arg[..., j], idx)
+    return idx
+
+
+@pytest.mark.parametrize(
+    "mode,fault,passes",
+    [("negative", None, True), ("negative", "tail_as_zero", False),
+     ("ties", None, True), ("ties", "later_ties", False),
+     ("ties", "across_tiles_ge", False)],
+)
+def test_match_verdict_separates_right_from_wrong(mode, fault, passes):
+    """chip_smoke.py's token-match verdict on the CPU, at its rows for
+    ``mode`` (the ragged all-negative row; the ties row's S and D at a
+    small F): the fold's indices pass, and each planted fault fails."""
+    smoke = _chip_smoke()
+    s, d, f, k = smoke.K2_NEGATIVE if mode == "negative" else smoke.K2_SHAPES[1]
+    f = min(f, 4)
+    x, p_hat, kf, pa, pb, w1 = smoke._match_inputs(
+        torch.Generator().manual_seed(0), s, d, mode, f, k, device="cpu"
+    )
+    ref, ref_idx = ttm.token_match_gather_plain(x, p_hat, kf, pa, pb, w1, return_indices=True)
+    sims = [
+        torch.einsum("fsd,fzd->fsz", x.float(), p_hat.float()[p.long()]) for p in (pa, pb)
+    ]
+    idx = torch.stack([_fold(sm, fault) for sm in sims])
+    ns, d = kf.shape[0], kf.shape[-1]
+    rows = [
+        torch.gather(kf[:, p.long()], 2, i.clamp(max=s - 1)[None, :, :, None].expand(ns, -1, -1, d))
+        for p, i in zip((pa, pb), idx)
+    ]
+    w = w1.float()[None, :, None, None]
+    out = (w * rows[0].float() + (1 - w) * rows[1].float()).bfloat16()
+    if passes:
+        assert torch.equal(idx, ref_idx)
+        smoke._match_verdict("[test]", mode, idx, ref_idx, out, ref)
+    else:
+        with pytest.raises(AssertionError):
+            smoke._match_verdict("[test]", mode, idx, ref_idx, out, ref)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():

@@ -52,13 +52,16 @@
 // strides that are multiples of 16) and unit stride along the head dim.
 // The launcher builds the TMA tensor maps on every call, reaching
 // cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
-// needs no -lcuda.
+// needs no -lcuda. The TMA, mbarrier and wgmma helpers live in hopper.cuh,
+// shared with the token-match core.
 #include <cuda.h>
 #include <stdio.h>
 
 #include "common.cuh"
 
 namespace {
+
+using namespace tf;
 
 constexpr int kD = 64;
 constexpr int kConsumers = 3;         // consumer warpgroups, 64 query rows each
@@ -83,163 +86,10 @@ constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
 constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
 constexpr uint32_t kConsumerWarps = 4 * kConsumers;
 
-// error codes of the launcher besides cudaError_t values
-constexpr int kErrNoEncoder = -1;
-constexpr int kErrEncodeBase = -1000;  // minus the CUresult
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box of the 4-D map at (c0, c1, c2, c3) -> shared memory, completing on bar
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
-// Tiles are 1024-byte aligned, so the base offset field stays 0.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(lbo_bytes >> 4) << 16 |
-         static_cast<uint64_t>(sbo_bytes >> 4) << 32 | 1ull << 62;
-}
-
-// K-major operand (the reduction dim contiguous, rows 128 bytes apart):
-// 8-row groups 1024 bytes apart; the leading offset is unused
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 16, 8 * kRowBytes);
-}
-
-// MN-major operand (V as (token, dim) for P V: N = dim contiguous, one
-// 128-byte swizzle atom wide): groups of 8 tokens 1024 bytes apart
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 8 * kRowBytes, 8 * kRowBytes);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving register reads or writes across the
-// asynchronous wgmma that owns these registers
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x 128, fp32) = A (64 x 16, K-major smem) . B (16 x 128, K-major
-// smem) + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
-                                                    uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
-      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
-      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-        "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64, MN-major
-// smem)
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
-      "%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// named barrier `id` between two consumer warpgroups (256 threads): the one
-// whose turn it is syncs, the one handing the turn over arrives
-__device__ __forceinline__ void named_bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
 }
 
 // The online softmax of one KV tile on S's registers. The thread holds
@@ -338,13 +188,13 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
       mbar_init(full_v(s), 1);
       mbar_init(empty(s), kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs) : "memory");
+    setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, kQBytes);
       tma_load_4d(base, &tq, bar_q, 0, q0, h, b);
@@ -359,7 +209,7 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs) : "memory");
+    setmaxnreg_inc<kConsumerRegs>();
     const int wg = (threadIdx.x >> 7) - 1;
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -476,45 +326,6 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &status) != cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// 4-D map over (dim, seq, head, batch) of a (B, S, H, 64) bf16 tensor with
-// element strides (sb, ss, sh), boxes of `rows` tokens x 64 dims
-int make_map(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int seq,
-             int heads, int batch, long long sb, long long ss, long long sh,
-             uint32_t rows) {
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kD, rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrEncodeBase - static_cast<int>(r);
-}
-
 }  // namespace
 
 // Launches on `stream`; returns 0 on success, a cudaError_t of the launch,
@@ -528,9 +339,9 @@ extern "C" int tf_flash_attention_d64(
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, encode, q, sq, heads, batch, qsb, qss, qsh, kBM);
-  if (rc == 0) rc = make_map(&tk, encode, k, skv, heads, batch, ksb, kss, ksh, kBN);
-  if (rc == 0) rc = make_map(&tv, encode, v, skv, heads, batch, vsb, vss, vsh, kBN);
+  int rc = make_map(&tq, encode, q, kD, sq, heads, batch, qsb, qss, qsh, kBM);
+  if (rc == 0) rc = make_map(&tk, encode, k, kD, skv, heads, batch, ksb, kss, ksh, kBN);
+  if (rc == 0) rc = make_map(&tv, encode, v, kD, skv, heads, batch, vsb, vss, vsh, kBN);
   if (rc != 0) return rc;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_fwd_d64, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -545,11 +356,11 @@ extern "C" int tf_flash_attention_d64(
 
 extern "C" const char* tf_error_string(int code) {
   static thread_local char buf[96];
-  if (code == kErrNoEncoder)
+  if (code == tf::kErrNoEncoder)
     return "cudaGetDriverEntryPoint found no cuTensorMapEncodeTiled";
-  if (code <= kErrEncodeBase) {
+  if (code <= tf::kErrEncodeBase) {
     snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
-             kErrEncodeBase - code);
+             tf::kErrEncodeBase - code);
     return buf;
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));

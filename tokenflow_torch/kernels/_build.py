@@ -7,16 +7,24 @@ seconds). The library lands in ``build/tokenflow_torch/`` at the repo
 root, named by a content hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file. Nothing here runs at
 import time: the first kernel launch builds.
+
+``python -m tokenflow_torch.kernels._build --ptxas [CSRC_DIR]`` compiles
+each source of a ``csrc`` directory (this package's by default) with the
+same flags plus ``-Xptxas -v`` and prints every kernel's registers, shared
+memory, stack frame and spills, one line per kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
+import re
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -37,9 +45,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "tf_flash_attention_d64": [_P] * 4 + [_I] * 4 + [_L] * 12
     + [ctypes.c_float, _P],
-    "tf_token_match": [_P] * 5 + [_I] * 3 + [_P],
-    "tf_token_gather": [_P] * 6 + [_I] * 5 + [_P],
-    "tf_token_match_split": [_P] * 6 + [_I] * 3 + [_P],
+    "tf_token_match": [_P] * 8 + [_I] * 5 + [_P],
+    "tf_token_match_split": [_P] * 9 + [_I] * 5 + [_P],
     "tf_group_norm": [_P] * 5 + [_I] * 3 + [_L] * 2
     + [ctypes.c_float, _I, _P],
 }
@@ -74,6 +81,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtokenflow_kernels_{source_hash()}.so"
 
 
+def _compile_all(nvcc: str, csrc: Path, out_dir: str, extra=()) -> list:
+    """Compile every ``*.cu`` of ``csrc`` into ``out_dir``, one nvcc process
+    per source, all started together; returns (object, nvcc output) pairs
+    and raises with every failed compile's output."""
+    jobs = []
+    for cu in sorted(csrc.glob("*.cu")):
+        obj = os.path.join(out_dir, cu.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(csrc), "-c", str(cu), "-o", obj]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    done, failed = [], []
+    for obj, cmd, proc in jobs:  # wait for every compile before raising
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        done.append((obj, log))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def ptxas_report(csrc: Path = CSRC) -> list[str]:
+    """One line per kernel of ``csrc``: source, kernel (mangled name),
+    registers, shared memory, stack frame and spill bytes, and any wgmma
+    serialisation warning, from nvcc's ``-Xptxas -v``."""
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for obj, log in _compile_all(find_nvcc(), Path(csrc), tmp, ("-Xptxas", "-v")):
+            kernel = None
+            for line in log.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    kernel = m.group(1)
+                elif kernel and any(k in line for k in ("stack frame", "Used", "wgmma")):
+                    text = line.split("info    :")[-1].strip()
+                    lines.append(f"{Path(obj).stem} {kernel}: {text}")
+    return lines
+
+
 def build() -> Path:
     """Compile the library unless an up-to-date one exists; return its
     path. A failed compile raises with nvcc's output."""
@@ -85,22 +132,9 @@ def build() -> Path:
     # build in a private directory, then rename: concurrent builders never
     # load a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        jobs = []
-        for cu in sorted(CSRC.glob("*.cu")):
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu),
-                   "-o", os.path.join(tmp, cu.stem + ".o")]
-            jobs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )))
-        failed = []
-        for cmd, proc in jobs:  # wait for every compile before raising
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        if failed:
-            raise RuntimeError("\n".join(failed))
+        objects = [obj for obj, _ in _compile_all(nvcc, CSRC, tmp)]
         lib = os.path.join(tmp, "lib.so")
-        cmd = [nvcc, *LINK_FLAGS, "-o", lib, *(c[-1] for c, _ in jobs)]
+        cmd = [nvcc, *LINK_FLAGS, "-o", lib, *objects]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -131,3 +165,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
             f"{what}: CUDA error {rc} "
             f"({lib.tf_error_string(rc).decode(errors='replace')})"
         )
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ptxas", nargs="?", const=str(CSRC), metavar="CSRC_DIR",
+                        help="print -Xptxas -v resource usage of each kernel")
+    args = parser.parse_args()
+    if args.ptxas:
+        print("\n".join(ptxas_report(Path(args.ptxas))))
+    else:
+        print(build())
+    sys.exit(0)

@@ -14,7 +14,8 @@ to the kernel (no (B, H, S, D) copy), from which the kernel's TMA tensor
 maps are built. TMA needs a 16-byte aligned base and byte strides that are
 positive multiples of 16, so a tensor whose strides are not positive
 multiples of 8 elements (a broadcast ``expand`` view has stride 0) or whose
-base is not 16-byte aligned is first copied into a new contiguous tensor.
+base is not 16-byte aligned is first copied into a new contiguous tensor
+(``kernels/_operands.py``, the rule the token-match core shares).
 Instantiated for bf16 and D = 64 (every SD-2.1 site); any other dtype or
 head dim on CUDA raises.
 """
@@ -24,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from tokenflow_torch.kernels import _build
+from tokenflow_torch.kernels._operands import tma_operand
 
 # kernel launches made by :func:`flash_attention_kernel` (reset by callers)
 launches = 0
@@ -70,17 +72,6 @@ def flash_attention_plain(
     return out.to(q.dtype)
 
 
-def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
-    ok = (
-        t.stride(-1) == 1
-        and all(s > 0 and s % 8 == 0 for s in t.stride()[:3])
-        and t.data_ptr() % 16 == 0
-    )
-    # a clone, not .contiguous(), which returns a contiguous view at a
-    # misaligned base as it is
-    return t if ok else t.clone(memory_format=torch.contiguous_format)
-
-
 def flash_attention_kernel(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -113,7 +104,7 @@ def flash_attention_kernel(
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
     skv = k.shape[1]
     scale = d**-0.5 if scale is None else scale
-    q, k, v = (_kernel_operand(t) for t in (q, k, v))
+    q, k, v = (tma_operand(t) for t in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0 or h == 0:
         return out

@@ -7,11 +7,12 @@ K3 (``kernels/token_match_split.py``), chosen as in the JAX package. For
 each frame f and query token s: the first argmax over pivot tokens of
 ``x . p_hat`` for pivots ``pa[f]`` and ``pb[f]``, then ``w1[f] * kf[:, pa[f],
 i1] + (1 - w1[f]) * kf[:, pb[f], i2]`` for all streams. The CUDA source is
-``tokenflow_torch/csrc/token_match.cu`` (its header gives the design): a
-tensor-core match stage with a running first-max per row writes (2, F, S)
-int32 indices, and a gather stage blends with indexed 16-byte loads. Bound
-on the H100: the match stage is compute bound (4 S^2 D flops per frame),
-the gather stage memory bound.
+``tokenflow_torch/csrc/token_match.cu``, one launch of the token-match core
+that K3 shares (``csrc/token_match_core.cuh``, whose header gives the
+design: TMA pivot stream, wgmma, a running first argmax per row, the
+gather and blend in its epilogue with indexed 16-byte loads); it writes
+(2, F, S) int32 indices and the output. Bound on the H100: compute (4 S^2
+D flops per frame; the gather's bytes are a few percent of that time).
 """
 
 from __future__ import annotations
@@ -19,11 +20,14 @@ from __future__ import annotations
 import torch
 
 from tokenflow_torch.kernels import _build
+from tokenflow_torch.kernels._operands import tma_operand
 
 # kernel-pair launches made by :func:`token_match_gather_kernel`
 launches = 0
 
-_MAX_D = 1728  # largest head width whose query tile fits shared memory
+# largest head width the match core takes: its resident query tile of 64
+# rows (128 D bytes) beside a 4-stage ring in 227 KB of shared memory
+MAX_D = 1280
 _PLAIN_FRAMES = 8  # frames per plain-version chunk: bounds the (f, S, S) sims
 
 
@@ -73,11 +77,13 @@ def token_match_gather_plain(
     return (out, idx) if return_indices else out
 
 
-def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1, max_d):
+def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
     """The checks shared by the token-match wrappers (K2 and K3): one CUDA
-    device, bf16 tables, agreeing shapes, D % 8 == 0 and D <= max_d, pivot
+    device, bf16 tables, agreeing shapes, D % 8 == 0 and D <= MAX_D, pivot
     indices in [0, K) (IndexError; the kernels address the tables with them
-    directly). Returns contiguous tables, int32 pa/pb and fp32 w1."""
+    directly). Returns tables a TMA tensor map accepts, contiguous and
+    16-byte aligned (``_operands.tma_operand``: a misaligned or strided
+    table is cloned), int32 pa/pb and fp32 w1."""
     dev = norm_h.device
     tensors = (norm_h, p_hat, kf_attn, pa, pb, w1)
     if not norm_h.is_cuda or any(t.device != dev for t in tensors):
@@ -87,6 +93,12 @@ def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1, max_d):
             "the CUDA token-match kernels are instantiated for bf16 tables; got "
             f"{norm_h.dtype}, {p_hat.dtype}, {kf_attn.dtype}"
         )
+    return check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1)
+
+
+def check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
+    """:func:`prepare_operands` past its device and dtype checks: shapes,
+    D, the grid, pivot indices, and the TMA rule on the tables."""
     f_total, s, d = norm_h.shape
     k = kf_attn.shape[1]
     if p_hat.shape != (k, s, d) or kf_attn.shape[2:] != (s, d):
@@ -96,9 +108,9 @@ def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1, max_d):
         )
     if pa.shape != (f_total,) or pb.shape != (f_total,) or w1.shape != (f_total,):
         raise ValueError("pa, pb and w1 must have one entry per frame")
-    if d % 8 or d > max_d:
+    if d % 8 or d > MAX_D:
         raise NotImplementedError(
-            f"{name} needs D % 8 == 0 and D <= {max_d}, got {d}"
+            f"{name} needs D % 8 == 0 and D <= {MAX_D}, got {d}"
         )
     if f_total > 65535:
         raise ValueError(f"{f_total} frames exceed the grid limit")
@@ -106,10 +118,29 @@ def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1, max_d):
     if piv.numel() and bool(((piv < 0) | (piv >= k)).any()):
         raise IndexError(f"pivot indices must lie in [0, {k})")
     return (
-        norm_h.contiguous(), p_hat.contiguous(), kf_attn.contiguous(),
+        *(tma_operand(t, contiguous=True) for t in (norm_h, p_hat, kf_attn)),
         pa.to(torch.int32).contiguous(), pb.to(torch.int32).contiguous(),
         w1.to(torch.float32).contiguous(),
     )
+
+
+def launch(ops, idx: torch.Tensor, out: torch.Tensor | None) -> None:
+    """One launch of K2's kernel on operands from :func:`prepare_operands`:
+    the matched indices into the (2, F, S) int32 ``idx`` and the blended
+    rows into ``out``; with ``out`` None the indices only (the match timed
+    alone). The wrapper counts its launches."""
+    norm_h, p_hat, kf_attn, pa, pb, w1 = ops
+    f_total, s, d = norm_h.shape
+    ns, k = kf_attn.shape[:2]
+    lib = _build.load_library()
+    with torch.cuda.device(norm_h.device):
+        rc = lib.tf_token_match(
+            norm_h.data_ptr(), p_hat.data_ptr(), kf_attn.data_ptr(), pa.data_ptr(),
+            pb.data_ptr(), w1.data_ptr(), idx.data_ptr(),
+            None if out is None else out.data_ptr(), ns, f_total, k, s, d,
+            torch.cuda.current_stream(norm_h.device).cuda_stream,
+        )
+    _build.check(lib, rc, "token-match kernel launch")
 
 
 def token_match_gather_kernel(
@@ -122,33 +153,19 @@ def token_match_gather_kernel(
     *,
     return_indices: bool = False,
 ):
-    """Launch K2 (match stage, then gather stage) on CUDA tensors. Pivot
+    """Launch K2 (match, gather and blend in one kernel) on CUDA tensors. Pivot
     indices outside [0, K) raise IndexError. Returns a new (ns, F, S, D)
     bf16 tensor, and with ``return_indices`` also the (2, F, S) int32
     matched token indices."""
     global launches
-    norm_h, p_hat, kf_attn, pa, pb, w1 = prepare_operands(
-        "token_match_gather_kernel", norm_h, p_hat, kf_attn, pa, pb, w1, _MAX_D
-    )
-    dev = norm_h.device
-    f_total, s, d = norm_h.shape
-    ns, k = kf_attn.shape[:2]
+    ops = prepare_operands("token_match_gather_kernel", norm_h, p_hat, kf_attn, pa, pb, w1)
+    f_total, s, d = ops[0].shape
+    ns = ops[2].shape[0]
+    dev = ops[0].device
     idx = torch.empty((2, f_total, s), dtype=torch.int32, device=dev)
-    out = torch.empty((ns, f_total, s, d), dtype=kf_attn.dtype, device=dev)
+    out = torch.empty((ns, f_total, s, d), dtype=torch.bfloat16, device=dev)
     if f_total == 0 or s == 0:
         return (out, idx) if return_indices else out
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tf_token_match(
-            norm_h.data_ptr(), p_hat.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            idx.data_ptr(), f_total, s, d, stream,
-        )
-        _build.check(lib, rc, "token-match (match stage) launch")
-        rc = lib.tf_token_gather(
-            kf_attn.data_ptr(), idx.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            w1.data_ptr(), out.data_ptr(), ns, k, f_total, s, d, stream,
-        )
-        _build.check(lib, rc, "token-match (gather stage) launch")
+    launch(ops, idx, out)
     launches += 1
     return (out, idx) if return_indices else out

@@ -3,14 +3,14 @@ hand-written CUDA kernel and its plain version.
 
 Replaces the Pallas TPU kernel ``tokenflow_tpu/kernels/token_match_split.py``
 (``token_match_gather_split``: ``_match_kernel``, then ``_gather_kernel``).
-Same contract as K2 (``kernels/token_match.py``), in two stages with the TPU
-kernel's interface between them: a match stage that updates the running
-first maximum of BOTH pivots per z step and writes int32 indices ``ia``,
-``ib`` shaped (F, 1, S), then the gather and blend. The match stage's CUDA
-source is ``tokenflow_torch/csrc/token_match_split.cu`` (its header gives
-the design); the gather stage is K2's, fed ``ia`` and ``ib`` as the rows of
-one (2, F, S) buffer. Bound on the H100: the match stage is compute bound
-(4 S^2 D flops per frame), the gather stage memory bound.
+Same contract as K2 (``kernels/token_match.py``), with the indices between
+the TPU kernel's two stages as outputs: the running first maximum of BOTH
+pivots is updated per z step, and the int32 indices ``ia``, ``ib`` come
+out shaped (F, 1, S) beside the gathered and blended output. The CUDA
+entry point is ``tokenflow_torch/csrc/token_match_split.cu``, one launch
+of the token-match core that K2 launches too (``csrc/token_match_core.cuh``,
+whose header gives the design; the gather is its epilogue). Bound on the
+H100: compute (4 S^2 D flops per frame).
 
 :func:`use_split` keeps the port's K2/K3 choice at the JAX package's sites.
 """
@@ -34,8 +34,6 @@ launches = 0
 # 768p that is the top level (3 * 9216 * 320 * 2 B = 16.9 MiB). Whether the
 # threshold suits the H100 is not measured.
 SPLIT_KF_TABLE_BYTES = 12 << 20
-
-_MAX_D = 1728  # largest head width whose query tile fits shared memory (as K2)
 
 
 def use_split(s: int, d: int, ns: int = 3) -> bool:
@@ -66,6 +64,25 @@ def token_match_gather_split_plain(
     return out, ia, ib
 
 
+def launch(ops, ia: torch.Tensor, ib: torch.Tensor, out: torch.Tensor | None) -> None:
+    """One launch of K3's kernel on operands from ``prepare_operands``: the
+    matched indices into the (F, 1, S) int32 ``ia`` and ``ib`` and the
+    blended rows into ``out``; with ``out`` None the indices only. The
+    wrapper counts its launches."""
+    norm_h, p_hat, kf_attn, pa, pb, w1 = ops
+    f_total, s, d = norm_h.shape
+    ns, k = kf_attn.shape[:2]
+    lib = _build.load_library()
+    with torch.cuda.device(norm_h.device):
+        rc = lib.tf_token_match_split(
+            norm_h.data_ptr(), p_hat.data_ptr(), kf_attn.data_ptr(), pa.data_ptr(),
+            pb.data_ptr(), w1.data_ptr(), ia.data_ptr(), ib.data_ptr(),
+            None if out is None else out.data_ptr(), ns, f_total, k, s, d,
+            torch.cuda.current_stream(norm_h.device).cuda_stream,
+        )
+    _build.check(lib, rc, "split token-match kernel launch")
+
+
 def token_match_gather_split_kernel(
     norm_h: torch.Tensor,  # (F, S, D) bf16
     p_hat: torch.Tensor,  # (K, S, D) bf16, pre-normalized
@@ -76,37 +93,23 @@ def token_match_gather_split_kernel(
     *,
     return_indices: bool = False,
 ):
-    """Launch K3 (match stage, then gather stage) on CUDA tensors, with K2's
+    """Launch K3 (match, gather and blend in one kernel) on CUDA tensors, with K2's
     checks (pivot indices outside [0, K) raise IndexError). Returns a new
     (ns, F, S, D) bf16 tensor, and with ``return_indices`` also ``ia``,
     ``ib``: (F, 1, S) int32."""
     global launches
-    norm_h, p_hat, kf_attn, pa, pb, w1 = prepare_operands(
-        "token_match_gather_split_kernel", norm_h, p_hat, kf_attn, pa, pb, w1,
-        _MAX_D,
+    ops = prepare_operands(
+        "token_match_gather_split_kernel", norm_h, p_hat, kf_attn, pa, pb, w1
     )
-    dev = norm_h.device
-    f_total, s, d = norm_h.shape
-    ns, k = kf_attn.shape[:2]
-    # ia and ib are the two rows of one (2, F, S) buffer, the index layout
-    # of K2's gather stage, which K3 shares
+    f_total, s, d = ops[0].shape
+    ns = ops[2].shape[0]
+    dev = ops[0].device
+    # ia and ib are the two rows of one (2, F, S) buffer, K2's index layout
     idx = torch.empty((2, f_total, s), dtype=torch.int32, device=dev)
     ia, ib = idx[0, :, None], idx[1, :, None]
-    out = torch.empty((ns, f_total, s, d), dtype=kf_attn.dtype, device=dev)
+    out = torch.empty((ns, f_total, s, d), dtype=torch.bfloat16, device=dev)
     if f_total == 0 or s == 0:
         return (out, ia, ib) if return_indices else out
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tf_token_match_split(
-            norm_h.data_ptr(), p_hat.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            ia.data_ptr(), ib.data_ptr(), f_total, s, d, stream,
-        )
-        _build.check(lib, rc, "split token-match (match stage) launch")
-        rc = lib.tf_token_gather(
-            kf_attn.data_ptr(), idx.data_ptr(), pa.data_ptr(), pb.data_ptr(),
-            w1.data_ptr(), out.data_ptr(), ns, k, f_total, s, d, stream,
-        )
-        _build.check(lib, rc, "split token-match (gather stage) launch")
+    launch(ops, ia, ib, out)
     launches += 1
     return (out, ia, ib) if return_indices else out
