@@ -16,7 +16,11 @@ Phases (any failure raises, and the script exits non-zero):
      a watchdog that ends the run if its checks hang. K2 and K3 run at
      every site of both paths with the F the path passes, timed as the
      wrapper call, the kernel launch and the launch without output (the
-     match stage alone), and once more against each other across S;
+     match stage alone), and once more against each other across S. K4
+     runs at both paths' GroupNorm shapes in bf16 (and one in fp32), SiLU
+     on and off, with its plan (variant, cluster size, CTAs per SM), the
+     wrapper's time and one launch's device time, and a repeat launch that
+     must match bit for bit;
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
@@ -32,6 +36,10 @@ Phases (any failure raises, and the script exits non-zero):
      the CPU's plain path;
   4. print one JSON line with the kernel table, then the result line
      ``{"ok": true, "device": {...}}`` last.
+
+Not run by main(): ``profile_edit_step()`` (torch.profiler device ms by
+kernel class for one 768p SDEdit edit step) and
+``sweep_group_norm_clusters(gen)`` (K4 with each cluster size forced).
 """
 
 from __future__ import annotations
@@ -108,15 +116,48 @@ K3_F = 24  # three propagate_chunks of 8 frames in one launch
 K3_CHUNK_F = 8  # the per-chunk launch of the path
 # K2 against K3 on the same inputs across S at D = 320, one 8-frame chunk
 K2_K3_SWEEP = [(2304, 320), (4096, 320), (9216, 320)]
-GN_SHAPES = [  # (B, C, H, W), groups 32
-    (9, 320, 96, 96),  # pivotal pass, 96^2 (resident spans)
-    (24, 640, 48, 48),  # propagation chunk, 48^2
-    (24, 2560, 12, 12),  # propagation chunk, 12^2 (80 channels per group)
-    (24, 960, 96, 96),  # up-block at 96^2 (split spans)
+GN_SHAPES = [  # (B, C, H, W), groups 32: the plan's variant and cluster size
+    (9, 320, 96, 96),  # SDEdit 768p pivotal pass, 96^2 (4-CTA clusters)
+    (24, 640, 48, 48),  # 768p propagation chunk, 48^2 (2-CTA clusters)
+    (24, 2560, 12, 12),  # 768p propagation chunk, 12^2 (80 channels per group)
+    (24, 960, 96, 96),  # 768p up-block at 96^2 (8-CTA clusters)
+    (15, 320, 64, 64),  # PnP 512^2 pivotal pass (5 pivots x 3 streams), 64^2
+    (120, 320, 64, 64),  # PnP 512^2 propagation (40 frames x 3 streams), 1 CTA
+    (120, 960, 64, 64),  # PnP 512^2 up-block at 64^2 (4-CTA clusters)
+    (10, 512, 192, 192),  # VAE decoder at 192^2 (16-CTA clusters of 74 KB)
     (10, 128, 768, 768),  # VAE decoder at pixel resolution (split spans)
-    (3, 96, 7, 9),  # ragged: 3 channels x 63 per group
+    (3, 96, 7, 9),  # ragged: 3 channels x 63 per group, single-element ends
 ]
-
+# K4 in fp32 (the stack's f32 dtype), against its plain version at rtol =
+# atol = GN_F32_TOL: fp32 sums in another order (~1e-7 relative) and the
+# fast SiLU (a few fp32 ulps)
+GN_F32_SHAPES = [(9, 320, 96, 96)]
+GN_F32_TOL = 1e-5
+# cluster sizes compared per row (sweep_group_norm_clusters)
+GN_CLUSTER_SWEEP = [
+    ((9, 320, 96, 96), (2, 4, 8)), ((24, 640, 48, 48), (1, 2, 4)),
+    ((24, 960, 96, 96), (4, 8, 16)), ((15, 320, 64, 64), (1, 2, 4)),
+    ((120, 320, 64, 64), (1, 2, 4)), ((120, 960, 64, 64), (4, 8)),
+    ((10, 512, 192, 192), (8, 16)),
+]
+# GPU cycles the stream sleeps before a timed launch, so that the host has
+# enqueued it before the start event runs (device_ms)
+SLEEP_CYCLES = 400_000
+# torch.profiler kernel classes of profile_edit_step, first match wins
+KERNEL_CLASSES = [
+    ("K1 flash attention", ("flash_fwd",)),
+    ("K2/K3 token match", ("match_core",)),
+    ("K4 GroupNorm", ("gn_cluster", "gn_stats", "gn_apply", "gn_resident")),
+    ("convolution", ("conv", "cudnn", "xmma_fprop", "implicit", "winograd", "dgrad")),
+    ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
+    ("GroupNorm (PyTorch)", ("group_norm", "groupnorm")),
+    ("LayerNorm", ("layer_norm", "layernorm")),
+    ("softmax", ("softmax",)),
+    ("copies and casts", ("copy", "memcpy", "cat", "transpose", "permute", "memset",
+                          "nhwc")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized")),
+]
 
 def card_line() -> str:
     out = subprocess.run(
@@ -132,6 +173,24 @@ def median_ms(fn, runs: int = 7) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, runs: int = 7) -> float:
+    """Median device time (CUDA events) of the work ``fn`` enqueues: the
+    stream sleeps first, so the host has queued ``fn``'s launches before
+    the start event runs and host work is not counted."""
+    fn()  # warm up
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -548,63 +607,226 @@ def sweep_k2_k3(gen: torch.Generator) -> list:
     return rows
 
 
+def gn_inputs(gen: torch.Generator, shape, dtype=torch.bfloat16):
+    """Seeded K4 inputs: x with a mean offset, weights around 1."""
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3).to(dtype)
+    w = (1 + 0.5 * torch.randn((c,), generator=gen, device="cuda")).to(dtype)
+    b = (0.5 * torch.randn((c,), generator=gen, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def gn_verdict(tag: str, out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """K4's output against its plain version: finite, and in bf16 at most
+    GN_MAX_ULPS steps at max(|ref|, GN_ULP_FLOOR), in fp32 within rtol =
+    atol = GN_F32_TOL. Raises AssertionError past them; returns the errors
+    and a report line."""
+    o, r = out.float(), ref.float()
+    err = float((o - r).abs().max())
+    finite = bool(torch.isfinite(o).all())
+    if out.dtype == torch.bfloat16:
+        ulps = bf16_ulps_floored(out, ref)
+        line = f"{tag}: max|err|={err:.3e} ulps={ulps:.3f}"
+        if not (finite and ulps <= GN_MAX_ULPS):
+            raise AssertionError(f"{line}: above {GN_MAX_ULPS} bf16 steps")
+        return {"max_abs_err": err, "ulps": ulps, "line": line}
+    excess = float(((o - r).abs() - GN_F32_TOL * r.abs()).max())
+    line = f"{tag}: max|err|={err:.3e} (fp32)"
+    if not (finite and excess <= GN_F32_TOL):
+        raise AssertionError(f"{line}: above rtol = atol = {GN_F32_TOL}")
+    return {"max_abs_err": err, "ulps": None, "line": line}
+
+
+def _gn_row(gn, x, w, b, act, eps) -> dict:
+    """One K4 row: the verdict, two launches bitwise equal, the plan and its
+    occupancy, the wrapper's time, one launch's device time, the plain
+    version's and F.group_norm's (without SiLU; the port never calls it),
+    and the one-read, one-write bound."""
+    shape = tuple(x.shape)
+    tag = f"[K4] {shape} {str(x.dtype).split('.')[-1]} act={act} eps={eps}"
+    out = gn.group_norm_kernel(x, w, b, 32, eps, act)
+    again = gn.group_norm_kernel(x, w, b, 32, eps, act)
+    ref = gn.group_norm_plain(x, w, b, 32, eps, act)
+    torch.cuda.synchronize()
+    v = gn_verdict(tag, out, ref)
+    if not torch.equal(out, again):
+        raise AssertionError(f"{tag}: two launches on the same input differ")
+    del out, again, ref
+    c = shape[1]
+    p = gn.plan(shape[0], c, x.numel() // (shape[0] * c), 32, x.dtype)
+    ops = gn.prepare_operands(x, w, b, 32, act)
+    out, part = torch.empty_like(x), gn.scratch(x, 32, p)
+    kernel_ms = device_ms(lambda: gn.launch(ops, out, part, 32, eps, act, p))
+    ms = median_ms(lambda: gn.group_norm_kernel(x, w, b, 32, eps, act))
+    plain_ms = median_ms(lambda: gn.group_norm_plain(x, w, b, 32, eps, act), runs=5)
+    library_ms = None if act else median_ms(
+        lambda: torch.nn.functional.group_norm(x, 32, w, b, eps)
+    )
+    per_sm, clusters = (
+        gn.occupancy(x, 32, act, p) if p.variant == "cluster" else (None, None)
+    )
+    bound_ms, bound_by = bound(2.0 * x.element_size() * x.numel(), 0.0)
+    lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
+    print(f"{v['line']}, {p.variant} cluster {p.cluster} slice {p.slice} "
+          f"({per_sm} CTAs/SM, {clusters} clusters), two launches bitwise equal: "
+          f"wrapper {ms:.3f} ms, kernel {kernel_ms:.4f} ms "
+          f"({bound_ms / kernel_ms:.0%} of the bound), plain {plain_ms:.3f} ms, "
+          f"F.group_norm {lib}, bound {bound_ms:.4f} ms", flush=True)
+    return {"shape": list(shape), "dtype": str(x.dtype).split(".")[-1], "act": act,
+            "ulps": v["ulps"], "max_abs_err": v["max_abs_err"], "bitwise_repeat": True,
+            "variant": p.variant, "cluster": p.cluster, "slice": p.slice,
+            "ctas_per_sm": per_sm, "clusters": clusters, "ms": ms, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
+
+
 def check_group_norm(gen: torch.Generator) -> dict:
-    """K4 against its plain version at the SDEdit path's GroupNorm shapes,
-    SiLU on (resnet norms, eps 1e-5) and off (transformer norms, eps 1e-6),
-    bf16 inputs with a mean offset, weights around 1."""
+    """K4 against its plain version at both paths' GroupNorm shapes, SiLU on
+    (resnet norms, eps 1e-5) and off (transformer norms, eps 1e-6), bf16
+    and one fp32 shape; per row the plan, the wrapper's and one launch's
+    times and a repeat launch that must match bit for bit."""
     from tokenflow_torch.kernels import group_norm as gn
 
-    worst_err, worst_ulps, rows = 0.0, 0.0, []
-    for shape in GN_SHAPES:
-        c = shape[1]
-        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3).bfloat16()
-        w = (1 + 0.5 * torch.randn((c,), generator=gen, device="cuda")).bfloat16()
-        b = (0.5 * torch.randn((c,), generator=gen, device="cuda")).bfloat16()
+    cases = [(shape, torch.bfloat16) for shape in GN_SHAPES]
+    cases += [(shape, torch.float32) for shape in GN_F32_SHAPES]
+    rows = []
+    for shape, dtype in cases:
+        x, w, b = gn_inputs(gen, shape, dtype)
         for act, eps in (("silu", 1e-5), (None, 1e-6)):
-            out = gn.group_norm_kernel(x, w, b, 32, eps, act)
-            ref = gn.group_norm_plain(x, w, b, 32, eps, act)
-            torch.cuda.synchronize()
-            ulps = bf16_ulps_floored(out, ref)
-            err = float((out.float() - ref.float()).abs().max().item())
-            line = (
-                f"[K4] {tuple(shape)} act={act} eps={eps}: max|err|={err:.3e} "
-                f"ulps={ulps:.3f}"
-            )
-            if not (torch.isfinite(out).all() and ulps <= GN_MAX_ULPS):
-                raise AssertionError(f"{line}: above {GN_MAX_ULPS} bf16 ulps")
-            ms = median_ms(lambda: gn.group_norm_kernel(x, w, b, 32, eps, act))
-            plain_ms = median_ms(
-                lambda: gn.group_norm_plain(x, w, b, 32, eps, act), runs=5
-            )
-            # one PyTorch call computes the variant without SiLU
-            library_ms = None if act else median_ms(
-                lambda: torch.nn.functional.group_norm(x, 32, w, b, eps)
-            )
-            bound_ms, bound_by = bound(2.0 * 2 * x.numel(), 0.0)
-            lib = "-" if library_ms is None else f"{library_ms:.3f} ms"
-            print(f"{line} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"F.group_norm {lib}, bound {bound_ms:.3f} ms", flush=True)
-            rows.append({"shape": list(shape), "act": act, "ulps": ulps,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by})
-            worst_err, worst_ulps = max(worst_err, err), max(worst_ulps, ulps)
-            del out, ref
+            rows.append(_gn_row(gn, x, w, b, act, eps))
         del x, w, b
         torch.cuda.empty_cache()
     main = rows[1]  # the first shape without SiLU, which F.group_norm computes
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
     return {
         "name": "group_norm",
         "route": "cuda",
         "source": "tokenflow_torch/csrc/group_norm.cu",
         "replaces": "tokenflow_tpu/kernels/group_norm.py:170",
-        "max_abs_err": worst_err,
-        "max_ulps": worst_ulps,
+        "max_abs_err": max(r["max_abs_err"] for r in bf16),
+        "max_ulps": max(r["ulps"] for r in bf16),
+        "f32_max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == "float32"),
         "main": {"shape": main["shape"], "act": main["act"]},
         **{key: main[key] for key in
-           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+           ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         "shapes": rows,
     }
+
+
+def sweep_group_norm_clusters(gen: torch.Generator) -> list:
+    """K4 at the GN_CLUSTER_SWEEP rows with each listed cluster size forced
+    (the plan's override), without SiLU: one launch's device time and the
+    verdict (data for the plan's cluster rule)."""
+    from tokenflow_torch.kernels import group_norm as gn
+
+    rows = []
+    for shape, sizes in GN_CLUSTER_SWEEP:
+        x, w, b = gn_inputs(gen, shape)
+        ref = gn.group_norm_plain(x, w, b, 32, 1e-6)
+        ops = gn.prepare_operands(x, w, b, 32, None)
+        out = torch.empty_like(x)
+        c, hw = shape[1], shape[2] * shape[3]
+        for n in sizes:
+            p = gn.plan(shape[0], c, hw, 32, x.dtype, cluster=n)
+            part = gn.scratch(x, 32, p)
+            gn.launch(ops, out, part, 32, 1e-6, None, p)
+            v = gn_verdict(f"[K4 sweep] {shape} cluster {n}", out, ref)
+            ms = device_ms(lambda: gn.launch(ops, out, part, 32, 1e-6, None, p))
+            per_sm, clusters = gn.occupancy(x, 32, None, p)
+            bound_ms = bound(2.0 * x.element_size() * x.numel(), 0.0)[0]
+            print(f"{v['line']}, slice {p.slice}, {per_sm} CTAs/SM, {clusters} clusters: "
+                  f"kernel {ms:.4f} ms ({bound_ms / ms:.0%} of the bound), plan's "
+                  f"choice {gn.plan(shape[0], c, hw, 32, x.dtype).cluster}", flush=True)
+            rows.append({"shape": list(shape), "cluster": n, "kernel_ms": ms,
+                         "ctas_per_sm": per_sm, "clusters": clusters,
+                         "bound_ms": bound_ms, "ulps": v["ulps"]})
+        del x, w, b, ref, out, ops
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def profile_edit_step(group_norm_kernel: bool = True) -> dict:
+    """torch.profiler device time by kernel class for one SDEdit edit step
+    at 768p, as the smoke's SDEdit phase runs it: 24 frames of 96^2
+    latents, window 8 (3 pivots), propagation chunks of 8, SD-2.1 with
+    random weights in bf16, K4 on (or off). One step warms up, the next is
+    traced. Not run by main(), so the smoke's time does not grow:
+
+        python -c "import chip_smoke as c; c.profile_edit_step()"
+
+    Prints one table row per class and returns the step's wall and device
+    times, the device's idle share and the classes' device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tokenflow_torch import runtime
+    from tokenflow_torch.diffusion import ddim
+    from tokenflow_torch.editing import pipeline
+
+    n_frames, lat, window, chunk = 24, 96, 8, 8
+    stack = runtime.load_stack("2.1", device="cuda", dtype=torch.bfloat16, init="random",
+                               group_norm_kernel=group_norm_kernel)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sched = ddim.truncate_schedule(ddim.make_schedule(10), 0.9)
+    full = pipeline.make_edit_schedule(sched, sched.timesteps)
+
+    def steps(sl):
+        return pipeline.EditSchedule(**{
+            f: getattr(full, f)[sl] for f in pipeline.EditSchedule.__dataclass_fields__
+        })
+
+    x0 = torch.randn((n_frames, lat, lat, 4), generator=gen, device="cuda").bfloat16()
+    traj = torch.randn((len(sched.timesteps), n_frames, lat, lat, 4), generator=gen,
+                       device="cuda").bfloat16()
+    embeds3 = torch.randn((3, 77, 1024), generator=gen, device="cuda").bfloat16()
+    pivots = np.tile(np.arange(window // 2, n_frames, window), (1, 1))
+
+    def one_step(sl):
+        return pipeline.tokenflow_sample_loop(
+            stack.unet_apply, x0, traj, embeds3, steps(sl), window_size=window,
+            guidance_scale=7.5, pnp=False, pivot_indices=pivots, propagate_chunk=chunk,
+        )
+
+    one_step(slice(0, 1))  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = one_step(slice(1, 2))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(out).all():
+        raise AssertionError("profile_edit_step: non-finite latents")
+    by_class: dict = {}
+    counts: dict = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        cls = _kernel_class(evt.key)
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+        counts[cls] = counts.get(cls, 0) + evt.count
+    device = sum(by_class.values())
+    if device <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"[profile 768p step, K4 {'on' if group_norm_kernel else 'off'}] {cls}: "
+              f"{ms:.3f} ms ({ms / device:.1%}), {counts[cls]} launches", flush=True)
+    report = {"group_norm_kernel": group_norm_kernel, "step_wall_ms": wall_ms,
+              "device_ms": device, "idle_share": 1.0 - device / wall_ms,
+              "by_class_ms": by_class, "launches_by_class": counts,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[profile 768p step] wall {wall_ms:.1f} ms, device {device:.1f} ms, idle "
+          f"share {report['idle_share']:.3f}", flush=True)
+    return report
 
 
 def write_frames(root: str, n: int, hw: int) -> str:

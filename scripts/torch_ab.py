@@ -1,0 +1,177 @@
+"""Parent/change comparison of the PyTorch port on one card.
+
+    python scripts/torch_ab.py PARENT_DIR CHANGE_DIR [--what k4 sass profile smoke]
+        [--out DIR]
+
+PARENT_DIR and CHANGE_DIR are checkouts of the repo (``git archive``
+unpacked into a git-ignored directory). Each measurement runs in the order
+parent, change, change, parent, one process per run, with that tree's
+``tokenflow_torch`` first on the path and this checkout's ``chip_smoke.py``
+helpers (so both trees are measured alike):
+
+  - k4: K4 at ``chip_smoke.GN_SHAPES`` through the tree's
+    ``group_norm_kernel``, held to its plain version by
+    ``chip_smoke.gn_verdict``: the wrapper's time (``median_ms``) and one
+    call's device time with host work hidden (``device_ms``);
+  - sass: ``cuobjdump -sass`` of K1's (``flash_fwd``) and the match core's
+    (``match_core``) functions in the two trees' libraries, compared line by
+    line;
+  - profile: ``chip_smoke.profile_edit_step`` on the tree's port, device ms
+    by kernel class for one 768p SDEdit edit step with K4 on;
+  - smoke: the tree's own ``chip_smoke.py`` (its log in the output
+    directory), with its phase times, launches and peak memory.
+
+Prints one JSON line per run (``{"ab": ...}``) and appends them all to
+``results.jsonl`` in the output directory (``--out``, by default
+``build/ab_results`` of this checkout, which git ignores).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+ORDER = ("parent", "change", "change", "parent")
+SASS_FUNCTIONS = ("flash_fwd", "match_core")
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("smoke_ab", HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_k4(smoke) -> list:
+    import torch
+
+    from tokenflow_torch.kernels import group_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for shape in smoke.GN_SHAPES:
+        x, w, b = smoke.gn_inputs(gen, shape)
+        for act, eps in (("silu", 1e-5), (None, 1e-6)):
+            def call():
+                return gn.group_norm_kernel(x, w, b, 32, eps, act)
+
+            v = smoke.gn_verdict(f"[ab K4] {shape} act={act}", call(),
+                                 gn.group_norm_plain(x, w, b, 32, eps, act))
+            rows.append({"shape": list(shape), "act": act, "ulps": v["ulps"],
+                         "wrapper_ms": smoke.median_ms(call),
+                         "device_ms": smoke.device_ms(call)})
+        del x, w, b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_one(what: str, tree: str) -> None:
+    """One run in this process, with ``tree``'s port first on the path."""
+    sys.path.insert(0, tree)
+    smoke = _smoke()
+    result = run_k4(smoke) if what == "k4" else smoke.profile_edit_step()
+    print("RESULT " + json.dumps(result), flush=True)
+
+
+def _sass(tree: Path) -> dict:
+    """{function name: SASS lines} of the K1 and match-core functions in the
+    tree's kernel library (built here if the tree has none yet). The names
+    drop the per-file hashes of their anonymous namespace, which differ
+    between checkouts."""
+    lib = subprocess.run([sys.executable, "-m", "tokenflow_torch.kernels._build"], cwd=tree,
+                         capture_output=True, text=True, check=True).stdout.split()[-1]
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                             "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    text = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}", r"_GLOBAL__N__\1", text)
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1) if any(f in m.group(1) for f in SASS_FUNCTIONS) else None
+            if name:
+                funcs[name] = []
+        elif name and line.strip().startswith("/*"):  # an instruction line
+            funcs[name].append(line.strip())
+    return funcs
+
+
+def run_smoke(tree: Path, label: str, i: int, out: Path) -> dict:
+    log = out / f"smoke_{i}_{label}.log"
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree, stdout=f,
+                            stderr=subprocess.STDOUT).returncode
+    lines = log.read_text().splitlines()
+    paths = next((json.loads(s) for s in lines if s.startswith('{"main_path"')), None)
+    kernels = next((json.loads(s) for s in lines if s.startswith('{"kernels"')), None)
+    gn = next((k for k in (kernels or {}).get("kernels", []) if k["name"] == "group_norm"),
+              None)
+    return {"rc": rc, "log": str(log), "paths": paths,
+            "group_norm": gn and {k: gn.get(k) for k in ("ms", "kernel_ms", "launches",
+                                                         "launches_by_path")}}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("parent", nargs="?")
+    parser.add_argument("change", nargs="?")
+    parser.add_argument("--what", nargs="+", default=["k4", "sass", "profile", "smoke"],
+                        choices=["k4", "sass", "profile", "smoke"])
+    parser.add_argument("--out", type=Path, default=HERE / "build" / "ab_results",
+                        help="directory for results.jsonl and the smoke logs")
+    parser.add_argument("--one", nargs=2, metavar=("WHAT", "TREE"), help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.one:
+        run_one(*args.one)
+        return 0
+    trees = {"parent": Path(args.parent).resolve(), "change": Path(args.change).resolve()}
+    out = args.out.resolve()
+    out.mkdir(parents=True, exist_ok=True)
+    failed = False
+    with open(out / "results.jsonl", "a") as results:
+        def emit(record):
+            line = json.dumps({"ab": record})
+            print(line, flush=True)
+            results.write(line + "\n")
+            results.flush()
+
+        for what in args.what:
+            if what == "sass":
+                sass = {label: _sass(tree) for label, tree in trees.items()}
+                same = {f: (len(sass["parent"].get(f, [])), len(lines),
+                            sass["parent"].get(f) == lines)
+                        for f, lines in sass["change"].items()}
+                differ = [(f, a, b) for f, lines in sass["change"].items()
+                          for a, b in zip(sass["parent"].get(f, []), lines) if a != b]
+                emit({"what": "sass", "functions": same, "first_differences": differ[:5]})
+                failed |= not same or not all(s[2] for s in same.values())
+                continue
+            for i, label in enumerate(ORDER):
+                tree = trees[label]
+                if what == "smoke":
+                    record = run_smoke(tree, label, i, out)
+                    failed |= record["rc"] != 0
+                else:
+                    proc = subprocess.run(
+                        [sys.executable, str(Path(__file__).resolve()), "--one", what,
+                         str(tree)], cwd=tree, capture_output=True, text=True)
+                    found = [s for s in proc.stdout.splitlines() if s.startswith("RESULT ")]
+                    record = {"rc": proc.returncode,
+                              "result": json.loads(found[-1][7:]) if found else None}
+                    if proc.returncode:
+                        record["stderr"] = proc.stderr[-3000:]
+                        failed = True
+                emit({"what": what, "tree": label, "run": i, **record})
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

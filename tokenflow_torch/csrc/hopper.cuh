@@ -1,6 +1,10 @@
-// Hopper (sm_90a) primitives shared by the warp-specialised kernels: K1
-// (flash_attention.cu) and the token-match core (token_match_core.cuh).
+// Hopper (sm_90a) primitives shared by the hand-written kernels: K1
+// (flash_attention.cu), the token-match core (token_match_core.cuh) and K4
+// (group_norm.cu).
 //   - shared-memory addresses, mbarrier init / arrive / expect-tx / wait;
+//   - the 1-D bulk copy (global -> shared, completing on an mbarrier) and
+//     thread-block cluster ranks, barriers and distributed shared-memory
+//     reads (K4);
 //   - the TMA tile load (cp.async.bulk.tensor, 4-D) completing on an
 //     mbarrier, and the host-side tensor-map encoder (cuTensorMapEncodeTiled
 //     reached through cudaGetDriverEntryPoint, so the library needs no
@@ -60,6 +64,48 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// 1-D bulk copy (no tensor map) of `bytes` contiguous bytes from global
+// memory into this CTA's shared memory, completing on bar. Addresses and
+// size are multiples of 16; one mbarrier phase counts < 2^20 bytes.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// thread-block clusters: this CTA's rank, the cluster size, the split
+// cluster barrier (every thread of every CTA arrives once per phase), and a
+// read of a peer CTA's shared memory at the address `addr` has in this CTA
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+__device__ __forceinline__ float2 ld_peer_f2(uint32_t addr, uint32_t rank) {
+  uint32_t peer;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(peer) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(peer)
+               : "memory");
+  return v;
 }
 
 // box of the 4-D map at (c0, c1, c2, c3) -> shared memory, completing on bar
