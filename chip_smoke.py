@@ -11,9 +11,10 @@ Phases (any failure raises, and the script exits non-zero):
      times (CUDA events) per shape, beside the bound (bytes over 3.35 TB/s
      or bf16 flops over 989 TFLOP/s, whichever is larger) and, where one
      PyTorch call computes the same function, that call's time (SDPA for
-     K1, F.group_norm for K4 without SiLU; the port calls neither). K1 also
-     runs on the strided head-split views the pivotal pass gives it, under
-     a watchdog that ends the run if its checks hang. K2 and K3 run at
+     K1, F.group_norm for K4 without SiLU; the port calls neither). K1 runs
+     at head dim 64 (SD-2.1) and at 40, 80 and 160 (SD-1.5's ControlNet
+     path), also on the strided head-split views the pivotal pass gives it,
+     under a watchdog that ends the run if its checks hang. K2 and K3 run at
      every site of both paths with the F the path passes, timed as the
      wrapper call, the kernel launch and the launch without output (the
      match stage alone), and once more against each other across S. K4
@@ -32,8 +33,14 @@ Phases (any failure raises, and the script exits non-zero):
      launch (K3 at the 96x96 level). The edit runs once more with the
      GroupNorm kernel off, for its step time. Launches are read after each
      CLI, so each path reports them per step of its preprocess and edit.
-     Last, one pivotal and one propagation UNet call on the card against
-     the CPU's plain path;
+     One pivotal and one propagation UNet call on the card against the
+     CPU's plain path. Then, counters zeroed again, the ControlNet path at
+     512^2 on SD-1.5 with random weights (the ControlNet's zero projections
+     filled from a seed, its residuals checked non-zero): preprocess 40
+     frames with --sd_version ControlNet, then a 10-step run_controlnet
+     edit with 5 pivots; K1 must launch at head dims 40, 80 and 160 and K2
+     must launch, K3 and K4 not. Last, the same small-input check for the
+     SD-1.5 UNet with the ControlNet's residuals;
   4. print one JSON line with the kernel table, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -91,10 +98,21 @@ K1_SHAPES = [  # (B, Sq, Skv, H) with D = 64
     (24, 9216, 9216, 5),  # SDEdit 768p: inversion / vanilla self-attention
     (2, 1000, 3000, 5),  # ragged Q and KV tails
 ]
+# (B, Sq, Skv, H, D): SD-1.5's 8 heads at the ControlNet path's 512^2
+K1_SD15_SHAPES = [
+    (2, 20480, 20480, 8, 40),  # pivotal extended attention, 64x64 level
+    (2, 5120, 5120, 8, 80),  # pivotal extended attention, 32x32 level
+    (2, 1280, 1280, 8, 160),  # pivotal extended attention, 16x16 level
+    (40, 4096, 4096, 8, 40),  # inversion and ControlNet self-attention, 40 frames
+    # ragged Q and KV tails against each head dim's tiles
+    (2, 1000, 3000, 5, 40), (2, 1000, 3000, 5, 80), (2, 1000, 3000, 5, 160),
+]
 # K1's checks end the run if they take longer (a hung kernel)
-K1_PHASE_SECONDS = 300
-# (K pivots, S, heads, inner): PnP 512^2 pivotal pass at the 64x64 level
-K1_STRIDED = (5, 4096, 5, 320)
+K1_PHASE_SECONDS = 420
+# (K pivots, S, heads, inner) of the pivotal pass's extended attention: PnP
+# 512^2 at the 64x64 level (D = 64), ControlNet 512^2 at each level (D =
+# 40, 80, 160)
+K1_STRIDED = [(5, 4096, 5, 320), (5, 4096, 8, 320), (5, 1024, 8, 640), (5, 256, 8, 1280)]
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
 # dense bf16 tensor-core FLOP/s, at the 700 W power limit
 H100_BYTES_PER_S = 3.35e12
@@ -292,7 +310,7 @@ def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
         f"SDPA {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms",
         flush=True,
     )
-    return {"shape": [b, sq, skv, h], "strided": strided, **m,
+    return {"shape": [b, sq, skv, h], "head_dim": d, "strided": strided, **m,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops}
 
@@ -305,34 +323,39 @@ def check_flash(gen: torch.Generator) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").bfloat16()
 
     rows = []
-    for b, sq, skv, h in K1_SHAPES:
+    shapes = [(*row, 64) for row in K1_SHAPES] + K1_SD15_SHAPES
+    for b, sq, skv, h, d in shapes:
         rows.append(_k1_row(
-            fa, randn(b, sq, h, 64), randn(b, skv, h, 64), randn(b, skv, h, 64),
-            f"B={b} Sq={sq} Skv={skv} H={h} D=64",
+            fa, randn(b, sq, h, d), randn(b, skv, h, d), randn(b, skv, h, d),
+            f"B={b} Sq={sq} Skv={skv} H={h} D={d}",
         ))
         torch.cuda.empty_cache()
     # the pivotal pass's extended attention as ops/extended_attention.py
     # passes it: head-split views of the (3, K, S, inner) projections, uncond
     # and cond streams over K frames; q and k either injected from the
     # source stream (a broadcast view, which the wrapper copies for TMA) or
-    # the streams' own (injection off, and every SDEdit pivotal pass), so
-    # that all three operands reach the kernel as views
-    kf, s, heads, inner = K1_STRIDED
-    for injected in (True, False):
-        q3, k3 = (
-            randn(1, kf, s, inner).expand(3, kf, s, inner) if injected
-            else randn(3, kf, s, inner) for _ in range(2)
-        )
-        v3 = randn(3, kf, s, inner)
-        q, k, v = (split_heads(t[1:].reshape(2, kf * s, inner), heads) for t in (q3, k3, v3))
-        rows.append(_k1_row(
-            fa, q, k, v, f"extended attention views K={kf} S={s} H={heads}, q/k "
-            f"{'injected' if injected else 'own'}, strides q {q.stride()} "
-            f"v {v.stride()}", strided=True,
-        ))
-        del q3, k3, v3, q, k, v
-        torch.cuda.empty_cache()
+    # the streams' own (injection off, and every SDEdit and ControlNet
+    # pivotal pass), so that all three operands reach the kernel as views
+    for kf, s, heads, inner in K1_STRIDED:
+        for injected in (True, False) if inner // heads == 64 else (False,):
+            q3, k3 = (
+                randn(1, kf, s, inner).expand(3, kf, s, inner) if injected
+                else randn(3, kf, s, inner) for _ in range(2)
+            )
+            v3 = randn(3, kf, s, inner)
+            q, k, v = (split_heads(t[1:].reshape(2, kf * s, inner), heads)
+                       for t in (q3, k3, v3))
+            rows.append(_k1_row(
+                fa, q, k, v, f"extended attention views K={kf} S={s} H={heads} "
+                f"D={inner // heads}, q/k {'injected' if injected else 'own'}, strides "
+                f"q {q.stride()} v {v.stride()}", strided=True,
+            ))
+            del q3, k3, v3, q, k, v
+            torch.cuda.empty_cache()
     main = rows[0]
+    by_d = {}
+    for r in rows:  # each head dim's first row: its largest path shape
+        by_d.setdefault(r["head_dim"], r)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -342,6 +365,12 @@ def check_flash(gen: torch.Generator) -> dict:
         "rel_l2": max(r["rel_l2"] for r in rows),
         **{key: main[key] for key in
            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops")},
+        "by_head_dim": {
+            str(d): {key: r[key] for key in
+                     ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "tflops", "max_abs_err", "rel_l2")}
+            for d, r in sorted(by_d.items())
+        },
         "shapes": rows,
     }
 
@@ -858,10 +887,16 @@ def kernel_modules() -> dict:
 def zero_counts() -> None:
     for m in kernel_modules().values():
         m.launches = 0
+    kernel_modules()["flash_attention"].launches_by_head_dim.clear()
 
 
 def read_counts() -> dict:
     return {name: m.launches for name, m in kernel_modules().items()}
+
+
+def read_k1_head_dims() -> dict:
+    """K1's launches by head dim since the counts were zeroed."""
+    return dict(sorted(kernel_modules()["flash_attention"].launches_by_head_dim.items()))
 
 
 def per_step(pre: dict, after_edit: dict, steps: dict) -> dict:
@@ -1136,6 +1171,225 @@ def check_small_reference() -> dict:
     return {"rel_l2": rel, "max_abs_err": err}
 
 
+def fill_controlnet_projections(model, seed: int = 11) -> None:
+    """Random weights for a ControlNet's zero-initialised projections
+    (cond_embedding.conv_out, controlnet_down_*, controlnet_mid), drawn from
+    ``seed`` at the other convs' scale: with them at zero every residual is
+    exactly zero and the branch would change nothing on the path."""
+    from tokenflow_torch.models.weights import ZERO_INIT
+
+    gen = torch.Generator(device=model.conv_in.weight.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if ZERO_INIT.match(name):
+                w = torch.randn(m.weight.shape, generator=gen, device=m.weight.device)
+                m.weight.copy_(w / math.sqrt(m.weight[0].numel()))
+
+
+def controlnet_stack():
+    """The ControlNet path's stack and ControlNet, as the CLIs load them
+    (SD-1.5, random weights, bf16), with the projections filled; both stay
+    held, so the CLIs run on these weights."""
+    from tokenflow_torch import runtime, utils
+    from tokenflow_torch.cli import controlnet_utils
+
+    stack = runtime.load_stack("ControlNet", device=utils.resolve_device("cuda"),
+                               dtype=torch.bfloat16, init="random")
+    model = controlnet_utils.load_controlnet(stack, None, "random")
+    fill_controlnet_projections(model)
+    return stack, model
+
+
+def check_controlnet_residuals(stack, model, frames: np.ndarray) -> dict:
+    """The filled ControlNet on one frame's canny image: every residual must
+    be finite and not all zero."""
+    from tokenflow_torch.cli import controlnet_utils
+
+    canny = torch.as_tensor(controlnet_utils.canny_cond(frames[:1]), device="cuda").bfloat16()
+    lat = frames.shape[1] // 8
+    x = torch.randn((1, lat, lat, 4), generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda").bfloat16()
+    ctx = torch.zeros((1, 77, 768), device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        down, mid = model(x, 501, ctx, canny)
+    norms = [float(r.float().norm()) for r in (*down, mid)]
+    if not all(math.isfinite(n) and n > 0 for n in norms):
+        raise AssertionError(f"ControlNet residual norms {norms}: zero or not finite")
+    return {"n_residuals": len(norms), "min_norm": min(norms), "max_norm": max(norms),
+            "edge_share": float(canny[..., 0].float().mean())}
+
+
+def run_controlnet_path(root: str) -> dict:
+    """The ControlNet editor at 512^2 through the port's CLIs: preprocess 40
+    synthetic frames with --sd_version ControlNet (SD-1.5, random weights,
+    bf16, the ControlNet's projections filled from a seed), then a 10-step
+    run_controlnet edit with window 8 (5 pivots). K1 must launch at head dims
+    40, 80 and 160 and K2 must launch; K3 (no site past its table size at
+    512^2) and K4 (off) must not."""
+    import yaml
+
+    from tokenflow_torch.cli import preprocess, run_controlnet
+    from tokenflow_torch.io import video as video_io
+
+    n_frames, inv_steps, edit_steps = 40, 20, 10
+    data = write_frames(root, n_frames, 512)
+    stack, model = controlnet_stack()
+    residuals = check_controlnet_residuals(
+        stack, model, video_io.load_frames(data, 1, resize_square=512)
+    )
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pre = preprocess.main([
+            "--data_path", "data/clip", "--H", "512", "--W", "512",
+            "--sd_version", "ControlNet", "--init", "random", "--dtype", "bf16",
+            "--n_frames", str(n_frames), "--batch_size", str(n_frames),
+            "--steps", str(inv_steps), "--save_steps", str(edit_steps),
+            "--device", "cuda",
+        ])
+        t_pre = time.perf_counter() - t0
+        pre_counts, pre_dims = read_counts(), read_k1_head_dims()
+        config = {
+            "seed": 1, "device": "cuda", "output_path": "results",
+            "data_path": "data/clip", "latents_path": "latents",
+            "n_inversion_steps": inv_steps, "n_frames": n_frames,
+            "sd_version": "ControlNet", "init": "random", "dtype": "bf16",
+            "guidance_scale": 7.5, "n_timesteps": edit_steps,
+            "prompt": "a marble sculpture of a woman running, Venus de Milo",
+            "negative_prompt": "ugly, blurry, low res, unrealistic, unaesthetic",
+            "batch_size": 8,
+        }
+        with open("config_controlnet.yaml", "w") as f:
+            yaml.safe_dump(config, f)
+        t0 = time.perf_counter()
+        decoded = run_controlnet.main(["--config_path", "config_controlnet.yaml"])
+        t_edit = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts, dims = read_counts(), read_k1_head_dims()
+        out_dir = run_controlnet.resolve_output_path(dict(config))["output_path"]
+        for name in (
+            "img_ode/00000.png", "tokenflow_ControlNet_fps_10.mp4", "vae_recon_10.mp4",
+            "input_fps10.mp4", "config.yaml", "metrics.json", "pivots.json",
+        ):
+            if not os.path.exists(os.path.join(out_dir, name)):
+                raise AssertionError(f"ControlNet: missing output {name}")
+        if not os.path.exists(os.path.join(pre["save_path"], "latents", "trajectory.npz")):
+            raise AssertionError("ControlNet: missing trajectory")
+        if decoded.shape != (n_frames, 512, 512, 3) or not np.isfinite(decoded).all():
+            raise AssertionError(f"ControlNet: decoded frames bad, {decoded.shape}")
+        edit = _edit_report(out_dir, edit_steps)
+    finally:
+        os.chdir(cwd)
+    edit_dims = {d: n - pre_dims.get(d, 0) for d, n in dims.items()}
+    for d in (40, 80, 160):
+        if edit_dims.get(d, 0) <= 0:
+            raise AssertionError(f"K1 was not launched at head dim {d} on the ControlNet edit")
+    if counts["token_match_gather"] <= 0:
+        raise AssertionError("K2 was not launched on the ControlNet path")
+    for name in ("token_match_gather_split", "group_norm"):
+        if counts[name] != 0:
+            raise AssertionError(f"kernel {name} ran on the 512^2 ControlNet path")
+    report = {
+        "launches": counts,
+        "launches_per_step": per_step(
+            pre_counts, counts, {"inversion+reconstruction": 2 * inv_steps,
+                                 "edit": edit_steps},
+        ),
+        "k1_launches_by_head_dim": {
+            "inversion+reconstruction": {str(d): n for d, n in pre_dims.items()},
+            "edit": {str(d): n for d, n in edit_dims.items()},
+        },
+        "residuals": residuals,
+        "preprocess_seconds": t_pre,
+        "inversion_seconds_per_step": pre["inversion_seconds"] / inv_steps,
+        "reconstruction_seconds_per_step": pre["reconstruction_seconds"] / inv_steps,
+        "reconstruction_psnr": pre["reconstruction_psnr"],
+        "edit_seconds": t_edit,
+        **{f"edit_{k}": v for k, v in edit.items()},
+        "peak_memory_bytes": peak,
+    }
+    for k, v in report.items():
+        print(f"[controlnet 512] {k}: {v}", flush=True)
+    return report
+
+
+def check_small_reference_controlnet() -> dict:
+    """One pivotal and one propagation call of the ControlNet path's SD-1.5
+    UNet with the ControlNet's residuals on a small input, through the
+    kernels on the card (bf16) and through the plain versions on the CPU (an
+    fp32 copy of the same weights, the same bf16-rounded inputs). 6 frames in
+    windows of 2 (3 pivots), 40x40 latents: K1 runs at D = 40 (S = 1600 per
+    frame, and the pivotal pass's 4800) and at D = 80 (the pivotal pass's
+    1200 tokens at 20x20), K2 at every site. Same tolerance as the SD-2.1
+    reference."""
+    from tokenflow_torch.models.controlnet import ControlNetModel
+    from tokenflow_torch.models.unet2d import UNet2DConditionModel
+    from tokenflow_torch.ops import editctx
+    from tokenflow_torch.ops.propagation import propagation_indices
+
+    stack, model = controlnet_stack()
+    cpu_unet = UNet2DConditionModel(stack.unet.config)
+    cpu_unet.load_state_dict({k: v.float().cpu() for k, v in stack.unet.state_dict().items()})
+    cpu_cn = ControlNetModel(stack.unet.config, model.controlnet_cond_embedding.num_downsamples)
+    cpu_cn.load_state_dict({k: v.float().cpu() for k, v in model.state_dict().items()})
+    cpu_unet.eval()
+    cpu_cn.eval()
+    gen = torch.Generator().manual_seed(3)
+    hw, f, ws, t = 40, 6, 2, 801
+    k = f // ws
+    x = torch.randn((3 * k, hw, hw, 4), generator=gen).bfloat16()  # pivots, 3 streams
+    xp = torch.randn((3 * f, hw, hw, 4), generator=gen).bfloat16()
+    emb = torch.randn((3, 77, 768), generator=gen).bfloat16()
+    cond = (torch.rand((f, 8 * hw, 8 * hw, 3), generator=gen) > 0.9).bfloat16()
+    piv = torch.arange(ws // 2, f, ws)
+    pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f, ws))
+
+    def run(unet, cn, device, dtype):
+        def put(a):
+            return a.to(device=device, dtype=dtype)
+
+        def residuals(sample, ctx, c):
+            down, mid = cn(sample, t, ctx, put(c).repeat_interleave(3, dim=0))
+            return dict(down_block_residuals=down, mid_block_residual=mid)
+
+        with torch.inference_mode():
+            edit = editctx.UNetEdit(mode=editctx.EditMode.PIVOTAL, n_frames=k, pnp=False,
+                                    qk_gate=False, conv_gate=False)
+            ctx = put(emb.repeat(k, 1, 1))
+            _, cache = unet(put(x), t, ctx, edit, **residuals(put(x), ctx, cond[piv]))
+            prop = editctx.UNetEdit(
+                mode=editctx.EditMode.PROPAGATE, n_frames=f, pnp=False, qk_gate=False,
+                conv_gate=False, cache=cache, prop_pa=pa.to(device), prop_pb=pb.to(device),
+                prop_w1=w1.to(device),
+            )
+            ctx = put(emb.repeat(f, 1, 1))
+            eps, _ = unet(put(xp), t, ctx, prop, **residuals(put(xp), ctx, cond))
+        return eps.float().cpu()
+
+    fa = kernel_modules()["flash_attention"]
+    before = dict(fa.launches_by_head_dim)
+    got = run(stack.unet, model, "cuda", torch.bfloat16)
+    dims = {d: n - before.get(d, 0) for d, n in fa.launches_by_head_dim.items()}
+    want = run(cpu_unet, cpu_cn, "cpu", torch.float32)
+    rel = float((got - want).norm() / want.norm())
+    err = float((got - want).abs().max())
+    print(
+        f"[reference] SD-1.5 + ControlNet pivotal+propagate eps, card (kernels, bf16) vs "
+        f"CPU (plain, fp32): rel L2 {rel:.3e}, max|err| {err:.3e}, K1 launches by head "
+        f"dim {dims}",
+        flush=True,
+    )
+    if not (dims.get(40, 0) > 0 and dims.get(80, 0) > 0):
+        raise AssertionError(f"small-input reference: K1 launches by head dim {dims}")
+    if not (torch.isfinite(got).all() and rel <= REF_REL_L2):
+        raise AssertionError(f"small-input reference (ControlNet): rel L2 {rel} > {REF_REL_L2}")
+    return {"rel_l2": rel, "max_abs_err": err, "k1_launches_by_head_dim": dims}
+
+
 def main() -> int:
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -1176,7 +1430,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sdedit_") as root:
         sdedit = run_sdedit_path(root)
     report["reference"] = check_small_reference()
-    by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_controlnet_") as root:
+        controlnet = run_controlnet_path(root)
+    controlnet["reference"] = check_small_reference_controlnet()
+    by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"],
+               "controlnet_512": controlnet["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {
             path: counts[entry["name"]] for path, counts in by_path.items()
@@ -1184,7 +1442,8 @@ def main() -> int:
         entry["launches"] = sum(entry["launches_by_path"].values())
 
     # phase 4: result lines
-    print(json.dumps({"main_path": report, "sdedit_path": sdedit}), flush=True)
+    print(json.dumps({"main_path": report, "sdedit_path": sdedit,
+                      "controlnet_path": controlnet}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({

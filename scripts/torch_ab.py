@@ -1,6 +1,6 @@
 """Parent/change comparison of the PyTorch port on one card.
 
-    python scripts/torch_ab.py PARENT_DIR CHANGE_DIR [--what k4 sass profile smoke]
+    python scripts/torch_ab.py PARENT_DIR CHANGE_DIR [--what k1 k4 sass profile smoke]
         [--out DIR]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (``git archive``
@@ -9,13 +9,19 @@ parent, change, change, parent, one process per run, with that tree's
 ``tokenflow_torch`` first on the path and this checkout's ``chip_smoke.py``
 helpers (so both trees are measured alike):
 
+  - k1: K1 at ``chip_smoke.K1_SHAPES`` (head dim 64) through the tree's
+    ``flash_attention_kernel``, held to its plain version by
+    ``chip_smoke.k1_within_limits``: the wrapper's time (``median_ms``) and
+    one call's device time with host work hidden (``device_ms``);
   - k4: K4 at ``chip_smoke.GN_SHAPES`` through the tree's
     ``group_norm_kernel``, held to its plain version by
     ``chip_smoke.gn_verdict``: the wrapper's time (``median_ms``) and one
     call's device time with host work hidden (``device_ms``);
   - sass: ``cuobjdump -sass`` of K1's (``flash_fwd``) and the match core's
     (``match_core``) functions in the two trees' libraries, compared line by
-    line;
+    line (both listings written to ``sass_{parent,change}.txt``); K1's
+    functions are matched by head dim (``flash_fwd_d64`` of a tree from
+    before K1 took D as a template parameter is ``flash_fwd<64>``);
   - profile: ``chip_smoke.profile_edit_step`` on the tree's port, device ms
     by kernel class for one 768p SDEdit edit step with K4 on;
   - smoke: the tree's own ``chip_smoke.py`` (its log in the output
@@ -72,11 +78,36 @@ def run_k4(smoke) -> list:
     return rows
 
 
+def run_k1(smoke) -> list:
+    import torch
+
+    from tokenflow_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, sq, skv, h in smoke.K1_SHAPES:
+        q, k, v = (torch.randn((b, n, h, 64), generator=gen, device="cuda").bfloat16()
+                   for n in (sq, skv, skv))
+
+        def call():
+            return fa.flash_attention_kernel(q, k, v)
+
+        m = smoke.k1_mismatch(call(), fa.flash_attention_plain(q, k, v, kv_block=1024))
+        if not smoke.k1_within_limits(m):
+            raise AssertionError(f"K1 at {(b, sq, skv, h)}: {m}")
+        rows.append({"shape": [b, sq, skv, h], **m, "wrapper_ms": smoke.median_ms(call),
+                     "device_ms": smoke.device_ms(call)})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_one(what: str, tree: str) -> None:
     """One run in this process, with ``tree``'s port first on the path."""
     sys.path.insert(0, tree)
     smoke = _smoke()
-    result = run_k4(smoke) if what == "k4" else smoke.profile_edit_step()
+    runs = {"k1": run_k1, "k4": run_k4}
+    result = runs[what](smoke) if what in runs else smoke.profile_edit_step()
     print("RESULT " + json.dumps(result), flush=True)
 
 
@@ -97,10 +128,16 @@ def _sass(tree: Path) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1) if any(f in m.group(1) for f in SASS_FUNCTIONS) else None
+            # K1 by head dim alone: the mangled names of the template
+            # flash_fwd<D> and of the older flash_fwd_d64 differ past it
+            k1 = name and re.search(r"flash_fwd(?:_d|ILi)(\d+)", name)
+            if k1:
+                name = f"flash_fwd<{k1.group(1)}>"
             if name:
                 funcs[name] = []
         elif name and line.strip().startswith("/*"):  # an instruction line
-            funcs[name].append(line.strip())
+            # cuobjdump pads the encoding column to the listing's widest line
+            funcs[name].append(" ".join(line.split()))
     return funcs
 
 
@@ -124,7 +161,7 @@ def main() -> int:
     parser.add_argument("parent", nargs="?")
     parser.add_argument("change", nargs="?")
     parser.add_argument("--what", nargs="+", default=["k4", "sass", "profile", "smoke"],
-                        choices=["k4", "sass", "profile", "smoke"])
+                        choices=["k1", "k4", "sass", "profile", "smoke"])
     parser.add_argument("--out", type=Path, default=HERE / "build" / "ab_results",
                         help="directory for results.jsonl and the smoke logs")
     parser.add_argument("--one", nargs=2, metavar=("WHAT", "TREE"), help=argparse.SUPPRESS)
@@ -146,12 +183,16 @@ def main() -> int:
         for what in args.what:
             if what == "sass":
                 sass = {label: _sass(tree) for label, tree in trees.items()}
+                for label, funcs in sass.items():
+                    (out / f"sass_{label}.txt").write_text("\n".join(
+                        f"{f}\n" + "\n".join(lines) for f, lines in funcs.items()))
                 same = {f: (len(sass["parent"].get(f, [])), len(lines),
                             sass["parent"].get(f) == lines)
                         for f, lines in sass["change"].items()}
                 differ = [(f, a, b) for f, lines in sass["change"].items()
                           for a, b in zip(sass["parent"].get(f, []), lines) if a != b]
-                emit({"what": "sass", "functions": same, "first_differences": differ[:5]})
+                emit({"what": "sass", "functions": same, "first_differences": differ[:5],
+                      "parent_only": sorted(set(sass["parent"]) - set(sass["change"]))})
                 failed |= not same or not all(s[2] for s in same.values())
                 continue
             for i, label in enumerate(ORDER):

@@ -53,28 +53,35 @@ def test_sdp_attention_matches_jax(sq, skv):
 
 
 @pytest.mark.parametrize(
-    "sq,skv,kv_block",
-    [(16, 48, 16), (33, 100, 32), (64, 64, 16), (10, 30, 64), (20, 70, 70)],
+    "sq,skv,kv_block,d",
+    [pytest.param(*c, 16, id="-".join(map(str, c)))
+     for c in [(16, 48, 16), (33, 100, 32), (64, 64, 16), (10, 30, 64), (20, 70, 70)]]
+    + [pytest.param(33, 100, 32, d, id=f"33-100-32-d{d}") for d in (40, 80, 160)],
 )
-def test_flash_attention_matches_jax_scan(sq, skv, kv_block):
+def test_flash_attention_matches_jax_scan(sq, skv, kv_block, d):
     """Skv > kv_block runs the blockwise plain version (ragged last block
     included); Skv <= kv_block takes the dense shortcut on both sides."""
-    q, qj = _pair((2, sq, 3, 16), 4)
-    k, kj = _pair((2, skv, 3, 16), 5)
-    v, vj = _pair((2, skv, 3, 16), 6)
+    q, qj = _pair((2, sq, 3, d), 4)
+    k, kj = _pair((2, skv, 3, d), 5)
+    v, vj = _pair((2, skv, 3, d), 6)
     got = tatt.flash_attention(q, k, v, kv_block=kv_block)
     want = jatt.flash_attention(qj, kj, vj, kv_block=kv_block)
     _close(got, want)
 
 
-@pytest.mark.parametrize("sq,skv", [(32, 100), (24, 64)])
-def test_flash_plain_matches_pallas_interpret(sq, skv):
-    q, qj = _pair((2, sq, 3, 16), 7)
-    k, kj = _pair((2, skv, 3, 16), 8)
-    v, vj = _pair((2, skv, 3, 16), 9)
+@pytest.mark.parametrize(
+    "sq,skv,d",
+    [pytest.param(32, 100, 16, id="32-100"), pytest.param(24, 64, 16, id="24-64")]
+    # SD-1.5's head dims (K1's D = 40, 80, 160), ragged KV tail included
+    + [pytest.param(32, 100, d, id=f"32-100-d{d}") for d in (40, 80, 160)],
+)
+def test_flash_plain_matches_pallas_interpret(sq, skv, d):
+    q, qj = _pair((2, sq, 3, d), 7)
+    k, kj = _pair((2, skv, 3, d), 8)
+    v, vj = _pair((2, skv, 3, d), 9)
     want = flash_attention_bhsd(
         qj.transpose(0, 2, 1, 3), kj.transpose(0, 2, 1, 3), vj.transpose(0, 2, 1, 3),
-        scale=16**-0.5, bq=16, bk=32, interpret=True,
+        scale=d**-0.5, bq=16, bk=32, interpret=True,
     ).transpose(0, 2, 1, 3)
     _close(tfa.flash_attention_plain(q, k, v, kv_block=32), want)
 
@@ -87,6 +94,19 @@ def test_flash_plain_bf16_is_close_to_fp32():
     assert lo.dtype == torch.bfloat16
     hi = tfa.flash_attention_plain(q, k, v, kv_block=32)
     assert (lo.float() - hi).abs().max() < 2e-2
+
+
+@pytest.mark.parametrize(
+    "d,dtype", [(48, torch.bfloat16), (128, torch.bfloat16), (40, torch.float32),
+                (64, torch.float32)],
+)
+def test_kernel_wrapper_rejects_other_head_dims_and_dtypes(d, dtype):
+    """K1 is instantiated for bf16 at D = 40, 64, 80, 160; anything else
+    raises before a launch (no fallback)."""
+    assert tfa.HEAD_DIMS == (40, 64, 80, 160)
+    q = torch.zeros(1, 8, 1, d, dtype=dtype)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        tfa.flash_attention_kernel(q, q, q)
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():

@@ -1,10 +1,13 @@
 """The port's CLIs end to end on the tiny stack on the CPU: preprocess
 (inversion + reconstruction), then the PnP editor, the SDEdit editor (with
 every GroupNorm on the GroupNorm kernel's switch) and the vanilla SDEdit
-baseline, in a fresh subprocess that must never import JAX or any module
-of the JAX package. Checks the artifact tree that
-tests/test_e2e_cli.py asserts for the JAX CLIs, that the trajectory reads
-back through tokenflow_tpu.io.latents, and the device rules.
+baseline, then preprocess and the ControlNet editor on the tiny-controlnet
+stack, in a fresh subprocess that must never import JAX or any module of
+the JAX package. Checks the artifact tree that tests/test_e2e_cli.py
+asserts for the JAX CLIs, that the trajectory reads back through
+tokenflow_tpu.io.latents, the device rules, and the config keys the port
+refuses (features it lacks, fp32 on a CUDA device) or ignores (the JAX
+relay's).
 """
 
 import json
@@ -35,7 +38,7 @@ SCRIPT = textwrap.dedent(
     import torch
     torch.set_num_threads(2)
     import yaml
-    from tokenflow_torch.cli import preprocess, run_pnp, run_sdedit
+    from tokenflow_torch.cli import preprocess, run_controlnet, run_pnp, run_sdedit
 
     pre = preprocess.main([
         "--data_path", "data/clip", "--H", "{HW}", "--W", "{HW}",
@@ -65,6 +68,20 @@ SCRIPT = textwrap.dedent(
     with open("config_vanilla.yaml", "w") as f:
         yaml.safe_dump(dict(sdedit, group_norm_kernel=False), f)
     van = run_sdedit.main(["--config_path", "config_vanilla.yaml", "--vanilla"])
+    cn_pre = preprocess.main([
+        "--data_path", "data/clip", "--H", "{HW}", "--W", "{HW}",
+        "--sd_version", "tiny-controlnet", "--init", "random", "--dtype", "f32",
+        "--steps", "{STEPS}", "--save_steps", "{SAVE_STEPS}",
+        "--n_frames", "{F}", "--batch_size", "2",
+        "--inversion_prompt", "a test clip", "--device", "cpu",
+    ])
+    cn_config = dict(config, sd_version="tiny-controlnet", steps_per_dispatch=2,
+                     frames_per_dispatch=2, compile_ahead=True, data_parallel="auto")
+    for k in ("pnp_attn_t", "pnp_f_t"):
+        del cn_config[k]
+    with open("config_controlnet.yaml", "w") as f:
+        yaml.safe_dump(cn_config, f)
+    cn = run_controlnet.main(["--config_path", "config_controlnet.yaml"])
     print("RESULT " + json.dumps({{
         "save_path": pre["save_path"],
         "output_path": out,
@@ -73,6 +90,10 @@ SCRIPT = textwrap.dedent(
         "finite": bool(np.isfinite(decoded).all()),
         "sdedit_shapes": [list(sd.shape), list(van.shape)],
         "sdedit_finite": bool(np.isfinite(sd).all() and np.isfinite(van).all()),
+        "controlnet_save_path": cn_pre["save_path"],
+        "controlnet_path": run_controlnet.resolve_output_path(dict(cn_config))["output_path"],
+        "controlnet_shape": list(cn.shape),
+        "controlnet_finite": bool(np.isfinite(cn).all()),
         "jax_loaded": sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "flax", "jaxlib", "tokenflow_tpu")
@@ -163,6 +184,71 @@ def test_sdedit_artifacts(run_cli, vanilla):
         assert {"edit_pivotal", "edit_propagate"} <= set(phases)
     # start 0.9 of 4 timesteps: timesteps[int(1 - 3.6):], two steps
     assert metrics["n_steps"] == 2 and metrics["vanilla"] is vanilla
+
+
+def test_controlnet_artifacts(run_cli):
+    root, result = run_cli
+    sp = root / result["controlnet_save_path"]
+    assert sp.parts[-4:-2] == ("sd_tiny-controlnet", "clip")
+    assert (sp / "latents" / "trajectory.npz").exists() and (sp / "inverted.mp4").exists()
+    assert result["controlnet_shape"] == [F, HW, HW, 3] and result["controlnet_finite"]
+    out = root / result["controlnet_path"]
+    assert out.parts[-5].endswith("results_controlnet")
+    assert out.parts[-2:] == ("batch_size_2", str(N_TIMESTEPS))
+    for name in (
+        "img_ode/00000.png", "tokenflow_ControlNet_fps_10.mp4",
+        "tokenflow_ControlNet_fps_20.mp4", "tokenflow_ControlNet_fps_30.mp4",
+        "vae_recon_10.mp4", "input_fps10.mp4", "config.yaml", "metrics.json", "pivots.json",
+    ):
+        assert (out / name).exists(), name
+    metrics = json.loads((out / "metrics.json").read_text())
+    for name in ("vae_recon", "edit_loop", "edit_pivotal", "edit_propagate", "decode"):
+        assert name in metrics["phases_seconds"], name
+    assert metrics["device"] == "cpu" and metrics["n_steps"] == N_TIMESTEPS
+
+
+def _controlnet_base(**kw):
+    base = dict.fromkeys(common.REQUIRED_KEYS["base"] + common.REQUIRED_KEYS["controlnet"], 0)
+    base.update({"batch_size": 2, "device": "cpu", **kw})
+    return base
+
+
+@pytest.mark.parametrize(
+    "key,value,item",
+    [("prop_approx", True, "A11"), ("fused_step", True, "A11"),
+     ("checkpoint_edit", True, "A15"), ("checkpoint_every", 5, "A15"),
+     ("data_parallel", 2, "A16"), ("data_parallel", "4", "A16"),
+     ("shard_pivotal", False, "A16")],
+)
+def test_config_refuses_unported_features(key, value, item):
+    """A key of a JAX feature the port lacks, set to anything but its
+    default, raises and names the ROADMAP item that ports it."""
+    with pytest.raises(ValueError, match=f"{key}.*ROADMAP {item}"):
+        common.validate_config(_controlnet_base(**{key: value}), "controlnet")
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [dict(prop_approx=False, fused_step=False, checkpoint_edit=False, checkpoint_every=1),
+     dict(data_parallel="auto", shard_pivotal=True), dict(data_parallel="off"),
+     dict(data_parallel=1), dict(steps_per_dispatch=5, frames_per_dispatch=8,
+                                 compile_ahead=True)],
+    ids=["defaults", "auto", "off", "one_device", "relay_keys"],
+)
+def test_config_accepts_defaults_and_relay_keys(extra):
+    common.validate_config(_controlnet_base(**extra), "controlnet")
+
+
+def test_f32_on_cuda_is_refused():
+    """fp32 runs on the CPU only until K1 and the match core have fp32
+    kernels: the config and preprocess's arguments are refused before any
+    device is touched, with the ROADMAP items named."""
+    with pytest.raises(ValueError, match="B1/B2"):
+        common.validate_config(_controlnet_base(dtype="f32", device="cuda"), "controlnet")
+    common.validate_config(_controlnet_base(dtype="f32"), "controlnet")
+    with pytest.raises(ValueError, match="B1/B2"):
+        preprocess.main(["--data_path", "data/none", "--device", "cuda", "--dtype", "f32",
+                         "--sd_version", "tiny"])
 
 
 def test_sdedit_config_keys():

@@ -148,6 +148,7 @@ def test_port_imports_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     line = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")][-1]
     result = json.loads(line[len("RESULT "):])
-    assert "tokenflow_torch.cli.run_sdedit" in result["modules"]
-    assert "tokenflow_torch.io.latents" in result["modules"]
+    for name in ("cli.run_sdedit", "io.latents", "cli.run_controlnet",
+                 "cli.controlnet_utils", "models.controlnet"):
+        assert f"tokenflow_torch.{name}" in result["modules"], name
     assert result["foreign"] == []

@@ -1,6 +1,7 @@
 """Port weights: ``state_dict_from_flax`` is the exact inverse of the JAX
-package's checkpoint converters, and its output loads strictly into the
-port's modules (so every diffusers key has its module attribute).
+package's checkpoint converters (UNet with linear and 1x1-conv projections,
+VAE, CLIP text, ControlNet), and its output loads strictly into the port's
+modules (so every diffusers key has its module attribute).
 
 Tolerance: none, the round trip only transposes and renames (exact).
 """
@@ -11,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_goldens import _SD, _build_unet_sd, _build_vae_sd
+from test_torch_goldens import _SD, _build_controlnet_sd, _build_unet_sd, _build_vae_sd
 from tokenflow_torch.models import weights as tw
 from tokenflow_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from tokenflow_torch.models.controlnet import ControlNetModel
 from tokenflow_torch.models.unet2d import UNet2DConditionModel, UNet2DConfig
 from tokenflow_torch.models.vae import AutoencoderKL, AutoencoderKLConfig
 from tokenflow_tpu.models import weights as jw
@@ -69,6 +71,21 @@ CASES = {
         jw.convert_clip_text_state_dict,
         lambda: CLIPTextModel(CLIPTextConfig.tiny()),
     ),
+    # _build_controlnet_sd's cond embedder has diffusers' three stride-2 stages
+    "controlnet": (
+        lambda: _build_controlnet_sd(UNet2DConfig.tiny()),
+        jw.convert_controlnet_state_dict,
+        lambda: ControlNetModel(UNet2DConfig.tiny(), cond_downsamples=3),
+    ),
+    "controlnet_conv_proj": (
+        lambda: _build_controlnet_sd(
+            dataclasses.replace(UNet2DConfig.tiny(), use_linear_projection=False)
+        ),
+        jw.convert_controlnet_state_dict,
+        lambda: ControlNetModel(
+            dataclasses.replace(UNet2DConfig.tiny(), use_linear_projection=False)
+        ),
+    ),
 }
 
 
@@ -76,7 +93,7 @@ CASES = {
 def test_state_dict_from_flax_inverts_the_converter(case):
     build, convert, make_module = CASES[case]
     sd = _np(build())
-    kind = "unet" if case.startswith("unet") else case
+    kind = case.removesuffix("_conv_proj")
     back = tw.state_dict_from_flax(convert(sd), kind)
     assert sorted(back) == sorted(sd)
     for key, want in sd.items():
@@ -94,7 +111,7 @@ def test_state_dict_from_flax_accepts_the_variables_dict():
     b = tw.state_dict_from_flax({"params": params}, "vae")
     assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError):
-        tw.state_dict_from_flax(params, "controlnet")
+        tw.state_dict_from_flax(params, "dpt")  # not ported yet (ROADMAP A13)
 
 
 def test_normalize_state_dict_renames_legacy_vae_attention():
@@ -123,3 +140,18 @@ def test_random_init_uses_the_jax_scales():
     again = UNet2DConditionModel(UNet2DConfig.tiny())
     tw.init_random_(again, torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(unet.parameters(), again.parameters()))
+
+
+def test_random_init_zeroes_the_controlnet_projections():
+    """As Flax's kernel_init zeros: cond_embedding.conv_out, every
+    controlnet_down_* and controlnet_mid start at zero; the rest is drawn."""
+    model = ControlNetModel(UNet2DConfig.tiny(), cond_downsamples=1)
+    tw.init_random_(model, torch.Generator().manual_seed(0))
+    zero = [n for n, m in model.named_modules() if tw.ZERO_INIT.match(n)]
+    assert zero == (["controlnet_cond_embedding.conv_out"]
+                    + [f"controlnet_down_blocks.{i}" for i in range(4)]
+                    + ["controlnet_mid_block"])
+    for name in zero:
+        assert not model.get_submodule(name).weight.any(), name
+    assert model.controlnet_cond_embedding.conv_in.weight.abs().sum() > 0
+    assert model.conv_in.weight.abs().sum() > 0

@@ -1,8 +1,13 @@
 """Shared editor-CLI plumbing (config loading, data and latents assembly,
-outputs) for the port's PnP and SDEdit editors; the counterpart of the
-main-path part of ``tokenflow_tpu/cli/common.py``. Same YAML keys and
+outputs) for the port's PnP, SDEdit and ControlNet editors; the counterpart
+of the main-path part of ``tokenflow_tpu/cli/common.py``. Same YAML keys and
 output tree, plus ``group_norm_kernel`` (bool, default false): run every
 UNet and VAE GroupNorm through K4.
+
+Keys of JAX features the port does not have yet are refused when set to
+anything but their default (``UNPORTED_KEYS``), so that a config never runs
+other maths than it says; the JAX relay's own keys (``steps_per_dispatch``,
+``frames_per_dispatch``, ``compile_ahead``) are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -34,14 +39,49 @@ REQUIRED_KEYS = {
     ),
     "pnp": ("n_inversion_steps", "pnp_attn_t", "pnp_f_t"),
     "sdedit": ("start",),
+    "controlnet": ("n_inversion_steps",),
 }
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
+def _data_parallel_default(v) -> bool:
+    """'auto' (one GPU: no mesh), off, or at most one device."""
+    if v in ("auto", "off", "0", 0, False, None):
+        return True
+    try:
+        return int(v) <= 1
+    except (TypeError, ValueError):
+        return False
+
+
+# JAX config keys of features the port lacks: (key, is-default test, the
+# ROADMAP item that ports it). tokenflow_tpu/cli/common.py reads them.
+UNPORTED_KEYS = (
+    ("prop_approx", lambda v: not v, "A11 (prop_approx)"),
+    ("fused_step", lambda v: not v, "A11 (FUSED mode)"),
+    ("checkpoint_edit", lambda v: not v, "A15 (checkpoint/resume)"),
+    ("checkpoint_every", lambda v: v in (None, 0, 1), "A15 (checkpoint/resume)"),
+    ("data_parallel", _data_parallel_default, "A16 (multi-GPU frames sharding)"),
+    ("shard_pivotal", lambda v: v is None or v is True, "A16 (multi-GPU frames sharding)"),
+)
+
+
+def check_dtype_device(dtype: str, device: str) -> None:
+    """fp32 runs only on the CPU for now: K1 and the token-match core (K2,
+    K3) are instantiated for bf16 on the card."""
+    if dtype == "f32" and str(device).startswith("cuda"):
+        raise ValueError(
+            "dtype f32 on a CUDA device is not supported yet: the flash-attention "
+            "kernel (K1) and the token-match core (K2/K3) are built for bf16 only "
+            "(ROADMAP B1/B2 ports their fp32 versions); use dtype bf16, or device cpu"
+        )
+
+
 def validate_config(config: dict, mode: str) -> dict:
     """Fail fast on missing keys, a bad propagate_chunk, device, dtype or
-    group_norm_kernel."""
+    group_norm_kernel, f32 on a CUDA device, and a key of an unported
+    feature set to anything but its default."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
@@ -54,9 +94,16 @@ def validate_config(config: dict, mode: str) -> dict:
             "propagate_chunk must be a multiple of batch_size "
             f"({pc} % {config['batch_size']})"
         )
-    utils.resolve_device(config.get("device", "cuda"))
+    for key, is_default, item in UNPORTED_KEYS:
+        if key in config and not is_default(config[key]):
+            raise ValueError(
+                f"config key {key}: {config[key]!r} is not supported by the port yet "
+                f"(ROADMAP {item}); remove it or set it to its default"
+            )
     if config.get("dtype", "bf16") not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
+    check_dtype_device(config.get("dtype", "bf16"), config.get("device", "cuda"))
+    utils.resolve_device(config.get("device", "cuda"))
     if not isinstance(config.get("group_norm_kernel", False), bool):
         raise ValueError("group_norm_kernel must be true or false")
     return config
@@ -106,6 +153,7 @@ def resolve_pivots(
 class EditorData:
     stack: runtime.SDStack
     config: dict
+    frames: np.ndarray  # (F, H, W, 3) float in [0, 1]
     latents: torch.Tensor  # (F, h, w, 4) scaled, fp32
     eps: torch.Tensor  # (F, h, w, 4) implied inversion noise
     trajectory: Any  # tokenflow_torch.io.latents.LatentTrajectory
@@ -170,9 +218,36 @@ def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
     inv_embed = stack.encode_prompt(inv_prompt, inv_prompt)[0:1]
     embeds3 = torch.cat([inv_embed, uncond_cond], dim=0)
     return EditorData(
-        stack=stack, config=config, latents=latents, eps=eps,
+        stack=stack, config=config, frames=frames, latents=latents, eps=eps,
         trajectory=trajectory, embeds3=embeds3,
     )
+
+
+def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.ndarray,
+                  metrics, *, pnp: bool, **loop_kw) -> tuple[torch.Tensor, float]:
+    """The TokenFlow edit loop on the editor's data (window ``batch_size``,
+    the config's guidance and ``propagate_chunk``), timed as the
+    ``edit_loop`` phase with its passes as ``edit_pivotal`` and
+    ``edit_propagate``; ``loop_kw`` goes to ``tokenflow_sample_loop``.
+    Returns (latents, the loop's seconds)."""
+    stack, config = data.stack, data.config
+    device = stack.device
+    with device_phase(metrics, "edit_loop", device), utils.Timer() as t_edit:
+        latents = pipeline.tokenflow_sample_loop(
+            stack.unet_apply,
+            x_init.to(stack.dtype),
+            torch.as_tensor(data.trajectory.traj, device=device).to(stack.dtype),
+            data.embeds3,
+            schedule,
+            window_size=config["batch_size"],
+            guidance_scale=config["guidance_scale"],
+            pnp=pnp,
+            pivot_indices=pivots,
+            propagate_chunk=config.get("propagate_chunk"),
+            phase=lambda name: device_phase(metrics, f"edit_{name}", device),
+            **loop_kw,
+        )
+    return latents, t_edit.seconds
 
 
 def save_vae_recon(data: EditorData) -> None:

@@ -6,7 +6,10 @@ store the latent trajectory (stage 1 of the two-stage pipeline).
 Same flags (the main-path subset), defaults and save layout as
 ``tokenflow_tpu/cli/preprocess.py``: ``latents/sd_{ver}/{video}/steps_{N}/
 nframes_{F}/latents/trajectory.npz`` plus ``inverted.mp4`` and the
-reconstructed ``frames/``. ``--device`` is ``cuda`` (default) or ``cpu``.
+reconstructed ``frames/``. ``--device`` is ``cuda`` (default) or ``cpu``;
+``--dtype f32`` runs on the CPU only. ``--sd_version ControlNet`` (and its
+tiny test stack ``tiny-controlnet``) adds the residuals of a canny
+ControlNet (``--controlnet_dir``, else random weights) to every UNet call.
 """
 
 from __future__ import annotations
@@ -19,27 +22,44 @@ import numpy as np
 import torch
 
 from tokenflow_torch import runtime, utils
-from tokenflow_torch.cli.common import DTYPES
+from tokenflow_torch.cli import controlnet_utils
+from tokenflow_torch.cli.common import DTYPES, check_dtype_device
 from tokenflow_torch.diffusion import ddim, inversion
 from tokenflow_torch.io import latents as latents_io
 from tokenflow_torch.io import video as video_io
 
 
-def build_eps_fn(stack: runtime.SDStack, cond: torch.Tensor, frame_chunk=None):
+def build_eps_fn(
+    stack: runtime.SDStack,
+    cond: torch.Tensor,
+    frame_chunk=None,
+    controlnet=None,
+    canny=None,
+):
     """Conditional-only eps (no CFG during inversion, reference
     preprocess.py:271), over frame chunks of ``frame_chunk`` (the
-    reference's frame micro-batching, preprocess.py:203)."""
+    reference's frame micro-batching, preprocess.py:203). With a
+    ``controlnet``, its residuals on the per-frame ``canny`` images (chunked
+    together with x) are added to every UNet call (reference
+    preprocess.py:129-149)."""
 
-    def single(x, t):
+    def single(x, t, cn):
         ctx = cond.expand(x.shape[0], *cond.shape[1:])
-        eps, _ = stack.unet_apply(x, t, ctx, None)
+        residuals = {}
+        if controlnet is not None:
+            down, mid = controlnet(x, t, ctx, cn)
+            residuals = dict(down_block_residuals=down, mid_block_residual=mid)
+        eps, _ = stack.unet_apply(x, t, ctx, None, **residuals)
         return eps
 
     def eps_fn(x, t):
         f = x.shape[0]
         if not frame_chunk or f <= frame_chunk:
-            return single(x, t)
-        return torch.cat([single(x[i : i + frame_chunk], t) for i in range(0, f, frame_chunk)])
+            return single(x, t, canny)
+        return torch.cat([
+            single(x[i : i + frame_chunk], t, None if canny is None else canny[i : i + frame_chunk])
+            for i in range(0, f, frame_chunk)
+        ])
 
     return eps_fn
 
@@ -64,10 +84,15 @@ def run(opt) -> dict:
     frames = video_io.load_frames(opt.data_path, opt.n_frames, resize_square=opt.H)
     lat = stack.encode_frames(frames)  # (F, h, w, 4) fp32
     cond = stack.encode_prompt(opt.inversion_prompt, "")[1:2]  # cond only
+    controlnet = canny = None
+    if runtime.is_controlnet(opt.sd_version):
+        controlnet, canny = controlnet_utils.build_controlnet(
+            stack, frames, opt.controlnet_dir, opt.init
+        )
 
     sched = ddim.make_schedule(opt.steps)
     frame_chunk = opt.batch_size if opt.batch_size < opt.n_frames else None
-    eps_fn = build_eps_fn(stack, cond, frame_chunk)
+    eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny)
 
     utils.synchronize(device)
     with utils.Timer() as t_inv:
@@ -114,6 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n_frames", type=int, default=40)
     p.add_argument("--inversion_prompt", type=str, default="a woman running")
     p.add_argument("--model_dir", type=str, default=None)
+    p.add_argument(
+        "--controlnet_dir", type=str, default=None,
+        help="diffusers-layout ControlNet directory (sd_version ControlNet)",
+    )
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--init", choices=["auto", "pretrained", "random"], default="auto")
     p.add_argument("--device", type=str, default="cuda", help="cuda or cpu")
@@ -134,6 +163,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     opt = build_parser().parse_args(argv)
+    check_dtype_device(opt.dtype, opt.device)
     if opt.data_path.endswith((".mp4", ".mov", ".avi")):
         video_io.video_to_frames(opt.data_path, img_size=(opt.W, opt.H))
         opt.data_path = os.path.join("data", Path(opt.data_path).stem)

@@ -74,6 +74,7 @@ def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
                 guidance_scale=config["guidance_scale"],
                 frame_chunk=config["batch_size"],
             )
+        seconds = t_edit.seconds
         with metrics.phase("decode_and_save"):
             with common.device_phase(metrics, "decode", device):
                 decoded = stack.decode_latents(latents_out, batch=common.VAE_BATCH_SIZE)
@@ -86,27 +87,15 @@ def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
                 video_io.save_video(decoded, os.path.join(out, name), fps=fps)
     else:
         pivots = common.resolve_pivots(config, generator, n_steps, config["n_frames"])
-        with common.device_phase(metrics, "edit_loop", device), utils.Timer() as t_edit:
-            latents_out = pipeline.tokenflow_sample_loop(
-                stack.unet_apply,
-                x_init,
-                torch.as_tensor(data.trajectory.traj, device=device).to(stack.dtype),
-                data.embeds3,
-                schedule,
-                window_size=config["batch_size"],
-                guidance_scale=config["guidance_scale"],
-                pnp=False,
-                pivot_indices=pivots,
-                propagate_chunk=config.get("propagate_chunk"),
-                phase=lambda name: common.device_phase(metrics, f"edit_{name}", device),
-            )
+        latents_out, seconds = common.run_edit_loop(data, schedule, x_init, pivots, metrics,
+                                                    pnp=False)
         metrics.add("pivot_indices", pivots.tolist())
         with metrics.phase("decode_and_save"):
             decoded = common.save_outputs(data, latents_out, "SDEdit", metrics)
-    fps = config["n_frames"] / t_edit.seconds
+    fps = config["n_frames"] / seconds
     print(
         f"[tokenflow-torch] {'vanilla ' if vanilla else ''}SDEdit loop ({n_steps} "
-        f"steps, {config['n_frames']} frames) on {device}: {t_edit.seconds:.1f}s "
+        f"steps, {config['n_frames']} frames) on {device}: {seconds:.1f}s "
         f"({fps:.2f} edited frames/s)"
     )
     metrics.add("device", str(device))

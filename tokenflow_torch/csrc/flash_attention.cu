@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in/out, head dim 64.
+// Flash attention forward for Hopper (sm_90a), bf16 in/out, head dims 40,
+// 64, 80 and 160.
 //
 // Replaces the Pallas TPU kernel tokenflow_tpu/kernels/flash_attention.py
 // (flash_attention_bhsd / _flash_kernel): softmax(Q K^T * scale) V with an
@@ -6,28 +7,35 @@
 // KV tiles, so neither the (Sq, Skv) logits nor an fp32 accumulator ever
 // reach device memory.
 //
-// Design (FlashAttention-3's structure, cut to what head dim 64 needs):
-//   - one block of four warpgroups per (192-row query tile, head, batch).
-//     Warpgroup 0 is the producer: one thread starts the TMA loads, and the
-//     warpgroup gives its registers to the consumers (setmaxnreg 24/160).
-//     Warpgroups 1-3 are consumers, each owning 64 query rows, so every K/V
-//     tile fetched serves 192 query rows;
-//   - Q (192 x 64) is loaded once by TMA; K and V tiles of 128 tokens x 64
-//     dims (16 KB each) stream through a ring of four stages in dynamic
-//     shared memory. Each stage has a "full" mbarrier for K, one for V (TMA
-//     transaction counts) and an "empty" mbarrier that the 12 consumer warps
-//     arrive on once the stage is read. A 64-dim bf16 row is 128 bytes, so
-//     the TMA boxes and the wgmma descriptors both use the 128-byte swizzle;
-//   - S = Q K^T runs as four wgmma.mma_async m64n128k16 per tile, both
-//     operands from shared memory (K is K-major as it lies in memory);
+// Design (FlashAttention-3's structure, cut to what these head dims need):
+//   - one block per (query tile, head, batch) of a producer warpgroup and
+//     two or three consumer warpgroups. Warpgroup 0 is the producer: one
+//     thread starts the TMA loads, and the warpgroup gives its registers to
+//     the consumers (setmaxnreg). Each consumer owns 64 query rows, so every
+//     K/V tile fetched serves 128 or 192 query rows;
+//   - Q is loaded once by TMA; K and V tiles of kBN tokens stream through a
+//     ring of stages in dynamic shared memory. Each stage has a "full"
+//     mbarrier for K, one for V (TMA transaction counts) and an "empty"
+//     mbarrier that the consumer warps arrive on once the stage is read;
+//   - a 128-byte swizzle row holds 64 bf16, so every tile is cut along D
+//     into boxes of 64 columns (one TMA load each, box b at column 64 b).
+//     The tensor map's extent along D is the true head dim: TMA zero-fills
+//     a box's columns past it (D = 40: columns 40-63; D = 80: 80-127;
+//     D = 160: 160-191), so they never read the next head's data;
+//   - S = Q K^T runs as ceil(D / 16) wgmma.mma_async k-steps per tile, both
+//     operands from shared memory (K is K-major as it lies in memory); the
+//     descriptor steps 32 bytes inside a box and moves to the next box every
+//     four k-steps. D = 40 takes three k-steps: columns 40-47 are zeros;
 //   - the softmax runs on the accumulator registers: row max and sum with
 //     quad shuffles, scale * log2 e applied in the exp2 domain. The
 //     m64nNk16 accumulator layout is the register A-operand layout of the
 //     next wgmma, so P is packed to bf16 in registers and never touches
 //     shared memory;
-//   - O += P V runs as eight wgmma m64n64k16 per tile with A = P from
-//     registers and B = V from shared memory in its natural (token, dim)
-//     layout, which is MN-major for this product (wgmma's transpose bit);
+//   - O += P V runs per box as kBN / 16 wgmma m64n64k16 with A = P from
+//     registers and B = the box of V in its natural (token, dim) layout,
+//     which is MN-major for this product (wgmma's transpose bit). Every
+//     product covers one whole swizzle atom along N; the columns past D are
+//     zeros and are not stored;
 //   - schedule: the consumers take turns (named barriers) to start Q K^T of
 //     tile j and P V of tile j - 1, so the tensor cores work through one
 //     warpgroup's products while the others run their softmax; and each
@@ -36,18 +44,29 @@
 //   - ragged tiles: TMA zero-fills rows past the tensor's end; the last KV
 //     tile masks its columns >= Skv to -inf, and Q rows >= Sq are not
 //     stored.
-// Bound: per (batch, head) the two products do 4 Sq Skv 64 flops against
-// (Sq + 2 Skv) 128 bytes read and Sq 128 written, thousands of flops per
+// Per head dim (Cfg below): D <= 64 has three consumers (192 query rows),
+// 128-token KV tiles in four stages and 160 registers a consumer thread.
+// D = 80 has two consumers (128 rows) with 240 registers, since O takes 64
+// fp32 registers a thread beside S's 64, and three stages of two-box tiles
+// (225 KB of shared memory). D = 160 keeps two consumers and takes 64-token
+// KV tiles: O's 96 registers and S's 64 would crowd 240, and a stage of
+// 128-token three-box K and V tiles is 96 KB; three stages of 64 tokens fit.
+// Bound: per (batch, head) the two products do 4 Sq Skv D flops against
+// (Sq + 2 Skv) 2 D bytes read and Sq 2 D written, thousands of flops per
 // byte at the path's lengths, so the kernel is compute bound (989 TFLOP/s
-// bf16). At head dim 64 the exponentials weigh as much as the products: a
-// score costs the SM 1/16 cycle in the tensor cores (256 flops) and 1/16
-// cycle in MUFU ex2, so the two have to overlap. Measured (PERF.md): about
-// half the bf16 peak at the path's long rows. Which part of the work sets
-// the time is not measured yet; known limits are the grid's partial last
-// wave (no persistent scheduler yet) and, at 4096 tokens, a block that
-// lives for only 32 KV tiles.
+// bf16). The tensor cores do more than that: Q K^T runs 16 ceil(D / 16)
+// deep and P V 64 ceil(D / 64) wide, so at D = 40 they multiply (48 + 64)
+// / 80 = 1.4 times the bound's products, at D = 80 (80 + 128) / 160 = 1.3
+// and at D = 160 (160 + 192) / 320 = 1.1. At head dim 64 the exponentials
+// weigh as much as the products: a score costs the SM 1/16 cycle in the
+// tensor cores and 1/16 cycle in MUFU ex2, so the two have to overlap; at
+// D = 40 the exponentials per product grow by 64 / 40. Measured (PERF.md):
+// about half the bf16 peak at D = 64 on the path's long rows. Which part of
+// the work sets the time is not measured yet; known limits are the grid's
+// partial last wave (no persistent scheduler yet) and, at 4096 tokens, a
+// block that lives for only 32 KV tiles.
 //
-// Layout: tensors are (B, S, H, 64) with arbitrary batch/sequence/head
+// Layout: tensors are (B, S, H, D) with arbitrary batch/sequence/head
 // strides (in elements; positive multiples of 8, which TMA needs as byte
 // strides that are multiples of 16) and unit stride along the head dim.
 // The launcher builds the TMA tensor maps on every call, reaching
@@ -63,28 +82,37 @@ namespace {
 
 using namespace tf;
 
-constexpr int kD = 64;
-constexpr int kConsumers = 3;         // consumer warpgroups, 64 query rows each
-constexpr int kBM = 64 * kConsumers;  // query rows per block
-constexpr int kBN = 128;              // KV tokens per tile
-constexpr int kStages = 4;
-constexpr int kThreads = 128 * (1 + kConsumers);
-// registers per thread after setmaxnreg: the producer warpgroup gives its
-// share to the consumers, within the SM's 65536
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 160;
-static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
-              "register budget");
-constexpr uint32_t kRowBytes = kD * 2;               // 128: one swizzle row
-constexpr uint32_t kTileBytes = kBN * kRowBytes;     // one K or V tile
-constexpr uint32_t kQBytes = kBM * kRowBytes;
-// dynamic shared memory from a 1024-aligned base: Q, K stages, V stages,
-// then the barriers: full_q, full_k[kStages], full_v[kStages], empty[kStages]
-constexpr uint32_t kOffK = kQBytes;
-constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
-constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
-constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
-constexpr uint32_t kConsumerWarps = 4 * kConsumers;
+// the tile plan of head dim D (see the header comment)
+template <int D>
+struct Cfg {
+  static constexpr int kBoxes = (D + 63) / 64;   // 64-column boxes along D
+  static constexpr int kKSteps = (D + 15) / 16;  // k16 steps of Q K^T
+  static constexpr int kConsumers = D <= 64 ? 3 : 2;  // 64 query rows each
+  static constexpr int kBM = 64 * kConsumers;    // query rows per block
+  static constexpr int kBN = D <= 128 ? 128 : 64;  // KV tokens per tile
+  static constexpr int kStages = D <= 64 ? 4 : 3;
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  // registers per thread after setmaxnreg: the producer warpgroup gives its
+  // share to the consumers, within the SM's 65536
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs = kConsumers == 3 ? 160 : 240;
+  static constexpr uint32_t kRowBytes = kSwizzleRowBytes;  // one box row
+  static constexpr uint32_t kBoxBytes = kBN * kRowBytes;   // one box of a K or V tile
+  static constexpr uint32_t kTileBytes = kBoxes * kBoxBytes;
+  static constexpr uint32_t kQBoxBytes = kBM * kRowBytes;
+  static constexpr uint32_t kQBytes = kBoxes * kQBoxBytes;
+  // dynamic shared memory from a 1024-aligned base: Q, K stages, V stages,
+  // then the barriers: full_q, full_k[kStages], full_v[kStages], empty[kStages]
+  static constexpr uint32_t kOffK = kQBytes;
+  static constexpr uint32_t kOffV = kOffK + kStages * kTileBytes;
+  static constexpr uint32_t kOffBar = kOffV + kStages * kTileBytes;
+  static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static_assert(D % 8 == 0 && D <= 256, "head dim");
+  static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
+                "register budget");
+  static_assert(kSmemBytes <= 232448, "shared memory");
+};
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -92,19 +120,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The online softmax of one KV tile on S's registers. The thread holds
-// rows g and g + 8 of its warp's 16: sc[4n], sc[4n + 1] at columns
-// 8n + 2t, 8n + 2t + 1 of row g; sc[4n + 2], sc[4n + 3] of row g + 8.
-// Masks columns >= skv (the ragged tail), moves the running maxima m to
-// the tile's, returns in c the factors that rescale the earlier sums, and
-// turns sc into P = exp2(S scale log2 e - m) in place, adding its row sums
-// to the partial sums l.
-__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
+// The online softmax of one KV tile of kBN tokens on S's registers. The
+// thread holds rows g and g + 8 of its warp's 16: sc[4n], sc[4n + 1] at
+// columns 8n + 2t, 8n + 2t + 1 of row g; sc[4n + 2], sc[4n + 3] of row g + 8.
+// Masks columns >= skv (the ragged tail), moves the running maxima m to the
+// tile's, returns in c the factors that rescale the earlier sums, and turns
+// sc into P = exp2(S scale log2 e - m) in place, adding its row sums to the
+// partial sums l.
+template <int kBN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m)[2],
                                              float (&l)[2], float (&c)[2], int kv0,
                                              int skv, int t, float scale_log2) {
+  constexpr int kGroups = kBN / 8;  // 8-column groups
   if (kv0 + kBN > skv) {
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < kGroups; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         if (kv0 + n * 8 + 2 * t + e >= skv) {
@@ -121,7 +151,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
 #pragma unroll
     for (int i = 0; i < 4; ++i) mx[i] = fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]);
 #pragma unroll
-    for (int n = 4; n < 16; ++n)
+    for (int n = 4; n < kGroups; ++n)
       mx[n & 3] = fmaxf(mx[n & 3], fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
     float row_max = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
     row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
@@ -131,7 +161,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
     m[r] = mn;
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < 16; ++n)
+    for (int n = 0; n < kGroups; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = sc[4 * n + 2 * r + e];
@@ -142,22 +172,26 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
   }
 }
 
-// acc *= c (row g: c[0], row g + 8: c[1]), and P packed to bf16 straight
-// into the A fragments of the P V product: k-slice kk covers S columns
-// 16kk .. 16kk + 15, the accumulator's 8-column groups 2kk and 2kk + 1
-__device__ __forceinline__ void rescale_and_pack(const float (&sc)[64],
-                                                 float (&acc)[32],
-                                                 uint32_t (&pf)[8][4],
+// acc *= c (row g: c[0], row g + 8: c[1]) over every box of O, and P packed
+// to bf16 straight into the A fragments of the P V product: k-slice kk
+// covers S columns 16kk .. 16kk + 15, the accumulator's 8-column groups 2kk
+// and 2kk + 1
+template <int kBoxes, int kBN>
+__device__ __forceinline__ void rescale_and_pack(const float (&sc)[kBN / 2],
+                                                 float (&acc)[kBoxes][32],
+                                                 uint32_t (&pf)[kBN / 16][4],
                                                  const float (&c)[2]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[4 * n] *= c[0];
-    acc[4 * n + 1] *= c[0];
-    acc[4 * n + 2] *= c[1];
-    acc[4 * n + 3] *= c[1];
-  }
+  for (int nb = 0; nb < kBoxes; ++nb)
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+    for (int n = 0; n < 8; ++n) {
+      acc[nb][4 * n] *= c[0];
+      acc[nb][4 * n + 1] *= c[0];
+      acc[nb][4 * n + 2] *= c[1];
+      acc[nb][4 * n + 3] *= c[1];
+    }
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
     pf[kk][0] = tf::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
     pf[kk][1] = tf::pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
     pf[kk][2] = tf::pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -165,20 +199,26 @@ __device__ __forceinline__ void rescale_and_pack(const float (&sc)[64],
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
-              const __grid_constant__ CUtensorMap tk,
-              const __grid_constant__ CUtensorMap tv,
-              __nv_bfloat16* __restrict__ o, int sq, int skv, long long osb,
-              long long oss, long long osh, float scale_log2) {
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+flash_fwd(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          __nv_bfloat16* __restrict__ o, int sq, int skv, long long osb,
+          long long oss, long long osh, float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int kBoxes = C::kBoxes, kBN = C::kBN, kStages = C::kStages;
+  constexpr int kConsumers = C::kConsumers;
+  constexpr uint32_t kRowBytes = C::kRowBytes, kBoxBytes = C::kBoxBytes;
+  constexpr uint32_t kTileBytes = C::kTileBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bar_q = base + kOffBar;
+  const uint32_t bar_q = base + C::kOffBar;
   auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
   auto full_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
   auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
   const int nkv = (skv + kBN - 1) / kBN;
-  const int q0 = blockIdx.x * kBM, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * C::kBM, h = blockIdx.y, b = blockIdx.z;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -186,7 +226,7 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
-      mbar_init(empty(s), kConsumerWarps);
+      mbar_init(empty(s), C::kConsumerWarps);
     }
     mbar_init_fence();
   }
@@ -194,32 +234,42 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the ring full ----
-    setmaxnreg_dec<kProducerRegs>();
+    setmaxnreg_dec<C::kProducerRegs>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, kQBytes);
-      tma_load_4d(base, &tq, bar_q, 0, q0, h, b);
+      mbar_expect_tx(bar_q, C::kQBytes);
+#pragma unroll
+      for (int bx = 0; bx < kBoxes; ++bx)
+        tma_load_4d(base + bx * C::kQBoxBytes, &tq, bar_q, 64 * bx, q0, h, b);
       for (int j = 0; j < nkv; ++j) {
         const int s = j % kStages;
         mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
         mbar_expect_tx(full_k(s), kTileBytes);
-        tma_load_4d(base + kOffK + s * kTileBytes, &tk, full_k(s), 0, j * kBN, h, b);
+#pragma unroll
+        for (int bx = 0; bx < kBoxes; ++bx)
+          tma_load_4d(base + C::kOffK + s * kTileBytes + bx * kBoxBytes, &tk, full_k(s),
+                      64 * bx, j * kBN, h, b);
         mbar_expect_tx(full_v(s), kTileBytes);
-        tma_load_4d(base + kOffV + s * kTileBytes, &tv, full_v(s), 0, j * kBN, h, b);
+#pragma unroll
+        for (int bx = 0; bx < kBoxes; ++bx)
+          tma_load_4d(base + C::kOffV + s * kTileBytes + bx * kBoxBytes, &tv, full_v(s),
+                      64 * bx, j * kBN, h, b);
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    setmaxnreg_inc<kConsumerRegs>();
+    setmaxnreg_inc<C::kConsumerRegs>();
     const int wg = (threadIdx.x >> 7) - 1;
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-    const uint32_t q_s = base + wg * 64 * kRowBytes;
+    const uint32_t q_s = base + wg * 64 * kRowBytes;  // in box 0
 
-    float acc[32];
+    float acc[kBoxes][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    float sc[64];
-    uint32_t pf[8][4];
+    for (int nb = 0; nb < kBoxes; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+    float sc[kBN / 2];
+    uint32_t pf[kBN / 16][4];
     float m[2] = {tf::neg_inf(), tf::neg_inf()};  // running max, log2 domain
     float l[2] = {0.f, 0.f};  // per-thread partial row sums
     float c[2];
@@ -238,20 +288,29 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
     };
     if (wg == kConsumers - 1) named_bar_arrive(next_turn);
 
-    // tile j's S = Q K^T: this warpgroup's 64 rows x 128 kv columns
+    // tile j's S = Q K^T: this warpgroup's 64 rows x kBN kv columns; k-step
+    // kk reads box kk / 4 at byte 32 (kk % 4) of its swizzle rows
     auto mma_qk = [&](int j) {
-      const uint32_t k_s = base + kOffK + (j % kStages) * kTileBytes;
+      const uint32_t k_s = base + C::kOffK + (j % kStages) * kTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_m64n128k16_ss(sc, kmajor_desc(q_s + kk * 32),
-                            kmajor_desc(k_s + kk * 32), kk);
+      for (int kk = 0; kk < C::kKSteps; ++kk) {
+        const uint64_t da = kmajor_desc(q_s + (kk / 4) * C::kQBoxBytes + (kk % 4) * 32);
+        const uint64_t db = kmajor_desc(k_s + (kk / 4) * kBoxBytes + (kk % 4) * 32);
+        if constexpr (kBN == 128)
+          wgmma_m64n128k16_ss(sc, da, db, kk);
+        else
+          wgmma_m64n64k16_ss(sc, da, db, kk);
+      }
     };
-    // O += P V over tile j's 128 tokens, 16 per wgmma
+    // O += P V over tile j's kBN tokens, 16 per wgmma, one box of O at a time
     auto mma_pv = [&](int j) {
-      const uint32_t v_s = base + kOffV + (j % kStages) * kTileBytes;
+      const uint32_t v_s = base + C::kOffV + (j % kStages) * kTileBytes;
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_m64n64k16_rs(acc, pf[kk], mnmajor_desc(v_s + kk * 16 * kRowBytes));
+      for (int nb = 0; nb < kBoxes; ++nb)
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk)
+          wgmma_m64n64k16_rs(acc[nb], pf[kk],
+                             mnmajor_desc(v_s + nb * kBoxBytes + kk * 16 * kRowBytes));
     };
     auto release = [&](int j) {  // this warp is done with tile j's stage
       __syncwarp();
@@ -268,8 +327,8 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
     pass_turn();
     wgmma_wait<0>();
     fence_regs(sc);
-    softmax_tile(sc, m, l, c, 0, skv, t, scale_log2);
-    rescale_and_pack(sc, acc, pf, c);
+    softmax_tile<kBN>(sc, m, l, c, 0, skv, t, scale_log2);
+    rescale_and_pack<kBoxes, kBN>(sc, acc, pf, c);
     for (int j = 1; j < nkv; ++j) {
       // Q K^T of this tile, then P V of the previous one, in one turn; the
       // softmax of this tile runs while P V is still on the tensor cores
@@ -286,11 +345,11 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
       pass_turn();
       wgmma_wait<1>();
       fence_regs(sc);
-      softmax_tile(sc, m, l, c, j * kBN, skv, t, scale_log2);
+      softmax_tile<kBN>(sc, m, l, c, j * kBN, skv, t, scale_log2);
       wgmma_wait<0>();
       fence_regs(acc);
       release(j - 1);
-      rescale_and_pack(sc, acc, pf, c);
+      rescale_and_pack<kBoxes, kBN>(sc, acc, pf, c);
     }
     mbar_wait(full_v((nkv - 1) % kStages), parity(nkv - 1));
     take_turn();
@@ -311,53 +370,78 @@ flash_fwd_d64(const __grid_constant__ CUtensorMap tq,
     }
     const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
 
+    // columns >= D are the zero-filled ones, and in the (B, S, H, D) layout
+    // they belong to the next head: never stored
     const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
     __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (r0 < sq)
-        *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
-            tf::pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
-      if (r1 < sq)
-        *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
-            tf::pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
-    }
+    for (int nb = 0; nb < kBoxes; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = nb * 64 + n * 8 + 2 * t;
+        if (D % 64 != 0 && col >= D) continue;
+        if (r0 < sq)
+          *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
+              tf::pack_bf16(acc[nb][4 * n] * inv0, acc[nb][4 * n + 1] * inv0);
+        if (r1 < sq)
+          *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
+              tf::pack_bf16(acc[nb][4 * n + 2] * inv1, acc[nb][4 * n + 3] * inv1);
+      }
   }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
+           int sq, int skv, long long qsb, long long qss, long long qsh, long long ksb,
+           long long kss, long long ksh, long long vsb, long long vss, long long vsh,
+           long long osb, long long oss, long long osh, float scale, void* stream) {
+  using C = Cfg<D>;
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kErrNoEncoder;
+  CUtensorMap tq, tk, tv;
+  int rc = make_map(&tq, encode, q, D, sq, heads, batch, qsb, qss, qsh, C::kBM);
+  if (rc == 0) rc = make_map(&tk, encode, k, D, skv, heads, batch, ksb, kss, ksh, C::kBN);
+  if (rc == 0) rc = make_map(&tv, encode, v, D, skv, heads, batch, vsb, vss, vsh, C::kBN);
+  if (rc != 0) return rc;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((sq + C::kBM - 1) / C::kBM, heads, batch);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  flash_fwd<D><<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, skv, osb, oss, osh, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream`; returns 0 on success, a cudaError_t of the launch,
-// or a negative code for a refused tensor map (tf_error_string).
-extern "C" int tf_flash_attention_d64(
-    const void* q, const void* k, const void* v, void* o, int batch,
+// Launches on `stream` for head dim 40, 64, 80 or 160; returns 0 on
+// success, a cudaError_t of the launch, or a negative code for a refused
+// tensor map or another head dim (tf_error_string).
+extern "C" int tf_flash_attention(
+    int head_dim, const void* q, const void* k, const void* v, void* o, int batch,
     int heads, int sq, int skv, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, float scale,
     void* stream) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kErrNoEncoder;
-  CUtensorMap tq, tk, tv;
-  int rc = make_map(&tq, encode, q, kD, sq, heads, batch, qsb, qss, qsh, kBM);
-  if (rc == 0) rc = make_map(&tk, encode, k, kD, skv, heads, batch, ksb, kss, ksh, kBN);
-  if (rc == 0) rc = make_map(&tv, encode, v, kD, skv, heads, batch, vsb, vss, vsh, kBN);
-  if (rc != 0) return rc;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_d64, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid((sq + kBM - 1) / kBM, heads, batch);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  flash_fwd_d64<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, skv, osb, oss, osh,
-      scale_log2);
-  return static_cast<int>(cudaGetLastError());
+#define TF_FLASH_ARGS                                                                  \
+  q, k, v, o, batch, heads, sq, skv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, \
+      oss, osh, scale, stream
+  switch (head_dim) {
+    case 40: return launch<40>(TF_FLASH_ARGS);
+    case 64: return launch<64>(TF_FLASH_ARGS);
+    case 80: return launch<80>(TF_FLASH_ARGS);
+    case 160: return launch<160>(TF_FLASH_ARGS);
+    default: return tf::kErrHeadDim;
+  }
+#undef TF_FLASH_ARGS
 }
 
 extern "C" const char* tf_error_string(int code) {
   static thread_local char buf[96];
   if (code == tf::kErrNoEncoder)
     return "cudaGetDriverEntryPoint found no cuTensorMapEncodeTiled";
+  if (code == tf::kErrHeadDim) return "flash attention has no kernel for this head dim";
   if (code <= tf::kErrEncodeBase) {
     snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
              tf::kErrEncodeBase - code);

@@ -10,7 +10,9 @@
 //     reached through cudaGetDriverEntryPoint, so the library needs no
 //     -lcuda) with make_map, its one map shape;
 //   - wgmma shared-memory descriptors for the 128-byte swizzle, fences,
-//     commit / wait, and the mma_async products K1 and the match core use;
+//     commit / wait, and the mma_async products K1 and the match core use
+//     (m64n128k16 and m64n64k16 from shared memory, m64n64k16 with A from
+//     registers);
 //   - setmaxnreg and the named barriers of K1's consumer turns.
 // Every tile row these helpers describe is 64 bf16 = 128 bytes, one row of
 // the 128-byte swizzle; tiles are 1024-byte aligned.
@@ -26,6 +28,7 @@ constexpr uint32_t kSwizzleRowBytes = 128;  // 64 bf16: one 128-byte swizzle row
 
 // error codes of the TMA launchers besides cudaError_t values
 constexpr int kErrNoEncoder = -1;
+constexpr int kErrHeadDim = -2;  // K1 has no instantiation for the head dim
 constexpr int kErrEncodeBase = -1000;  // minus the CUresult
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -172,6 +175,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 template <int N, int M>
+__device__ __forceinline__ void fence_regs(float (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(r[i]);
+}
+template <int N, int M>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -204,6 +212,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
         "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) = A (64 x 16, K-major smem) . B (16 x 64, K-major smem)
+// + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

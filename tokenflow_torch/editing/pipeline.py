@@ -10,6 +10,8 @@ Per denoising step:
      ``propagate_chunk`` frames) with self-attention replaced by the NN
      token propagation from the cache;
   3. classifier-free guidance and a DDIM step.
+With a ``controlnet_fn``, both passes add ControlNet residuals computed on
+their own batch (the conditioning images of their frames, one per stream).
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.propagation import propagation_indices
 
-# unet_apply(sample, t, context, edit) -> (eps, cache)
+# unet_apply(sample, t, context, edit, **residuals) -> (eps, cache)
 UNetApply = Callable[..., tuple]
+# controlnet_fn(sample, t, context, cond) -> (down residuals, mid residual)
+ControlNetFn = Callable[..., tuple]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,10 +126,15 @@ def tokenflow_sample_loop(
     pivot_indices: np.ndarray,  # (T, n_windows) absolute frame indices
     propagate_chunk: Optional[int] = None,  # frames, multiple of window_size
     phase: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext(),
+    controlnet_fn: Optional[ControlNetFn] = None,
+    cond_image: Optional[torch.Tensor] = None,  # (F, H, W, 3) for controlnet_fn
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
     x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
-    pass (a timing hook)."""
+    pass (a timing hook). ``controlnet_fn`` adds its residuals to every UNet
+    call: the pivotal pass on ``cond_image[pivots]``, the propagation pass
+    on its chunk's frames, each image repeated for the three streams
+    frame-major (``jnp.repeat(cond, 3, axis=0)`` in the JAX loop)."""
     f_total = x_init.shape[0]
     n_windows = f_total // window_size
     if n_windows * window_size != f_total:
@@ -144,6 +153,16 @@ def tokenflow_sample_loop(
     )
     embeds_piv = embeds3.repeat(n_windows, 1, 1)  # frame-major [inv,uncond,cond]
     embeds_prop = embeds3.repeat(chunk, 1, 1)
+    if (controlnet_fn is None) != (cond_image is None):
+        raise ValueError("controlnet_fn and cond_image come together")
+
+    def residuals(sample, t, embeds, cond):
+        """ControlNet residuals of a 3-stream pass (the reference's 3x
+        concat of the conditioning)."""
+        if controlnet_fn is None:
+            return {}
+        down, mid = controlnet_fn(sample, t, embeds, cond.repeat_interleave(3, dim=0))
+        return dict(down_block_residuals=down, mid_block_residual=mid)
 
     x = x_init
     for i in range(n_steps):
@@ -160,8 +179,10 @@ def tokenflow_sample_loop(
             )
             # the pivot eps is discarded; only the cache matters (reference
             # run_tokenflow_pnp.py:227)
+            sample = _stack_streams(src[piv], x_piv, x_piv)
             _, cache = unet_apply(
-                _stack_streams(src[piv], x_piv, x_piv), t, embeds_piv, edit_piv
+                sample, t, embeds_piv, edit_piv,
+                **residuals(sample, t, embeds_piv, None if cond_image is None else cond_image[piv]),
             )
 
         with phase("propagate"):
@@ -173,8 +194,11 @@ def tokenflow_sample_loop(
                     qk_gate=qk_g, conv_gate=conv_g, cache=cache,
                     prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
                 )
+                sample = _stack_streams(src[sl], x[sl], x[sl])
                 eps_c, _ = unet_apply(
-                    _stack_streams(src[sl], x[sl], x[sl]), t, embeds_prop, edit
+                    sample, t, embeds_prop, edit,
+                    **residuals(sample, t, embeds_prop,
+                                None if cond_image is None else cond_image[sl]),
                 )
                 eps3.append(eps_c.reshape(chunk, 3, *eps_c.shape[1:]))
             eps3 = torch.cat(eps3)

@@ -43,7 +43,7 @@ _L = ctypes.c_longlong
 # C signatures of the exported launchers (every pointer and the stream as a
 # void pointer, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
-    "tf_flash_attention_d64": [_P] * 4 + [_I] * 4 + [_L] * 12
+    "tf_flash_attention": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12
     + [ctypes.c_float, _P],
     "tf_token_match": [_P] * 8 + [_I] * 5 + [_P],
     "tf_token_match_split": [_P] * 9 + [_I] * 5 + [_P],

@@ -5,9 +5,9 @@ Replaces the Pallas TPU kernel ``tokenflow_tpu/kernels/flash_attention.py``
 with an online softmax that keeps (acc, m, l) in fp32 on chip across KV
 tiles. The CUDA source is ``tokenflow_torch/csrc/flash_attention.cu``; its
 header comment gives the design (TMA loads into an mbarrier ring, wgmma
-products, a producer warpgroup and three consumer warpgroups). Bound on
-the H100: compute (4 Sq Skv D flops against (Sq + 2 Skv) D bf16 bytes per
-head).
+products, a producer warpgroup and two or three consumer warpgroups, tiles
+cut along D into 64-column boxes). Bound on the H100: compute (4 Sq Skv D
+flops against (Sq + 2 Skv) D bf16 bytes per head).
 
 The wrapper takes the framework's (B, S, H, D) layout and passes strides
 to the kernel (no (B, H, S, D) copy), from which the kernel's TMA tensor
@@ -16,8 +16,9 @@ positive multiples of 16, so a tensor whose strides are not positive
 multiples of 8 elements (a broadcast ``expand`` view has stride 0) or whose
 base is not 16-byte aligned is first copied into a new contiguous tensor
 (``kernels/_operands.py``, the rule the token-match core shares).
-Instantiated for bf16 and D = 64 (every SD-2.1 site); any other dtype or
-head dim on CUDA raises.
+Instantiated for bf16 at ``HEAD_DIMS``: D = 64 (every SD-2.x site) and D =
+40, 80, 160 (SD-1.5's 8 heads over 320, 640 and 1280 channels); any other
+dtype or head dim on CUDA raises.
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ from tokenflow_torch.kernels._operands import tma_operand
 
 # kernel launches made by :func:`flash_attention_kernel` (reset by callers)
 launches = 0
+# launches by head dim, the same launches as ``launches``
+launches_by_head_dim: dict[int, int] = {}
+# the head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (40, 64, 80, 160)
 
 
 def flash_attention_plain(
@@ -79,14 +84,10 @@ def flash_attention_kernel(
     *,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Launch K1 on CUDA tensors q (B, Sq, H, 64), k/v (B, Skv, H, 64), all
-    bf16 on one device. Returns a new (B, Sq, H, 64) bf16 tensor."""
+    """Launch K1 on CUDA tensors q (B, Sq, H, D), k/v (B, Skv, H, D), all
+    bf16 on one device, D in ``HEAD_DIMS``. Returns a new (B, Sq, H, D)
+    bf16 tensor."""
     global launches
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(
-            "flash_attention_kernel needs q, k, v on one CUDA device, got "
-            f"{q.device}, {k.device}, {v.device}"
-        )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"expected q (B,Sq,H,D), k/v (B,Skv,H,D); got {tuple(q.shape)}, "
@@ -95,10 +96,15 @@ def flash_attention_kernel(
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d != 64 or not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+    if d not in HEAD_DIMS or not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise NotImplementedError(
             "the CUDA flash-attention kernel is instantiated for bf16 with "
-            f"head dim 64 only; got {q.dtype}, head dim {d}"
+            f"head dims {HEAD_DIMS}; got {q.dtype}, head dim {d}"
+        )
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(
+            "flash_attention_kernel needs q, k, v on one CUDA device, got "
+            f"{q.device}, {k.device}, {v.device}"
         )
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
@@ -113,8 +119,8 @@ def flash_attention_kernel(
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tf_flash_attention_d64(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rc = lib.tf_flash_attention(
+            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, sq, skv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
@@ -122,4 +128,5 @@ def flash_attention_kernel(
         )
     _build.check(lib, rc, "flash_attention_kernel launch")
     launches += 1
+    launches_by_head_dim[d] = launches_by_head_dim.get(d, 0) + 1
     return out

@@ -32,6 +32,17 @@ class CLIPTextConfig:
         return CLIPTextConfig()
 
     @staticmethod
+    def sd15() -> "CLIPTextConfig":
+        """CLIP ViT-L/14's text tower (SD-1.5): 768 wide, 12 layers."""
+        return CLIPTextConfig(
+            hidden_size=768,
+            num_layers=12,
+            num_heads=12,
+            intermediate_size=3072,
+            hidden_act="quick_gelu",
+        )
+
+    @staticmethod
     def tiny() -> "CLIPTextConfig":
         return CLIPTextConfig(
             vocab_size=1000, hidden_size=32, num_layers=2, num_heads=4,

@@ -5,7 +5,9 @@ Public layout is NHWC in and out, as in JAX; the body runs NCHW. Module
 names follow diffusers' ``UNet2DConditionModel`` state-dict keys. The edit
 directive (:class:`tokenflow_torch.ops.editctx.UNetEdit`) fans out to the
 self-attention sites by name (``down_{i}_{j}``, ``mid``, ``up_{i}_{j}``) and
-the PIVOTAL pass returns the per-site cache.
+the PIVOTAL pass returns the per-site cache. ControlNet residuals
+(``down_block_residuals``, ``mid_block_residual``) are added to the skips
+and to the mid block's output, as diffusers' UNet adds them.
 """
 
 from __future__ import annotations
@@ -50,6 +52,16 @@ class UNet2DConfig:
         return UNet2DConfig()
 
     @staticmethod
+    def sd15() -> "UNet2DConfig":
+        """SD-1.5: 8 heads at every level (head dims 40, 80, 160), 1x1-conv
+        projections, CLIP ViT-L context."""
+        return UNet2DConfig(
+            cross_attention_dim=768,
+            num_heads=(8, 8, 8, 8),
+            use_linear_projection=False,
+        )
+
+    @staticmethod
     def tiny(cross_attention_dim: int = 32) -> "UNet2DConfig":
         """Small config for tests: same topology, 2 resolutions."""
         return UNet2DConfig(
@@ -63,6 +75,11 @@ class UNet2DConfig:
 
     def head_dim(self, level: int) -> int:
         return self.block_out_channels[level] // self.num_heads[level]
+
+
+def _nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A residual from the NHWC public layout into the body's NCHW."""
+    return x.to(dtype).permute(0, 3, 1, 2)
 
 
 class _Block(nn.Module):
@@ -79,57 +96,122 @@ class _Block(nn.Module):
             self.upsamplers = nn.ModuleList([upsample])
 
 
-class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNet2DConfig, kv_block: int = 1024):
-        super().__init__()
-        cfg = self.config = config
-        chans = list(cfg.block_out_channels)
-        n = len(chans)
-        temb = chans[0] * 4
+class UNetParts:
+    """The UNet's block constructors for one config (shared with
+    :class:`tokenflow_torch.models.controlnet.ControlNetModel`, whose
+    encoder half has the same modules under the same names)."""
 
-        def resnet(cin, cout):
-            return ResnetBlock2D(cin, cout, eps=cfg.norm_eps, temb_channels=temb)
+    def __init__(self, cfg: UNet2DConfig, kv_block: int):
+        self.cfg, self.kv_block = cfg, kv_block
+        self.chans = list(cfg.block_out_channels)
+        self.temb = self.chans[0] * 4
 
-        def attn(level):
-            return Transformer2DModel(
-                chans[level], cfg.num_heads[level], cfg.head_dim(level),
-                cfg.cross_attention_dim, cfg.use_linear_projection, kv_block,
-            )
+    def resnet(self, cin: int, cout: int) -> ResnetBlock2D:
+        return ResnetBlock2D(cin, cout, eps=self.cfg.norm_eps, temb_channels=self.temb)
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
-        self.time_embedding = TimestepEmbedding(chans[0], temb)
+    def attn(self, level: int) -> Transformer2DModel:
+        cfg = self.cfg
+        return Transformer2DModel(
+            self.chans[level], cfg.num_heads[level], cfg.head_dim(level),
+            cfg.cross_attention_dim, cfg.use_linear_projection, self.kv_block,
+        )
 
+    def stem(self) -> tuple[nn.Conv2d, TimestepEmbedding]:
+        """conv_in and time_embedding."""
+        c0 = self.chans[0]
+        return nn.Conv2d(self.cfg.in_channels, c0, 3, padding=1), TimestepEmbedding(c0, self.temb)
+
+    def down_blocks(self) -> tuple[nn.ModuleList, list[int]]:
+        """The down blocks and the channels of the skips they leave (conv_in's
+        output first)."""
+        cfg, chans = self.cfg, self.chans
         cin, skips = chans[0], [chans[0]]
         down = []
         for i, ch in enumerate(chans):
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block):
-                resnets.append(resnet(cin, ch))
+                resnets.append(self.resnet(cin, ch))
                 cin = ch
                 if cfg.attn_down[i]:
-                    attns.append(attn(i))
+                    attns.append(self.attn(i))
                 skips.append(ch)
-            ds = Downsample2D(ch) if i < n - 1 else None
+            ds = Downsample2D(ch) if i < len(chans) - 1 else None
             if ds is not None:
                 skips.append(ch)
             down.append(_Block(resnets, attns, downsample=ds))
-        self.down_blocks = nn.ModuleList(down)
+        return nn.ModuleList(down), skips
 
-        self.mid_block = _Block(
-            [resnet(chans[-1], chans[-1]), resnet(chans[-1], chans[-1])],
-            [attn(n - 1)],
+    def mid_block(self) -> _Block:
+        c = self.chans[-1]
+        return _Block([self.resnet(c, c), self.resnet(c, c)], [self.attn(len(self.chans) - 1)])
+
+
+def embed_timesteps(cfg: UNet2DConfig, time_embedding: TimestepEmbedding, timesteps,
+                    b: int, device) -> torch.Tensor:
+    """Sinusoidal embedding of an int, 0-dim or (B,) timestep through the
+    time MLP -> (B, 4 C0)."""
+    t = torch.as_tensor(timesteps, device=device)
+    if t.dim() == 0:
+        t = t.expand(b)
+    return time_embedding(
+        timestep_embedding(
+            t, cfg.block_out_channels[0],
+            flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift,
         )
+    )
 
+
+def down_pass(blocks: nn.ModuleList, h, temb, context, edit: editctx.UNetEdit,
+              cache: dict) -> tuple[torch.Tensor, list]:
+    """The down blocks on conv_in's output h (NCHW) -> (h, skips), filling
+    ``cache`` with the PIVOTAL entries of their attention sites."""
+    skips = [h]
+    for i, block in enumerate(blocks):
+        for j, res in enumerate(block.resnets):
+            h = res(h, temb)
+            if len(block.attentions):
+                site = f"down_{i}_{j}"
+                h, c = block.attentions[j](h, context, edit.for_site(site))
+                if c is not None:
+                    cache[site] = c
+            skips.append(h)
+        if hasattr(block, "downsamplers"):
+            h = block.downsamplers[0](h)
+            skips.append(h)
+    return h, skips
+
+
+def mid_pass(mid: _Block, h, temb, context, edit: editctx.UNetEdit, cache: dict):
+    h = mid.resnets[0](h, temb)
+    h, c = mid.attentions[0](h, context, edit.for_site("mid"))
+    if c is not None:
+        cache["mid"] = c
+    return mid.resnets[1](h, temb)
+
+
+class UNet2DConditionModel(nn.Module):
+    def __init__(self, config: UNet2DConfig, kv_block: int = 1024):
+        super().__init__()
+        cfg = self.config = config
+        parts = UNetParts(cfg, kv_block)
+        chans = parts.chans
+        n = len(chans)
+
+        self.conv_in, self.time_embedding = parts.stem()
+        self.down_blocks, skips = parts.down_blocks()
+        self.mid_block = parts.mid_block()
+
+        cin = chans[-1]
         rev = chans[::-1]
         up = []
         for i in range(n):
             level = n - 1 - i
             resnets, attns = [], []
             for _ in range(cfg.layers_per_block + 1):
-                resnets.append(resnet(cin + skips.pop(), rev[i]))
+                resnets.append(parts.resnet(cin + skips.pop(), rev[i]))
                 cin = rev[i]
                 if cfg.attn_up[i]:
-                    attns.append(attn(level))
+                    attns.append(parts.attn(level))
             us = Upsample2D(rev[i]) if i < n - 1 else None
             up.append(_Block(resnets, attns, upsample=us))
         self.up_blocks = nn.ModuleList(up)
@@ -147,46 +229,25 @@ class UNet2DConditionModel(nn.Module):
         timesteps,  # int, 0-dim or (B,) tensor
         encoder_hidden_states: torch.Tensor,  # (B, 77, cross_dim)
         edit: Optional[editctx.UNetEdit] = None,
+        down_block_residuals: Optional[Sequence[torch.Tensor]] = None,  # NHWC
+        mid_block_residual: Optional[torch.Tensor] = None,  # NHWC
     ):
         """Returns (eps (B, H, W, C_out) NHWC, cache {site: entry})."""
-        cfg = self.config
         edit = edit or editctx.UNetEdit()
         dtype = self.dtype
-        b = sample.shape[0]
         context = encoder_hidden_states.to(dtype)
         cache: dict = {}
-
-        t = torch.as_tensor(timesteps, device=sample.device)
-        if t.dim() == 0:
-            t = t.expand(b)
-        temb = self.time_embedding(
-            timestep_embedding(
-                t, cfg.block_out_channels[0],
-                flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift,
-            )
+        temb = embed_timesteps(
+            self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
         )
 
         h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
-        skips = [h]
-        for i, block in enumerate(self.down_blocks):
-            for j, res in enumerate(block.resnets):
-                h = res(h, temb)
-                if len(block.attentions):
-                    site = f"down_{i}_{j}"
-                    h, c = block.attentions[j](h, context, edit.for_site(site))
-                    if c is not None:
-                        cache[site] = c
-                skips.append(h)
-            if hasattr(block, "downsamplers"):
-                h = block.downsamplers[0](h)
-                skips.append(h)
-
-        mid = self.mid_block
-        h = mid.resnets[0](h, temb)
-        h, c = mid.attentions[0](h, context, edit.for_site("mid"))
-        if c is not None:
-            cache["mid"] = c
-        h = mid.resnets[1](h, temb)
+        h, skips = down_pass(self.down_blocks, h, temb, context, edit, cache)
+        if down_block_residuals is not None:
+            skips = [s + _nchw(r, dtype) for s, r in zip(skips, down_block_residuals)]
+        h = mid_pass(self.mid_block, h, temb, context, edit, cache)
+        if mid_block_residual is not None:
+            h = h + _nchw(mid_block_residual, dtype)
 
         for i, block in enumerate(self.up_blocks):
             for j, res in enumerate(block.resnets):

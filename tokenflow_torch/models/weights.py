@@ -6,7 +6,7 @@ The port's module names ARE the diffusers / transformers state-dict keys,
 so a local checkpoint loads with ``load_state_dict`` after two legacy
 renames. ``state_dict_from_flax`` turns a JAX parameter tree (numpy leaves)
 back into that state dict, the inverse of
-``tokenflow_tpu/models/weights.py::convert_{unet,vae,clip_text}_state_dict``:
+``tokenflow_tpu/models/weights.py::convert_{unet,vae,clip_text,controlnet}_state_dict``:
 Dense (in, out) -> (out, in), Conv HWIO -> OIHW, norm ``scale`` ->
 ``weight``.
 """
@@ -65,7 +65,9 @@ _VAE_LEGACY = [
 def normalize_state_dict(sd: dict[str, torch.Tensor], kind: str) -> dict:
     """Drop buffers the port does not keep (position_ids, the CLIP text
     projection) and rename legacy VAE attention keys; 1x1-conv legacy
-    attention weights become linear weights."""
+    attention weights become linear weights. ``kind`` is ``unet``, ``vae``,
+    ``clip_text`` or ``controlnet`` (a diffusers ``ControlNetModel``, whose
+    keys are the port's as they are)."""
     out = {}
     for key, w in sd.items():
         if key.endswith("position_ids") or key.startswith("text_projection"):
@@ -89,6 +91,10 @@ def load_into(module: nn.Module, component_dir: str, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+# ControlNet's projections, zero-initialised as in Flax (kernel_init zeros)
+# and diffusers, so that a fresh ControlNet leaves the UNet's result as it is
+ZERO_INIT = re.compile(r"^(controlnet_cond_embedding\.conv_out|controlnet_down_blocks\.\d+"
+                       r"|controlnet_mid_block)$")
 
 
 @torch.no_grad()
@@ -96,9 +102,13 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Flax default initializers, drawn from ``generator``: lecun-normal
     (truncated normal, variance 1/fan_in) for Linear and Conv weights, zero
     biases, unit/zero norms, embeddings normal with std 1/sqrt(width) and
-    the CLIP position table normal(0.01) (tokenflow_tpu/models/*.py)."""
+    the CLIP position table normal(0.01) (tokenflow_tpu/models/*.py); zero
+    weights for the ControlNet projections (``ZERO_INIT``)."""
     for name, m in module.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, nn.Conv2d) and ZERO_INIT.match(name):
+            m.weight.zero_()
+            m.bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(
@@ -154,7 +164,16 @@ _CLIP_INV = [
     (r"^", r"text_model."),
 ]
 
-_RULES = {"unet": _UNET_INV, "vae": _VAE_INV, "clip_text": _CLIP_INV}
+_CONTROLNET_INV = _UNET_INV + [
+    (r"^cond_embedding\.conv_in\.", r"controlnet_cond_embedding.conv_in."),
+    (r"^cond_embedding\.block_(\d+)\.", r"controlnet_cond_embedding.blocks.\1."),
+    (r"^cond_embedding\.conv_out\.", r"controlnet_cond_embedding.conv_out."),
+    (r"^controlnet_down_(\d+)\.", r"controlnet_down_blocks.\1."),
+    (r"^controlnet_mid\.", r"controlnet_mid_block."),
+]
+
+_RULES = {"unet": _UNET_INV, "vae": _VAE_INV, "clip_text": _CLIP_INV,
+          "controlnet": _CONTROLNET_INV}
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
@@ -182,8 +201,8 @@ def _torch_leaf(path: str, w: np.ndarray) -> tuple[str, np.ndarray]:
 
 def state_dict_from_flax(params: dict, kind: str) -> dict[str, torch.Tensor]:
     """JAX parameter tree (``{"params": ...}`` or its inner dict, numpy
-    leaves) of kind ``unet``, ``vae`` or ``clip_text`` -> the port's state
-    dict (contiguous CPU tensors, the leaves' dtype)."""
+    leaves) of kind ``unet``, ``vae``, ``clip_text`` or ``controlnet`` ->
+    the port's state dict (contiguous CPU tensors, the leaves' dtype)."""
     if kind not in _RULES:
         raise ValueError(f"kind must be one of {sorted(_RULES)}, got {kind!r}")
     tree = params.get("params", params)

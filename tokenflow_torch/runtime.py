@@ -28,15 +28,25 @@ from tokenflow_torch.io.tokenizer import CLIPTokenizer, HashTokenizer
 MODEL_KEYS = {
     "2.1": "stabilityai/stable-diffusion-2-1-base",
     "2.0": "stabilityai/stable-diffusion-2-base",
+    "1.5": "runwayml/stable-diffusion-v1-5",
+    "ControlNet": "runwayml/stable-diffusion-v1-5",
 }
-SD_VERSIONS = ("2.0", "2.1", "tiny")
+SD_VERSIONS = ("1.5", "2.0", "2.1", "ControlNet", "tiny", "tiny-controlnet")
+
+
+def is_controlnet(sd_version: str) -> bool:
+    """Variants that run the ControlNet residual branch on every UNet call
+    (SD-1.5 with the canny ControlNet, and its tiny test stack)."""
+    return sd_version in ("ControlNet", "tiny-controlnet")
 
 
 def configs_for(sd_version: str):
-    if sd_version == "tiny":
+    if sd_version in ("tiny", "tiny-controlnet"):
         return UNet2DConfig.tiny(), AutoencoderKLConfig.tiny(), CLIPTextConfig.tiny()
     if sd_version in ("2.1", "2.0"):
         return UNet2DConfig.sd21_base(), AutoencoderKLConfig.sd(), CLIPTextConfig.sd21()
+    if sd_version in ("1.5", "ControlNet"):
+        return UNet2DConfig.sd15(), AutoencoderKLConfig.sd(), CLIPTextConfig.sd15()
     raise ValueError(
         f"sd_version {sd_version!r} is not supported by the port "
         f"(supported: {', '.join(SD_VERSIONS)})"
@@ -106,9 +116,10 @@ class SDStack:
 
     # ---- UNet ---------------------------------------------------------
 
-    def unet_apply(self, sample, t, context, edit=None):
-        """-> (eps, cache); see UNet2DConditionModel.forward."""
-        return self.unet(sample, t, context, edit)
+    def unet_apply(self, sample, t, context, edit=None, **residuals):
+        """-> (eps, cache); see UNet2DConditionModel.forward (``residuals``:
+        its ControlNet ``down_block_residuals`` / ``mid_block_residual``)."""
+        return self.unet(sample, t, context, edit, **residuals)
 
 
 @functools.lru_cache(maxsize=1)
