@@ -21,7 +21,16 @@ Phases (any failure raises, and the script exits non-zero):
      runs at both paths' GroupNorm shapes in bf16 (and one in fp32), SiLU
      on and off, with its plan (variant, cluster size, CTAs per SM), the
      wrapper's time and one launch's device time, and a repeat launch that
-     must match bit for bit;
+     must match bit for bit. The fp32 kernels (``dtype: f32``) against
+     their plain versions in fp32, TF32 off, bounded at 67 TFLOP/s of fp32
+     on the CUDA cores: K1-f32 at every shape of the fp32 paths and one
+     row per SD-1.5 head dim (K1_F32_SHAPES) and on the D = 64 row's
+     strided views, with SDPA's fp32 time beside it; the fp32 match core
+     through K2 (F=40, 4096x320 in four modes: separated, duplicated-row,
+     random and all-negative inputs; every other K2_SHAPES site separated
+     and random; the ragged all-negative row) and K3 (F=24, 9216x320 in
+     the four modes, the per-chunk F=8, the ragged row; bitwise equal to
+     K2);
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
@@ -39,8 +48,16 @@ Phases (any failure raises, and the script exits non-zero):
      filled from a seed, its residuals checked non-zero): preprocess 40
      frames with --sd_version ControlNet, then a 10-step run_controlnet
      edit with 5 pivots; K1 must launch at head dims 40, 80 and 160 and K2
-     must launch, K3 and K4 not. Last, the same small-input check for the
-     SD-1.5 UNet with the ControlNet's residuals;
+     must launch, K3 and K4 not. Then the same small-input check for the
+     SD-1.5 UNet with the ControlNet's residuals. Each small-input check
+     also runs the card's weights in fp32 (fp32 kernels) against the same
+     CPU run, to a limit of its own (past it, it reports the flipped share
+     of matched indices at every propagation site), and once more with
+     TF32 on, which must read above that limit. Last, the stack in fp32 (dtype
+     f32, fp32 kernels only, no bf16 launch allowed), depth cut further:
+     preprocess + PnP at 40x512^2 with 3 + 3 + 3 steps (K1-f32, K2-f32),
+     then preprocess + SDEdit at 8x768^2 with 4 + 4 steps and 2 edit steps,
+     the GroupNorm kernel on (K1-f32, K2-f32, K3-f32, K4 in fp32);
   4. print one JSON line with the kernel table, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -79,6 +96,29 @@ K1_REL_L2 = 5e-3
 K2_MAX_FLIP_SHARE = 1e-3
 # the main path's UNet on the card against the CPU's plain fp32 path
 REF_REL_L2 = 5e-2
+# the same with the card's stack in fp32 (fp32 kernels, TF32 off): fp32
+# sums in another order over ~70 layers, and NN matches that near-ties
+# flip, against bf16's rounding (relative step 2^-8) in REF_REL_L2. Each
+# reference's limit lies near the geometric mean of its sound fp32 reading
+# and its reading with TF32 on, a control that must fail it (on the H100:
+# SD-2.1 6.6e-6 and 1.05e-2; SD-1.5 + ControlNet 7.3e-4, three sites
+# flipping a few near-tie matches, and 5.4e-3; PERF.md, PR 7)
+REF_REL_L2_F32_SD21 = 2.5e-4
+REF_REL_L2_F32_CONTROLNET = 2e-3
+
+# the fp32 kernels (K1-f32, the fp32 match core) against their plain
+# versions in fp32, TF32 off. K1: fp32 rounding over Skv <= 20480 terms
+# sits near 1e-6 relative, a single-pass TF32 product (10-bit mantissa)
+# near 1e-3, and a ragged tail counted as zero logits far above both
+K1_F32_REL_L2 = 2e-5
+K1_F32_ATOL = 1e-4
+# the match core: identical indices on separated and duplicated-row
+# inputs, at most this share flipped on random and all-negative ones (fp32
+# sums in another order break near-ties only), and where the indices
+# agree the blended rows within K2_F32_VALUE_TOL * max|kf| (the blend's
+# roundings are the plain version's)
+K2_F32_MAX_FLIP_SHARE = 1e-4
+K2_F32_VALUE_TOL = 1e-6
 
 # K4 against its plain version: at most this many bf16 steps, counted at
 # the magnitude of the plain result but never below GN_ULP_FLOOR (fp32 sums
@@ -109,14 +149,47 @@ K1_SD15_SHAPES = [
 ]
 # K1's checks end the run if they take longer (a hung kernel)
 K1_PHASE_SECONDS = 420
+# the fp32 paths' depth: PnP 512^2 (40 frames) with this many inversion,
+# reconstruction and edit steps; SDEdit 768p with F32_SDEDIT_FRAMES frames,
+# this many inversion and reconstruction steps and a schedule of as many
+# (2 edit steps after the 0.9 truncation)
+F32_PNP_STEPS = 3
+F32_SDEDIT_FRAMES = 8
+F32_SDEDIT_STEPS = 4
 # (K pivots, S, heads, inner) of the pivotal pass's extended attention: PnP
 # 512^2 at the 64x64 level (D = 64), ControlNet 512^2 at each level (D =
 # 40, 80, 160)
 K1_STRIDED = [(5, 4096, 5, 320), (5, 4096, 8, 320), (5, 1024, 8, 640), (5, 256, 8, 1280)]
-# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s and
-# dense bf16 tensor-core FLOP/s, at the 700 W power limit
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
+# bf16 tensor-core FLOP/s and fp32 FLOP/s on the CUDA cores (the fp32
+# kernels' FFMA products), at the 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
+H100_FP32_FLOPS = 67e12
+# the peak each dtype's kernels are bounded by, as named in their rows
+PEAKS = {
+    torch.bfloat16: (H100_BF16_FLOPS, "bf16 tensor cores, 989 TFLOP/s"),
+    torch.float32: (H100_FP32_FLOPS, "fp32 CUDA cores (FFMA), 67 TFLOP/s"),
+}
+# K1-f32's rows (B, Sq, Skv, H, D): every shape the fp32 paths give it (D =
+# 64), the 24-frame 768p pivotal row, one row per SD-1.5 head dim at its
+# largest path shape, and the ragged row
+K1_F32_SHAPES = [
+    (2, 20480, 20480, 5, 64),  # PnP 512^2: pivotal extended attention, 64x64
+    (2, 5120, 5120, 10, 64),  # PnP 512^2: pivotal extended attention, 32x32
+    (40, 4096, 4096, 5, 64),  # PnP 512^2: inversion self-attention, 40 frames
+    (2, 9216, 9216, 5, 64),  # fp32 SDEdit 768p (1 pivot): pivotal, 96x96
+    (2, 2304, 2304, 10, 64),  # fp32 SDEdit 768p: pivotal, 48x48
+    (8, 9216, 9216, 5, 64),  # fp32 SDEdit 768p: inversion, 8 frames, 96x96
+    (8, 2304, 2304, 10, 64),  # fp32 SDEdit 768p: inversion, 48x48
+    (2, 27648, 27648, 5, 64),  # SDEdit 768p at 24 frames (3 pivots): pivotal, 96x96
+    (2, 20480, 20480, 8, 40),  # SD-1.5 512^2: pivotal extended attention, 64x64
+    (2, 5120, 5120, 8, 80),  # SD-1.5 512^2: 32x32
+    (2, 1280, 1280, 8, 160),  # SD-1.5 512^2: 16x16
+    (2, 1000, 3000, 5, 64),  # ragged Q and KV tails
+]
+# the strided views of the D = 64 row (K1_STRIDED's first entry)
+K1_F32_STRIDED = [(5, 4096, 5, 320)]
 K2_SHAPES = [  # (S, D, F, K): F frames per launch as the path passes them
     (4096, 320, 40, 5), (1024, 640, 40, 5), (256, 1280, 40, 5),  # PnP 512^2 sites
     (64, 1280, 40, 5),  # PnP 512^2 mid block
@@ -129,6 +202,12 @@ K2_NS = 3
 # the ragged row where every real similarity is negative: a zero-filled tail
 # column read as similarity 0 would win every row
 K2_NEGATIVE = (144, 1280, 8, 3)
+# the fp32 match core's rows (S, D, F, K) in all four modes: K2 at the PnP
+# 512^2 top level, K3 at the 768p top level in one launch of three chunks
+# (check_token_match_f32 adds every K2_SHAPES site, K3's per-chunk launch
+# and the ragged all-negative row)
+K2_F32 = (4096, 320, 40, 5)
+K3_F32 = (9216, 320, 24, 3)
 K3_S, K3_D, K3_K, K3_NS = 9216, 320, 3, 3  # SDEdit 768p top level
 K3_F = 24  # three propagate_chunks of 8 frames in one launch
 K3_CHUNK_F = 8  # the per-chunk launch of the path
@@ -237,11 +316,12 @@ def bf16_ulps_floored(got: torch.Tensor, want: torch.Tensor) -> float:
     return worst
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = H100_BF16_FLOPS) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take to move
     ``nbytes`` (each input read once, each output written once) and to do
-    ``flops`` bf16 tensor-core operations, at the H100's published peaks."""
-    by_bytes, by_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_BF16_FLOPS * 1e3
+    ``flops`` operations at ``peak`` FLOP/s (bf16 tensor cores unless
+    given; ``PEAKS``), at the H100's published peaks."""
+    by_bytes, by_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -271,17 +351,30 @@ def k1_mismatch(out: torch.Tensor, ref: torch.Tensor) -> dict:
         "max_abs_err": float((o - r).abs().max()),
         "max_abs_limit": min(K1_ATOL, K1_MAX_ULPS * 2.0 ** (math.floor(math.log2(peak)) - 7)),
         "rel_l2": float((o - r).norm() / r.norm().clamp_min(1e-30)),
+        "rel_l2_limit": K1_REL_L2,
     }
 
 
 def k1_within_limits(m: dict) -> bool:
-    return m["max_abs_err"] <= m["max_abs_limit"] and m["rel_l2"] <= K1_REL_L2
+    return m["max_abs_err"] <= m["max_abs_limit"] and m["rel_l2"] <= m["rel_l2_limit"]
+
+
+def k1_f32_mismatch(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """K1-f32's output against its plain version in fp32: max|err| and the
+    relative L2 error beside their limits."""
+    return {
+        "max_abs_err": float((out - ref).abs().max()),
+        "max_abs_limit": K1_F32_ATOL,
+        "rel_l2": float((out - ref).norm() / ref.norm().clamp_min(1e-30)),
+        "rel_l2_limit": K1_F32_REL_L2,
+    }
 
 
 def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
-    """K1 on (q, k, v) against its plain version, with its time, SDPA's on
-    the same tensors (as (B, H, S, D) views: the port never calls it) and
-    the bound."""
+    """K1 on (q, k, v) against its plain version (bf16: ``k1_mismatch``;
+    fp32: ``k1_f32_mismatch``), with its time, SDPA's on the same tensors
+    (as (B, H, S, D) views: the port never calls it) and the bound at the
+    dtype's peak (``PEAKS``)."""
     import torch.nn.functional as F
 
     b, sq, h, d = q.shape
@@ -289,30 +382,34 @@ def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
     out = fa.flash_attention_kernel(q, k, v)
     ref = fa.flash_attention_plain(q, k, v, kv_block=1024)
     torch.cuda.synchronize()
-    m = k1_mismatch(out, ref)
+    m = (k1_f32_mismatch if q.dtype == torch.float32 else k1_mismatch)(out, ref)
     del out, ref
     err = m["max_abs_err"]
     if not k1_within_limits(m):
         raise AssertionError(
-            f"K1 at {label}: max|err| {err} (limit {m['max_abs_limit']}), "
-            f"rel L2 {m['rel_l2']} (limit {K1_REL_L2})"
+            f"K1 {q.dtype} at {label}: max|err| {err} (limit {m['max_abs_limit']}), "
+            f"rel L2 {m['rel_l2']} (limit {m['rel_l2_limit']})"
         )
     ms = median_ms(lambda: fa.flash_attention_kernel(q, k, v))
     plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, kv_block=1024), runs=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     flops = 4.0 * b * h * sq * skv * d
-    bound_ms, bound_by = bound(2.0 * d * b * h * (2 * sq + 2 * skv), flops)
+    peak, peak_name = PEAKS[q.dtype]
+    bound_ms, bound_by = bound(q.element_size() * d * b * h * (2 * sq + 2 * skv), flops, peak)
     tflops = flops / ms * 1e-9
+    tag = "[K1]" if q.dtype == torch.bfloat16 else "[K1 fp32]"
     print(
-        f"[K1] {label}: max|err|={err:.3e} (limit {m['max_abs_limit']:.3e}) "
+        f"{tag} {label}: max|err|={err:.3e} (limit {m['max_abs_limit']:.3e}) "
         f"rel L2 {m['rel_l2']:.3e}, kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-        f"SDPA {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms",
+        f"SDPA {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}; {peak_name})",
         flush=True,
     )
     return {"shape": [b, sq, skv, h], "head_dim": d, "strided": strided, **m,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "tflops": tflops}
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak_name,
+            "tflops": tflops}
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -375,27 +472,92 @@ def check_flash(gen: torch.Generator) -> dict:
     }
 
 
+def check_flash_f32(gen: torch.Generator) -> dict:
+    """K1-f32 against its plain version in fp32 (TF32 off) at one row per
+    head dim (K1_F32_SHAPES) and on the pivotal pass's strided views of the
+    D = 64 row, q/k injected and not; SDPA's time at fp32 beside it."""
+    from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.ops.attention import split_heads
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rows = []
+    for b, sq, skv, h, d in K1_F32_SHAPES:
+        rows.append(_k1_row(
+            fa, randn(b, sq, h, d), randn(b, skv, h, d), randn(b, skv, h, d),
+            f"B={b} Sq={sq} Skv={skv} H={h} D={d}",
+        ))
+        torch.cuda.empty_cache()
+    for kf, s, heads, inner in K1_F32_STRIDED:
+        for injected in (True, False):
+            q3, k3 = (
+                randn(1, kf, s, inner).expand(3, kf, s, inner) if injected
+                else randn(3, kf, s, inner) for _ in range(2)
+            )
+            v3 = randn(3, kf, s, inner)
+            q, k, v = (split_heads(t[1:].reshape(2, kf * s, inner), heads)
+                       for t in (q3, k3, v3))
+            rows.append(_k1_row(
+                fa, q, k, v, f"extended attention views K={kf} S={s} H={heads} "
+                f"D={inner // heads}, q/k {'injected' if injected else 'own'}, strides "
+                f"q {q.stride()} v {v.stride()}", strided=True,
+            ))
+            del q3, k3, v3, q, k, v
+            torch.cuda.empty_cache()
+    main = rows[0]
+    by_d = {}
+    for r in rows:  # each head dim's first row
+        by_d.setdefault(r["head_dim"], r)
+    return {
+        "name": "flash_attention_f32",
+        "route": "cuda",
+        "source": "tokenflow_torch/csrc/flash_attention_f32.cu",
+        "replaces": "tokenflow_tpu/kernels/flash_attention.py:133",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "rel_l2": max(r["rel_l2"] for r in rows),
+        **{key: main[key] for key in
+           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_peak", "tflops")},
+        "library": "scaled_dot_product_attention in fp32, TF32 off",
+        "by_head_dim": {
+            str(d): {key: r[key] for key in
+                     ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                      "tflops", "max_abs_err", "rel_l2")}
+            for d, r in sorted(by_d.items())
+        },
+        "shapes": rows,
+    }
+
+
 NO_LIBRARY_CALL = "no single PyTorch call computes the match, gather and blend"
 
 
-def _match_bound(f: int, s: int, d: int, k: int, ns: int) -> tuple[float, str]:
+def _match_bound(f: int, s: int, d: int, k: int, ns: int,
+                 dtype: torch.dtype = torch.bfloat16) -> tuple[float, str]:
     """Bound of the token match + gather: each frame's (S, D) rows against
-    its two pivots' S rows (4 F S^2 D flops); x, the pivot table and the
-    kf tables read once, the (ns, F, S, D) output written once."""
-    return bound(2.0 * d * s * (f + k + ns * k + ns * f), 4.0 * f * s * s * d)
+    its two pivots' S rows (4 F S^2 D flops at the dtype's peak, ``PEAKS``);
+    x, the pivot table and the kf tables read once, the (ns, F, S, D)
+    output written once."""
+    size = torch.finfo(dtype).bits // 8
+    return bound(size * d * s * (f + k + ns * k + ns * f), 4.0 * f * s * s * d,
+                 PEAKS[dtype][0])
 
 
-def _stage_bounds(f: int, s: int, d: int, k: int, ns: int) -> dict:
+def _stage_bounds(f: int, s: int, d: int, k: int, ns: int,
+                  dtype: torch.dtype = torch.bfloat16) -> dict:
     """The bound of each stage alone: the match reads x and the pivot table
     and writes (2, F, S) int32 indices; the gather reads the indices and the
     kf tables and writes the output."""
-    match_ms, _ = bound(2.0 * d * s * (f + k) + 8.0 * f * s, 4.0 * f * s * s * d)
-    gather_ms, _ = bound(2.0 * d * s * ns * (k + f) + 8.0 * f * s, 0.0)
+    size = torch.finfo(dtype).bits // 8
+    match_ms, _ = bound(size * d * s * (f + k) + 8.0 * f * s, 4.0 * f * s * s * d,
+                        PEAKS[dtype][0])
+    gather_ms, _ = bound(size * d * s * ns * (k + f) + 8.0 * f * s, 0.0)
     return {"match_bound_ms": match_ms, "gather_bound_ms": gather_ms}
 
 
-def _match_inputs(gen, s, d, mode, f, k, ns=K2_NS, device="cuda"):
-    """Seeded (x, p_hat, kf, pa, pb, w1) on ``device``. Modes: "random";
+def _match_inputs(gen, s, d, mode, f, k, ns=K2_NS, device="cuda", dtype=torch.bfloat16):
+    """Seeded (x, p_hat, kf, pa, pb, w1) on ``device``, the tables in
+    ``dtype``. Modes: "random";
     "separated" (pivot rows are permuted base rows plus noise, so every
     query has one clear match); "ties" (every pivot row appears four times,
     at 2m and 2m + 1 in the first half and again in the second half, so
@@ -437,27 +599,38 @@ def _match_inputs(gen, s, d, mode, f, k, ns=K2_NS, device="cuda"):
         p = p.repeat_interleave(2, dim=1).repeat(1, 2, 1)
     p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
     kf = torch.randn((ns, k, s, d), generator=gen, device=device)
-    return x.bfloat16(), p_hat.bfloat16(), kf.bfloat16(), pa, pb, w1
+    return x.to(dtype), p_hat.to(dtype), kf.to(dtype), pa, pb, w1
 
 
-def _match_verdict(tag, mode, idx, ref_idx, out, ref):
+def _match_verdict(tag, mode, idx, ref_idx, out, ref, kf_max=None):
     """(line, flipped share, max|err|) of a token-match kernel against its
     plain version; raises past the tolerances of ``mode``: identical
-    indices and <= 1 ulp on separated or duplicated-row inputs (ties to the
-    earlier row: an even row of the first half), <= K2_MAX_FLIP_SHARE
-    flipped on random and all-negative ones."""
+    indices on separated or duplicated-row inputs (ties to the earlier row:
+    an even row of the first half), at most K2_MAX_FLIP_SHARE (bf16) or
+    K2_F32_MAX_FLIP_SHARE (fp32) flipped on random and all-negative ones;
+    where the indices agree, bf16 rows within 1 ulp and fp32 rows within
+    K2_F32_VALUE_TOL * ``kf_max`` (max|kf|)."""
     flipped = float((idx.long() != ref_idx).float().mean().item())
     err = float((out.float() - ref.float()).abs().max().item())
     same = (idx.long() == ref_idx).all(dim=0)  # (F, S) tokens matched alike
-    ulps = bf16_ulp_diff(out[:, same], ref[:, same]) if same.any() else 0
-    line = f"{tag} {mode}: flipped={flipped:.3e} max|err|={err:.3e} ulps(same idx)={ulps}"
+    if out.dtype == torch.float32:
+        max_flips = K2_F32_MAX_FLIP_SHARE
+        same_err = float((out[:, same] - ref[:, same]).abs().max()) if same.any() else 0.0
+        value_ok = same_err <= K2_F32_VALUE_TOL * kf_max
+        line = (f"{tag} {mode}: flipped={flipped:.3e} max|err|={err:.3e} "
+                f"max|err|(same idx)={same_err:.3e} (limit {K2_F32_VALUE_TOL * kf_max:.3e})")
+    else:
+        max_flips = K2_MAX_FLIP_SHARE
+        ulps = bf16_ulp_diff(out[:, same], ref[:, same]) if same.any() else 0
+        value_ok = ulps <= 1
+        line = f"{tag} {mode}: flipped={flipped:.3e} max|err|={err:.3e} ulps(same idx)={ulps}"
     if mode in ("separated", "ties"):
-        if flipped != 0.0 or ulps > 1:
-            raise AssertionError(f"{line}: indices must agree, <= 1 ulp")
+        if flipped != 0.0 or not value_ok:
+            raise AssertionError(f"{line}: indices must agree, values within the limit")
         if mode == "ties" and bool(((idx % 2) | (idx >= idx.shape[-1] // 2)).any()):
             raise AssertionError(f"{line}: a tie resolved to a later row")
-    elif flipped > K2_MAX_FLIP_SHARE or ulps > 1:
-        raise AssertionError(f"{line}: above {K2_MAX_FLIP_SHARE} flipped")
+    elif flipped > max_flips or not value_ok:
+        raise AssertionError(f"{line}: above {max_flips} flipped or values off")
     return line, flipped, err
 
 
@@ -469,15 +642,17 @@ def _stage_times(launch, tm, args) -> dict:
     ops = tm.prepare_operands("stage timing", *args)
     f, s, d = ops[0].shape
     idx = torch.empty((2, f, s), dtype=torch.int32, device="cuda")
-    out = torch.empty((ops[2].shape[0], f, s, d), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty((ops[2].shape[0], f, s, d), dtype=ops[2].dtype, device="cuda")
     kernel_ms = median_ms(lambda: launch(ops, idx, out))
     match_ms = median_ms(lambda: launch(ops, idx, None))
     return {"kernel_ms": kernel_ms, "match_ms": match_ms,
             "gather_ms": kernel_ms - match_ms}
 
 
-def _k3_launch(tms):
-    return lambda ops, idx, out: tms.launch(ops, idx[0, :, None], idx[1, :, None], out)
+def _k3_launch(ops, idx, out):
+    from tokenflow_torch.kernels import token_match as tm
+
+    tm.launch(ops, idx, out, split=True)
 
 
 def _match_row(tag, kernel, plain, launch, args, mode, f, s, d, k, extra=None):
@@ -490,59 +665,101 @@ def _match_row(tag, kernel, plain, launch, args, mode, f, s, d, k, extra=None):
     out, idx = kernel(*args)
     ref, ref_idx = plain(*args)
     torch.cuda.synchronize()
+    dtype = args[2].dtype
     line, flipped, err = _match_verdict(
         f"{tag} F={f} K={k} ns={K2_NS} S={s} D={d}", mode, idx, ref_idx.long(), out, ref,
+        kf_max=float(args[2].abs().max()),
     )
     if extra is not None:
         line += extra(out, idx)
     ms = median_ms(lambda: kernel(*args))
     stages = _stage_times(launch, tm, args)
     plain_ms = median_ms(lambda: plain(*args), runs=5)
-    bound_ms, bound_by = _match_bound(f, s, d, k, K2_NS)
-    stage_bounds = _stage_bounds(f, s, d, k, K2_NS)
+    bound_ms, bound_by = _match_bound(f, s, d, k, K2_NS, dtype)
+    stage_bounds = _stage_bounds(f, s, d, k, K2_NS, dtype)
     print(f"{line} wrapper {ms:.3f} ms, kernel {stages['kernel_ms']:.3f} (match "
           f"{stages['match_ms']:.3f}, gather {stages['gather_ms']:.3f}), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"(match {stage_bounds['match_bound_ms']:.3f}, gather "
-          f"{stage_bounds['gather_bound_ms']:.3f})", flush=True)
-    return {"shape": [f, s, d], "k": k, "mode": mode, "flipped": flipped,
-            "max_abs_err": err, "ms": ms, **stages, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, **stage_bounds}
+          f"{stage_bounds['gather_bound_ms']:.3f}; {PEAKS[dtype][1]})", flush=True)
+    return {"shape": [f, s, d], "k": k, "mode": mode, "dtype": str(dtype).split(".")[-1],
+            "flipped": flipped, "max_abs_err": err, "ms": ms, **stages,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_peak": PEAKS[dtype][1], **stage_bounds}
+
+
+def _k2_kernel(*args):
+    from tokenflow_torch.kernels import token_match as tm
+
+    return tm.token_match_gather_kernel(*args, return_indices=True)
+
+
+def _k2_plain(*args):
+    from tokenflow_torch.kernels import token_match as tm
+
+    return tm.token_match_gather_plain(*args, return_indices=True)
+
+
+def _k3_kernel(*args):
+    from tokenflow_torch.kernels import token_match_split as tms
+
+    out, ia, ib = tms.token_match_gather_split_kernel(*args, return_indices=True)
+    if ia.shape != (args[0].shape[0], 1, args[0].shape[1]) or ia.dtype != torch.int32:
+        raise AssertionError(f"K3 indices {tuple(ia.shape)} {ia.dtype}")
+    return out, torch.stack([ia[:, 0], ib[:, 0]])
+
+
+def _k3_plain(*args):
+    from tokenflow_torch.kernels import token_match_split as tms
+
+    ref, ref_ia, ref_ib = tms.token_match_gather_split_plain(*args, return_indices=True)
+    return ref, torch.stack([ref_ia[:, 0], ref_ib[:, 0]])
+
+
+def _k2_equal(args):
+    """K3's rows' extra check: K2 on the same inputs, bitwise equal."""
+    def extra(out, idx):
+        k2_out, k2_idx = _k2_kernel(*args)
+        if not (torch.equal(k2_idx, idx) and torch.equal(k2_out, out)):
+            raise AssertionError("K3 and K2 disagree")
+        return ", K2 bitwise equal"
+    return extra
+
+
+def _match_entry(name: str, source: str, replaces: str, rows: list) -> dict:
+    """A token-match kernel's entry of the kernels line: the first row's
+    times, the worst error outside the random rows."""
+    main = rows[0]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "max_abs_err": max(r["max_abs_err"] for r in rows if r["mode"] != "random"),
+        **{key: main[key] for key in
+           ("ms", "kernel_ms", "match_ms", "gather_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_peak")},
+        "library_ms": None,
+        "library": NO_LIBRARY_CALL,
+        "shapes": rows,
+    }
 
 
 def check_token_match(gen: torch.Generator) -> dict:
     from tokenflow_torch.kernels import token_match as tm
 
-    def kernel(*args):
-        return tm.token_match_gather_kernel(*args, return_indices=True)
-
-    def plain(*args):
-        return tm.token_match_gather_plain(*args, return_indices=True)
-
     cases = [(row, "separated") for row in K2_SHAPES]
     cases += [(row, "random") for row in K2_SHAPES]
     cases += [(K2_SHAPES[0], "ties"), (K2_NEGATIVE, "negative")]
-    worst, rows = 0.0, []
+    rows = []
     for (s, d, f, k), mode in cases:
         args = _match_inputs(gen, s, d, mode, f, k)
-        rows.append(_match_row("[K2]", kernel, plain, tm.launch, args, mode, f, s, d, k))
-        if mode != "random":
-            worst = max(worst, rows[-1]["max_abs_err"])
+        rows.append(_match_row("[K2]", _k2_kernel, _k2_plain, tm.launch, args, mode, f, s,
+                               d, k))
         del args
         torch.cuda.empty_cache()
-    main = rows[0]
-    return {
-        "name": "token_match_gather",
-        "route": "cuda",
-        "source": "tokenflow_torch/csrc/token_match.cu",
-        "replaces": "tokenflow_tpu/kernels/token_match.py:105",
-        "max_abs_err": worst,
-        **{key: main[key] for key in
-           ("ms", "kernel_ms", "match_ms", "gather_ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None,
-        "library": NO_LIBRARY_CALL,
-        "shapes": rows,
-    }
+    return _match_entry("token_match_gather", "tokenflow_torch/csrc/token_match.cu",
+                        "tokenflow_tpu/kernels/token_match.py:105", rows)
 
 
 def check_token_match_split(gen: torch.Generator) -> dict:
@@ -551,56 +768,65 @@ def check_token_match_split(gen: torch.Generator) -> dict:
     plain version with K2's tolerances; its indices and output must also
     equal K2's bit for bit (the two entry points launch one match core).
     Then K2 against K3 on the same inputs across S."""
-    from tokenflow_torch.kernels import token_match as tm
     from tokenflow_torch.kernels import token_match_split as tms
 
     if not tms.use_split(K3_S, K3_D, K3_NS):
         raise AssertionError(f"(S, D) = ({K3_S}, {K3_D}) is not a K3 site")
-
-    def kernel(*args):
-        out, ia, ib = tms.token_match_gather_split_kernel(*args, return_indices=True)
-        if ia.shape != (args[0].shape[0], 1, args[0].shape[1]) or ia.dtype != torch.int32:
-            raise AssertionError(f"K3 indices {tuple(ia.shape)} {ia.dtype}")
-        return out, torch.stack([ia[:, 0], ib[:, 0]])
-
-    def plain(*args):
-        ref, ref_ia, ref_ib = tms.token_match_gather_split_plain(*args, return_indices=True)
-        return ref, torch.stack([ref_ia[:, 0], ref_ib[:, 0]])
-
-    def k2_line(args):
-        def extra(out, idx):
-            k2_out, k2_idx = tm.token_match_gather_kernel(*args, return_indices=True)
-            if not (torch.equal(k2_idx, idx) and torch.equal(k2_out, out)):
-                raise AssertionError("K3 and K2 disagree")
-            return ", K2 bitwise equal"
-        return extra
-
     cases = [(K3_S, K3_D, K3_F, mode) for mode in ("separated", "random", "ties")]
     cases += [(K3_S, K3_D, K3_CHUNK_F, mode) for mode in ("separated", "random")]
     cases += [(K2_NEGATIVE[0], K2_NEGATIVE[1], K2_NEGATIVE[2], "negative")]
-    worst, rows = 0.0, []
+    rows = []
     for s, d, f, mode in cases:
         args = _match_inputs(gen, s, d, mode, f, K3_K, K3_NS)
-        rows.append(_match_row("[K3]", kernel, plain, _k3_launch(tms), args, mode, f, s,
-                               d, K3_K, extra=k2_line(args)))
-        if mode != "random":
-            worst = max(worst, rows[-1]["max_abs_err"])
+        rows.append(_match_row("[K3]", _k3_kernel, _k3_plain, _k3_launch, args, mode,
+                               f, s, d, K3_K, extra=_k2_equal(args)))
         del args
         torch.cuda.empty_cache()
-    main = rows[0]
-    return {
-        "name": "token_match_gather_split",
-        "route": "cuda",
-        "source": "tokenflow_torch/csrc/token_match_split.cu",
-        "replaces": "tokenflow_tpu/kernels/token_match_split.py:123",
-        "max_abs_err": worst,
-        **{key: main[key] for key in
-           ("ms", "kernel_ms", "match_ms", "gather_ms", "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None,
-        "library": NO_LIBRARY_CALL,
-        "shapes": rows,
-        "k2_vs_k3": sweep_k2_k3(gen),
-    }
+    entry = _match_entry("token_match_gather_split", "tokenflow_torch/csrc/token_match_split.cu",
+                         "tokenflow_tpu/kernels/token_match_split.py:123", rows)
+    entry["k2_vs_k3"] = sweep_k2_k3(gen)
+    return entry
+
+
+def check_token_match_f32(gen: torch.Generator) -> tuple[dict, dict]:
+    """The fp32 match core through both wrappers against their plain
+    versions in fp32 (TF32 off). K2 at F=40, 4096x320 (the PnP 512^2 top
+    level) on the separated, duplicated-row, random and all-negative
+    inputs, at every other K2_SHAPES site on the separated and random ones,
+    and at the ragged all-negative row (K2_NEGATIVE). K3 at F=24,
+    9216x320 (the 768p top level) in the four modes, at the path's
+    per-chunk F on the separated and random ones and at the ragged row; its
+    indices and output must also equal K2's bit for bit. Returns both
+    entries."""
+    from tokenflow_torch.kernels import token_match as tm
+
+    modes = ("separated", "ties", "random", "negative")
+    k2_cases = [(K2_F32, mode) for mode in modes]
+    k2_cases += [(row, mode) for row in K2_SHAPES if row != K2_F32
+                 for mode in ("separated", "random")]
+    k2_cases += [(K2_NEGATIVE, "negative")]
+    k3_chunk = (K3_S, K3_D, K3_CHUNK_F, K3_K)
+    k3_cases = [(K3_F32, mode) for mode in modes]
+    k3_cases += [(k3_chunk, mode) for mode in ("separated", "random")]
+    k3_cases += [(K2_NEGATIVE, "negative")]
+    entries = []
+    for name, replaces, cases, kernel, plain, launch, tag in (
+        ("token_match_f32", "tokenflow_tpu/kernels/token_match.py:105", k2_cases,
+         _k2_kernel, _k2_plain, tm.launch, "[K2 fp32]"),
+        ("token_match_split_f32", "tokenflow_tpu/kernels/token_match_split.py:123",
+         k3_cases, _k3_kernel, _k3_plain, _k3_launch, "[K3 fp32]"),
+    ):
+        rows = []
+        for (s, d, f, k), mode in cases:
+            args = _match_inputs(gen, s, d, mode, f, k, dtype=torch.float32)
+            extra = _k2_equal(args) if kernel is _k3_kernel else None
+            rows.append(_match_row(tag, kernel, plain, launch, args, mode, f, s, d, k,
+                                   extra=extra))
+            del args
+            torch.cuda.empty_cache()
+        entries.append(_match_entry(name, "tokenflow_torch/csrc/token_match_f32.cu",
+                                    replaces, rows))
+    return tuple(entries)
 
 
 def sweep_k2_k3(gen: torch.Generator) -> list:
@@ -622,7 +848,7 @@ def sweep_k2_k3(gen: torch.Generator) -> list:
             "k2_ms": median_ms(lambda: tm.token_match_gather_kernel(*args)),
             "k3_ms": median_ms(lambda: tms.token_match_gather_split_kernel(*args)),
             "k2_match_ms": _stage_times(tm.launch, tm, args)["match_ms"],
-            "k3_match_ms": _stage_times(_k3_launch(tms), tm, args)["match_ms"],
+            "k3_match_ms": _stage_times(_k3_launch, tm, args)["match_ms"],
             "use_split": tms.use_split(s, d, K3_NS),
             "bound_ms": _match_bound(K3_CHUNK_F, s, d, K3_K, K3_NS)[0],
         }
@@ -874,7 +1100,8 @@ def write_frames(root: str, n: int, hw: int) -> str:
 
 
 def kernel_modules() -> dict:
-    """The wrapper module of each kernel, by its name in the kernels line."""
+    """The wrapper module of each kernel, by its bf16 name in the kernels
+    line."""
     from tokenflow_torch.kernels import flash_attention as fa
     from tokenflow_torch.kernels import group_norm as gn
     from tokenflow_torch.kernels import token_match as tm
@@ -884,14 +1111,52 @@ def kernel_modules() -> dict:
             "token_match_gather_split": tms, "group_norm": gn}
 
 
+# each entry of the kernels line: (its wrapper module in kernel_modules(),
+# the dtype of the launches it counts, or None for all: K4 is one source in
+# both dtypes)
+KERNEL_ENTRIES = {
+    "flash_attention": ("flash_attention", "bfloat16"),
+    "token_match_gather": ("token_match_gather", "bfloat16"),
+    "token_match_gather_split": ("token_match_gather_split", "bfloat16"),
+    "group_norm": ("group_norm", None),
+    "flash_attention_f32": ("flash_attention", "float32"),
+    "token_match_f32": ("token_match_gather", "float32"),
+    "token_match_split_f32": ("token_match_gather_split", "float32"),
+}
+BF16_KERNELS = ("flash_attention", "token_match_gather", "token_match_gather_split")
+F32_KERNELS = ("flash_attention_f32", "token_match_f32", "token_match_split_f32")
+
+
 def zero_counts() -> None:
     for m in kernel_modules().values():
         m.launches = 0
+        m.launches_by_dtype.clear()
     kernel_modules()["flash_attention"].launches_by_head_dim.clear()
 
 
 def read_counts() -> dict:
-    return {name: m.launches for name, m in kernel_modules().items()}
+    """Launches of each entry of the kernels line since the counts were
+    zeroed, and K4's by dtype."""
+    mods = kernel_modules()
+    counts = {
+        name: mods[m].launches if dt is None else mods[m].launches_by_dtype.get(dt, 0)
+        for name, (m, dt) in KERNEL_ENTRIES.items()
+    }
+    gn = mods["group_norm"].launches_by_dtype
+    counts["group_norm_bf16"] = gn.get("bfloat16", 0)
+    counts["group_norm_f32"] = gn.get("float32", 0)
+    return counts
+
+
+def check_launched(counts: dict, path: str, want: tuple, not_want: tuple) -> None:
+    """Raises unless every kernel of ``want`` launched on ``path`` and none
+    of ``not_want`` did."""
+    for name in want:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the {path} path")
+    for name in not_want:
+        if counts[name] != 0:
+            raise AssertionError(f"kernel {name} ran on the {path} path")
 
 
 def read_k1_head_dims() -> dict:
@@ -909,14 +1174,16 @@ def per_step(pre: dict, after_edit: dict, steps: dict) -> dict:
             for phase, counts in (("inversion+reconstruction", pre), ("edit", edit))}
 
 
-def run_main_path(root: str) -> dict:
-    """PnP at 512^2 with the GroupNorm kernel off: K1 and K2 must launch;
+def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
+                  edit_steps: int = 10) -> dict:
+    """PnP at 512^2 with the GroupNorm kernel off, the stack in ``dtype``:
+    K1 and K2 of that dtype must launch and no kernel of the other dtype;
     K3 (no site past its table size at 512^2) and K4 (off) must not."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_pnp
 
-    n_frames, inv_steps, edit_steps = 40, 20, 10
+    n_frames = 40
     write_frames(root, n_frames, 512)
     cwd = os.getcwd()
     os.chdir(root)
@@ -926,7 +1193,7 @@ def run_main_path(root: str) -> dict:
         t0 = time.perf_counter()
         pre = preprocess.main([
             "--data_path", "data/clip", "--H", "512", "--W", "512",
-            "--sd_version", "2.1", "--init", "random", "--dtype", "bf16",
+            "--sd_version", "2.1", "--init", "random", "--dtype", dtype,
             "--n_frames", str(n_frames), "--batch_size", str(n_frames),
             "--steps", str(inv_steps), "--save_steps", str(edit_steps),
             "--device", "cuda",
@@ -937,7 +1204,7 @@ def run_main_path(root: str) -> dict:
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
             "n_inversion_steps": inv_steps, "n_frames": n_frames,
-            "sd_version": "2.1", "init": "random", "dtype": "bf16",
+            "sd_version": "2.1", "init": "random", "dtype": dtype,
             "guidance_scale": 7.5, "n_timesteps": edit_steps,
             "prompt": "a marble sculpture of a woman running",
             "negative_prompt": "ugly, blurry, low res",
@@ -968,14 +1235,15 @@ def run_main_path(root: str) -> dict:
             metrics = json.load(f)
     finally:
         os.chdir(cwd)
-    for name in ("flash_attention", "token_match_gather"):
-        if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    for name in ("token_match_gather_split", "group_norm"):
-        if counts[name] != 0:
-            raise AssertionError(f"kernel {name} ran on the 512^2 PnP path")
+    if dtype == "bf16":
+        check_launched(counts, "PnP 512^2", ("flash_attention", "token_match_gather"),
+                       ("token_match_gather_split", "group_norm") + F32_KERNELS)
+    else:
+        check_launched(counts, "fp32 PnP 512^2", ("flash_attention_f32", "token_match_f32"),
+                       ("token_match_split_f32", "group_norm") + BF16_KERNELS)
     ph = metrics["phases_seconds"]
     report = {
+        "dtype": dtype,
         "launches": counts,
         "launches_per_step": per_step(
             pre_counts, counts, {"inversion+reconstruction": 2 * inv_steps,
@@ -992,8 +1260,9 @@ def run_main_path(root: str) -> dict:
         "peak_memory_bytes": peak,
         "reconstruction_psnr": pre["reconstruction_psnr"],
     }
+    tag = "[main path]" if dtype == "bf16" else "[pnp 512 f32]"
     for k, v in report.items():
-        print(f"[main path] {k}: {v}", flush=True)
+        print(f"{tag} {k}: {v}", flush=True)
     return report
 
 
@@ -1008,19 +1277,21 @@ def _edit_report(out_dir: str, n_steps: int) -> dict:
     }
 
 
-def run_sdedit_path(root: str) -> dict:
+def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
+                    inv_steps: int = 10, n_timesteps: int = 10) -> dict:
     """The SDEdit editor at 768p through the port's CLIs, with the GroupNorm
-    kernel on: preprocess 24 synthetic 768x768 frames (SD-2.1, random
-    weights, bf16), an SDEdit edit with window 8 (3 pivots) and
-    propagation chunks of 8 frames, and a 2-step --vanilla run. All four
-    kernels must launch in this phase (K3 at the 96x96 level). Then the
-    same edit once more with the GroupNorm kernel off, for its step time."""
+    kernel on: preprocess ``n_frames`` synthetic 768x768 frames (SD-2.1,
+    random weights, the stack in ``dtype``), an SDEdit edit with window 8
+    and propagation chunks of 8 frames. All four kernels must launch in
+    that dtype in this phase (K3 at the 96x96 level), and none in the
+    other. In bf16, also a 2-step --vanilla run, then the same edit once
+    more with the GroupNorm kernel off, for its step time."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_sdedit
     from tokenflow_torch.diffusion import ddim
 
-    n_frames, inv_steps, n_timesteps, hw = 24, 10, 10, 768
+    hw, bf16 = 768, dtype == "bf16"
     write_frames(root, n_frames, hw)
     cwd = os.getcwd()
     os.chdir(root)
@@ -1030,7 +1301,7 @@ def run_sdedit_path(root: str) -> dict:
         t0 = time.perf_counter()
         pre = preprocess.main([
             "--data_path", "data/clip", "--H", str(hw), "--W", str(hw),
-            "--sd_version", "2.1", "--init", "random", "--dtype", "bf16",
+            "--sd_version", "2.1", "--init", "random", "--dtype", dtype,
             "--n_frames", str(n_frames), "--batch_size", str(n_frames),
             "--steps", str(inv_steps), "--save_steps", str(n_timesteps),
             "--device", "cuda", "--group_norm_kernel",
@@ -1041,7 +1312,7 @@ def run_sdedit_path(root: str) -> dict:
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
             "n_frames": n_frames, "sd_version": "2.1", "init": "random",
-            "dtype": "bf16", "guidance_scale": 7.5, "n_timesteps": n_timesteps,
+            "dtype": dtype, "guidance_scale": 7.5, "n_timesteps": n_timesteps,
             "prompt": "a shiny silver robotic wolf",
             "negative_prompt": "ugly, blurry, low res",
             "batch_size": 8, "propagate_chunk": 8, "start": 0.9,
@@ -1057,21 +1328,23 @@ def run_sdedit_path(root: str) -> dict:
 
         edit("sdedit", config)
         edit_counts = read_counts()
-        edit("vanilla", dict(config, start=0.3), "--vanilla")  # 2 steps
+        outputs = [("sdedit", ("img_ode/00000.png", "tokenflow_SDEdit_fps_10.mp4",
+                               "input_fps10.mp4", "config.yaml", "metrics.json",
+                               "pivots.json"))]
+        if bf16:
+            edit("vanilla", dict(config, start=0.3), "--vanilla")  # 2 steps
+            outputs.append(("vanilla", ("img_ode_vanilla_sde/00000.png", "vanilla_sde.mp4",
+                                        "metrics_vanilla.json")))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         counts = {"sdedit_path": read_counts()}
-        zero_counts()
-        edit("sdedit_gn_off", dict(config, output_path="results_gn_off",
-                                   group_norm_kernel=False))
-        counts["gn_off_run"] = read_counts()
-        for name, files in (
-            ("sdedit", ("img_ode/00000.png", "tokenflow_SDEdit_fps_10.mp4",
-                        "input_fps10.mp4", "config.yaml", "metrics.json", "pivots.json")),
-            ("vanilla", ("img_ode_vanilla_sde/00000.png", "vanilla_sde.mp4",
-                         "metrics_vanilla.json")),
-            ("sdedit_gn_off", ("img_ode/00000.png", "metrics.json")),
-        ):
+        if bf16:
+            zero_counts()
+            edit("sdedit_gn_off", dict(config, output_path="results_gn_off",
+                                       group_norm_kernel=False))
+            counts["gn_off_run"] = read_counts()
+            outputs.append(("sdedit_gn_off", ("img_ode/00000.png", "metrics.json")))
+        for name, files in outputs:
             for f in files:
                 if not os.path.exists(os.path.join(out_dirs[name], f)):
                     raise AssertionError(f"{name}: missing output {f}")
@@ -1083,15 +1356,20 @@ def run_sdedit_path(root: str) -> dict:
             ddim.make_schedule(n_timesteps), config["start"]
         ).timesteps)
         on = _edit_report(out_dirs["sdedit"], n_steps)
-        off = _edit_report(out_dirs["sdedit_gn_off"], n_steps)
+        off = _edit_report(out_dirs["sdedit_gn_off"], n_steps) if bf16 else None
     finally:
         os.chdir(cwd)
-    for name, n in counts["sdedit_path"].items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the SDEdit path")
-    if counts["gn_off_run"]["group_norm"] != 0:
-        raise AssertionError("the GroupNorm kernel ran with group_norm_kernel off")
+    if bf16:
+        check_launched(counts["sdedit_path"], "SDEdit 768p",
+                       BF16_KERNELS + ("group_norm",), F32_KERNELS + ("group_norm_f32",))
+        if counts["gn_off_run"]["group_norm"] != 0:
+            raise AssertionError("the GroupNorm kernel ran with group_norm_kernel off")
+    else:
+        check_launched(counts["sdedit_path"], "fp32 SDEdit 768p",
+                       F32_KERNELS + ("group_norm_f32",), BF16_KERNELS + ("group_norm_bf16",))
     report = {
+        "dtype": dtype,
+        "n_frames": n_frames,
         "launches": counts["sdedit_path"],
         "launches_per_step": per_step(
             pre_counts, edit_counts, {"inversion+reconstruction": 2 * inv_steps,
@@ -1103,24 +1381,148 @@ def run_sdedit_path(root: str) -> dict:
         "reconstruction_psnr": pre["reconstruction_psnr"],
         "edit_steps": n_steps,
         "gn_kernel_on": on,
-        "gn_kernel_off": off,
         "peak_memory_bytes": peak,
     }
+    if bf16:
+        report["gn_kernel_off"] = off
+    tag = "[sdedit 768p]" if bf16 else "[sdedit 768p f32]"
     for k, v in report.items():
-        print(f"[sdedit 768p] {k}: {v}", flush=True)
+        print(f"{tag} {k}: {v}", flush=True)
     return report
+
+
+@contextlib.contextmanager
+def allow_tf32(on: bool):
+    """TF32 products in PyTorch's matmuls and cuDNN's convolutions on or off
+    inside the block; the flags as they were after it."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def record_matches(log: list):
+    """Inside the block, every propagation site's matched indices ((2, F, S),
+    on the CPU) are appended to ``log`` in call order, whichever of K2, K3
+    or the plain version ran the site (``ops/propagation.py``'s names)."""
+    from tokenflow_torch.ops import propagation as prop
+
+    names = ("token_match_gather_kernel", "token_match_gather_split_kernel", "match_gather")
+    saved = {n: getattr(prop, n) for n in names}
+
+    def wrap(fn, split):
+        def call(*args):
+            res = fn(*args, return_indices=True)
+            idx = torch.stack([res[1][:, 0], res[2][:, 0]]) if split else res[1]
+            log.append(idx.long().cpu())
+            return res[0]
+        return call
+
+    for n in names:
+        setattr(prop, n, wrap(saved[n], n == "token_match_gather_split_kernel"))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(prop, n, saved[n])
+
+
+def flipped_matches(run, models, dtype, cpu_models) -> list:
+    """The share of matched indices that differ between the card's run and
+    the CPU's at each propagation site, both runs made again with every
+    site's indices recorded (only to explain a reference past its limit)."""
+    want, got = [], []
+    with record_matches(want):
+        run(cpu_models, "cpu", torch.float32)
+    with record_matches(got):
+        run(models, "cuda", dtype)
+    return [float((g != w).float().mean()) for g, w in zip(got, want)]
+
+
+def _dtype_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def compare_reference(tag: str, run, card_models, cpu_models, f32_limit: float) -> dict:
+    """``run(models, device, dtype)`` -> eps on the CPU, through the card's
+    bf16 models (the kernels in bf16), the CPU's fp32 copies (the plain
+    versions) and the fp32 copies moved to the card (the kernels in fp32,
+    TF32 off), and once more with TF32 on as a control. Holds the bf16
+    card run to REF_REL_L2 and the fp32 one to ``f32_limit`` against the
+    CPU (past a limit, it reports the flipped share of matched indices per
+    site), requires the control to read above ``f32_limit`` (so the limit
+    catches TF32 products), and reports each run's K1 launches by head
+    dim and dtype and its K2/K3 launches by dtype."""
+    import copy
+
+    mods = kernel_modules()
+
+    def launches():
+        return {
+            "k1_by_head_dim": dict(mods["flash_attention"].launches_by_head_dim),
+            **{f"{name}_by_dtype": dict(mods[name].launches_by_dtype)
+               for name in ("flash_attention", "token_match_gather",
+                            "token_match_gather_split")},
+        }
+
+    want = run(cpu_models, "cpu", torch.float32)
+    result = {}
+    f32_models = [copy.deepcopy(m).cuda() for m in cpu_models]
+    for name, models, dtype, limit, tf32 in (
+        ("bf16", card_models, torch.bfloat16, REF_REL_L2, False),
+        ("f32", f32_models, torch.float32, f32_limit, False),
+        ("f32_tf32_control", f32_models, torch.float32, f32_limit, True),
+    ):
+        before = launches()
+        with allow_tf32(tf32):
+            got = run(models, "cuda", dtype)
+        after = launches()
+        counts = {k: _dtype_delta(before[k], after[k]) for k in after}
+        rel = float((got - want).norm() / want.norm())
+        err = float((got - want).abs().max())
+        print(
+            f"[reference] {tag} eps, card (kernels, {name}) vs CPU (plain, fp32): rel L2 "
+            f"{rel:.3e} ({'must exceed' if tf32 else 'limit'} {limit}), max|err| {err:.3e}, "
+            f"launches {counts}",
+            flush=True,
+        )
+        other = "bfloat16" if dtype == torch.float32 else "float32"
+        if any(other in counts[k] for k in counts if k.endswith("_by_dtype")):
+            raise AssertionError(f"{tag} {name}: a {other} kernel ran: {counts}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"small-input reference ({tag}, {name}): not finite")
+        if tf32 and rel <= limit:
+            raise AssertionError(
+                f"small-input reference ({tag}): with TF32 on it reads {rel} <= {limit}, "
+                "so the limit would not catch TF32 products"
+            )
+        if not tf32 and rel > limit:
+            flips = flipped_matches(run, models, dtype, cpu_models)
+            raise AssertionError(
+                f"small-input reference ({tag}, {name}): rel L2 {rel} > {limit}; "
+                f"flipped matches per site {flips}"
+            )
+        result[name] = {"rel_l2": rel, "limit": limit, "max_abs_err": err, "launches": counts}
+    del f32_models
+    torch.cuda.empty_cache()
+    return result
 
 
 def check_small_reference() -> dict:
     """One pivotal and one propagation UNet call of the main path's SD-2.1
-    stack on a small input, through the kernels on the card (bf16) and
-    through the plain versions on the CPU (an fp32 copy of the same
-    weights, the same bf16-rounded inputs). 2 frames, 1 window, 40x40
-    latents: S = 1600 > kv_block, so K1 runs (the source stream on strided
-    views) and K2 runs at every site. Tolerance on the relative L2 error of
-    eps: bf16 weights and activations (relative step 2^-8) over the ~70
-    layers of the UNet, plus NN matches that near-ties flip between the
-    two precisions."""
+    stack on a small input, through the kernels on the card (bf16, and the
+    same weights in fp32) and through the plain versions on the CPU (an
+    fp32 copy of the same weights, the same bf16-rounded inputs). 2 frames,
+    1 window, 40x40 latents: S = 1600 > kv_block, so K1 runs (the source
+    stream on strided views) and K2 runs at every site, in each dtype.
+    Tolerance on the relative L2 error of eps: REF_REL_L2 in bf16 (bf16
+    weights and activations, relative step 2^-8, over the ~70 layers of
+    the UNet, plus NN matches that near-ties flip between the two
+    precisions), REF_REL_L2_F32_SD21 in fp32, and the fp32 run with TF32
+    on must read above that."""
     from tokenflow_torch import runtime
     from tokenflow_torch.models.unet2d import UNet2DConditionModel
     from tokenflow_torch.ops import editctx
@@ -1139,7 +1541,9 @@ def check_small_reference() -> dict:
     emb = torch.randn((3, 77, 1024), generator=gen).bfloat16()
     pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f, f))
 
-    def run(unet, device, dtype):
+    def run(models, device, dtype):
+        (unet,) = models
+
         def put(a):
             return a.to(device=device, dtype=dtype)
 
@@ -1157,18 +1561,15 @@ def check_small_reference() -> dict:
             eps, _ = unet(put(xp), t, put(emb.repeat(f, 1, 1)), prop)
         return eps.float().cpu()
 
-    got = run(stack.unet, "cuda", torch.bfloat16)
-    want = run(cpu_unet, "cpu", torch.float32)
-    rel = float((got - want).norm() / want.norm())
-    err = float((got - want).abs().max())
-    print(
-        f"[reference] SD-2.1 pivotal+propagate eps, card (kernels, bf16) vs "
-        f"CPU (plain, fp32): rel L2 {rel:.3e}, max|err| {err:.3e}",
-        flush=True,
-    )
-    if not (torch.isfinite(got).all() and rel <= REF_REL_L2):
-        raise AssertionError(f"small-input reference: rel L2 {rel} > {REF_REL_L2}")
-    return {"rel_l2": rel, "max_abs_err": err}
+    result = compare_reference("SD-2.1 pivotal+propagate", run, [stack.unet], [cpu_unet],
+                               REF_REL_L2_F32_SD21)
+    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        counts = result[name]["launches"]
+        if not (counts["k1_by_head_dim"].get(64, 0) > 0
+                and counts["flash_attention_by_dtype"].get(dtype, 0) > 0
+                and counts["token_match_gather_by_dtype"].get(dtype, 0) > 0):
+            raise AssertionError(f"small-input reference ({name}): launches {counts}")
+    return result
 
 
 def fill_controlnet_projections(model, seed: int = 11) -> None:
@@ -1320,12 +1721,13 @@ def run_controlnet_path(root: str) -> dict:
 def check_small_reference_controlnet() -> dict:
     """One pivotal and one propagation call of the ControlNet path's SD-1.5
     UNet with the ControlNet's residuals on a small input, through the
-    kernels on the card (bf16) and through the plain versions on the CPU (an
-    fp32 copy of the same weights, the same bf16-rounded inputs). 6 frames in
-    windows of 2 (3 pivots), 40x40 latents: K1 runs at D = 40 (S = 1600 per
-    frame, and the pivotal pass's 4800) and at D = 80 (the pivotal pass's
-    1200 tokens at 20x20), K2 at every site. Same tolerance as the SD-2.1
-    reference."""
+    kernels on the card (bf16, and the same weights in fp32) and through the
+    plain versions on the CPU (an fp32 copy of the same weights, the same
+    bf16-rounded inputs). 6 frames in windows of 2 (3 pivots), 40x40
+    latents: K1 runs at D = 40 (S = 1600 per frame, and the pivotal pass's
+    4800) and at D = 80 (the pivotal pass's 1200 tokens at 20x20), K2 at
+    every site, in each dtype. Tolerances: REF_REL_L2 in bf16,
+    REF_REL_L2_F32_CONTROLNET in fp32 (the TF32 control above it)."""
     from tokenflow_torch.models.controlnet import ControlNetModel
     from tokenflow_torch.models.unet2d import UNet2DConditionModel
     from tokenflow_torch.ops import editctx
@@ -1348,7 +1750,9 @@ def check_small_reference_controlnet() -> dict:
     piv = torch.arange(ws // 2, f, ws)
     pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f, ws))
 
-    def run(unet, cn, device, dtype):
+    def run(models, device, dtype):
+        unet, cn = models
+
         def put(a):
             return a.to(device=device, dtype=dtype)
 
@@ -1370,24 +1774,16 @@ def check_small_reference_controlnet() -> dict:
             eps, _ = unet(put(xp), t, ctx, prop, **residuals(put(xp), ctx, cond))
         return eps.float().cpu()
 
-    fa = kernel_modules()["flash_attention"]
-    before = dict(fa.launches_by_head_dim)
-    got = run(stack.unet, model, "cuda", torch.bfloat16)
-    dims = {d: n - before.get(d, 0) for d, n in fa.launches_by_head_dim.items()}
-    want = run(cpu_unet, cpu_cn, "cpu", torch.float32)
-    rel = float((got - want).norm() / want.norm())
-    err = float((got - want).abs().max())
-    print(
-        f"[reference] SD-1.5 + ControlNet pivotal+propagate eps, card (kernels, bf16) vs "
-        f"CPU (plain, fp32): rel L2 {rel:.3e}, max|err| {err:.3e}, K1 launches by head "
-        f"dim {dims}",
-        flush=True,
-    )
-    if not (dims.get(40, 0) > 0 and dims.get(80, 0) > 0):
-        raise AssertionError(f"small-input reference: K1 launches by head dim {dims}")
-    if not (torch.isfinite(got).all() and rel <= REF_REL_L2):
-        raise AssertionError(f"small-input reference (ControlNet): rel L2 {rel} > {REF_REL_L2}")
-    return {"rel_l2": rel, "max_abs_err": err, "k1_launches_by_head_dim": dims}
+    result = compare_reference("SD-1.5 + ControlNet pivotal+propagate", run,
+                               [stack.unet, model], [cpu_unet, cpu_cn],
+                               REF_REL_L2_F32_CONTROLNET)
+    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        counts = result[name]["launches"]
+        dims = counts["k1_by_head_dim"]
+        if not (dims.get(40, 0) > 0 and dims.get(80, 0) > 0
+                and counts["token_match_gather_by_dtype"].get(dtype, 0) > 0):
+            raise AssertionError(f"small-input reference (ControlNet, {name}): {counts}")
+    return result
 
 
 def main() -> int:
@@ -1420,8 +1816,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with watchdog(K1_PHASE_SECONDS, "K1's checks"):
         kernels = [check_flash(gen)]
+    with watchdog(K1_PHASE_SECONDS, "K1-f32's checks"):
+        kernels.append(check_flash_f32(gen))
     kernels += [check_token_match(gen), check_token_match_split(gen),
-                check_group_norm(gen)]
+                *check_token_match_f32(gen), check_group_norm(gen)]
 
     # phase 3: the paths through the CLIs, each with the counts zeroed
     # just before it and read just after
@@ -1433,8 +1831,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_controlnet_") as root:
         controlnet = run_controlnet_path(root)
     controlnet["reference"] = check_small_reference_controlnet()
+    # the stack in fp32 (dtype f32): fp32 kernels only, depth cut further
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as root:
+        pnp_f32 = run_main_path(root, "f32", inv_steps=F32_PNP_STEPS,
+                                edit_steps=F32_PNP_STEPS)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sdedit_f32_") as root:
+        sdedit_f32 = run_sdedit_path(root, "f32", n_frames=F32_SDEDIT_FRAMES,
+                                     inv_steps=F32_SDEDIT_STEPS,
+                                     n_timesteps=F32_SDEDIT_STEPS)
     by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"],
-               "controlnet_512": controlnet["launches"]}
+               "controlnet_512": controlnet["launches"], "pnp_512_f32": pnp_f32["launches"],
+               "sdedit_768_f32": sdedit_f32["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {
             path: counts[entry["name"]] for path, counts in by_path.items()
@@ -1443,7 +1850,8 @@ def main() -> int:
 
     # phase 4: result lines
     print(json.dumps({"main_path": report, "sdedit_path": sdedit,
-                      "controlnet_path": controlnet}), flush=True)
+                      "controlnet_path": controlnet, "pnp_f32_path": pnp_f32,
+                      "sdedit_f32_path": sdedit_f32}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({

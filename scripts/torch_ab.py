@@ -18,7 +18,8 @@ helpers (so both trees are measured alike):
     ``chip_smoke.gn_verdict``: the wrapper's time (``median_ms``) and one
     call's device time with host work hidden (``device_ms``);
   - sass: ``cuobjdump -sass`` of K1's (``flash_fwd``) and the match core's
-    (``match_core``) functions in the two trees' libraries, compared line by
+    (``match_core``) bf16 functions (not the fp32 ``flash_fwd_f32`` and
+    ``match_f32``) in the two trees' libraries, compared line by
     line (both listings written to ``sass_{parent,change}.txt``); K1's
     functions are matched by head dim (``flash_fwd_d64`` of a tree from
     before K1 took D as a template parameter is ``flash_fwd<64>``);
@@ -46,6 +47,9 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 ORDER = ("parent", "change", "change", "parent")
 SASS_FUNCTIONS = ("flash_fwd", "match_core")
+# the fp32 kernels (flash_fwd_f32, match_f32) are not the bf16 functions
+# the comparison holds
+SASS_SKIP = ("_f32",)
 
 
 def _smoke():
@@ -127,7 +131,8 @@ def _sass(tree: Path) -> dict:
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1) if any(f in m.group(1) for f in SASS_FUNCTIONS) else None
+            name = m.group(1) if (any(f in m.group(1) for f in SASS_FUNCTIONS)
+                                  and not any(f in m.group(1) for f in SASS_SKIP)) else None
             # K1 by head dim alone: the mangled names of the template
             # flash_fwd<D> and of the older flash_fwd_d64 differ past it
             k1 = name and re.search(r"flash_fwd(?:_d|ILi)(\d+)", name)

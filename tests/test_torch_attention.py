@@ -97,12 +97,12 @@ def test_flash_plain_bf16_is_close_to_fp32():
 
 
 @pytest.mark.parametrize(
-    "d,dtype", [(48, torch.bfloat16), (128, torch.bfloat16), (40, torch.float32),
-                (64, torch.float32)],
+    "d,dtype", [(48, torch.bfloat16), (128, torch.bfloat16), (40, torch.float16),
+                (64, torch.float16)],
 )
 def test_kernel_wrapper_rejects_other_head_dims_and_dtypes(d, dtype):
-    """K1 is instantiated for bf16 at D = 40, 64, 80, 160; anything else
-    raises before a launch (no fallback)."""
+    """K1 is instantiated for bf16 and fp32 at D = 40, 64, 80, 160; anything
+    else (another head dim, fp16) raises before a launch (no fallback)."""
     assert tfa.HEAD_DIMS == (40, 64, 80, 160)
     q = torch.zeros(1, 8, 1, d, dtype=dtype)
     with pytest.raises(NotImplementedError, match="head dim"):

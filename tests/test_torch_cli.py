@@ -5,9 +5,10 @@ baseline, then preprocess and the ControlNet editor on the tiny-controlnet
 stack, in a fresh subprocess that must never import JAX or any module of
 the JAX package. Checks the artifact tree that tests/test_e2e_cli.py
 asserts for the JAX CLIs, that the trajectory reads back through
-tokenflow_tpu.io.latents, the device rules, and the config keys the port
-refuses (features it lacks, fp32 on a CUDA device) or ignores (the JAX
-relay's).
+tokenflow_tpu.io.latents, the device rules, the config keys the port
+refuses (features it lacks) or ignores (the JAX relay's), that fp32 on a
+CUDA device gets past the config's checks, and that an fp32 run turns
+TF32 off.
 """
 
 import json
@@ -37,6 +38,10 @@ SCRIPT = textwrap.dedent(
     import numpy as np
     import torch
     torch.set_num_threads(2)
+    # PyTorch's default for cuDNN, set for matmuls too: the fp32 CLIs must
+    # turn both off
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     import yaml
     from tokenflow_torch.cli import preprocess, run_controlnet, run_pnp, run_sdedit
 
@@ -94,6 +99,8 @@ SCRIPT = textwrap.dedent(
         "controlnet_path": run_controlnet.resolve_output_path(dict(cn_config))["output_path"],
         "controlnet_shape": list(cn.shape),
         "controlnet_finite": bool(np.isfinite(cn).all()),
+        "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
+                       torch.backends.cudnn.allow_tf32],
         "jax_loaded": sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "flax", "jaxlib", "tokenflow_tpu")
@@ -239,16 +246,27 @@ def test_config_accepts_defaults_and_relay_keys(extra):
     common.validate_config(_controlnet_base(**extra), "controlnet")
 
 
-def test_f32_on_cuda_is_refused():
-    """fp32 runs on the CPU only until K1 and the match core have fp32
-    kernels: the config and preprocess's arguments are refused before any
-    device is touched, with the ROADMAP items named."""
-    with pytest.raises(ValueError, match="B1/B2"):
-        common.validate_config(_controlnet_base(dtype="f32", device="cuda"), "controlnet")
+def test_f32_on_cuda_gets_past_the_dtype_check():
+    """K1 and the match core have fp32 kernels, so neither the config nor
+    preprocess's arguments refuse fp32 on a CUDA device: both get as far as
+    the device check, which raises here only because there is no GPU."""
     common.validate_config(_controlnet_base(dtype="f32"), "controlnet")
-    with pytest.raises(ValueError, match="B1/B2"):
+    if torch.cuda.is_available():
+        common.validate_config(_controlnet_base(dtype="f32", device="cuda"), "controlnet")
+        return
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        common.validate_config(_controlnet_base(dtype="f32", device="cuda"), "controlnet")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
         preprocess.main(["--data_path", "data/none", "--device", "cuda", "--dtype", "f32",
                          "--sd_version", "tiny"])
+
+
+def test_f32_cli_turns_tf32_off(run_cli):
+    """The fp32 CLIs (preprocess and the editors, dtype f32) leave TF32 off
+    for matmuls and cuDNN convolutions, whatever they were before: the
+    port's fp32 runs take full fp32 products, as the JAX reference does."""
+    _, result = run_cli
+    assert result["allow_tf32"] == [False, False]
 
 
 def test_sdedit_config_keys():

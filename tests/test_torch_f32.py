@@ -1,0 +1,241 @@
+"""The fp32 halves of K1 (flash attention) and of the token-match core (K2,
+K3): the wrappers' dtype rules and routing on the CPU, chip_smoke.py's fp32
+limits against right and wrong answers, and the kernels against their plain
+versions on the card (``cuda``-marked; skip without a GPU).
+
+The fp32 plain versions these kernels are held to are held to the JAX
+functions by tests/test_torch_attention.py, test_torch_propagation.py and
+test_torch_token_match_split.py (fp32 on both sides); they are not
+repeated here.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tokenflow_torch.kernels import flash_attention as tfa
+from tokenflow_torch.kernels import token_match as ttm
+from tokenflow_torch.kernels import token_match_split as tms
+from tokenflow_tpu.kernels.token_match import fits_vmem
+from tokenflow_tpu.kernels.token_match_split import split_fits_vmem
+from tokenflow_tpu.ops import propagation as jprop
+
+torch.set_num_threads(2)
+
+HEAD_DIMS = (40, 64, 80, 160)
+# the propagation sites (S, D) of both SD-2.1 paths: PnP 512^2 and SDEdit 768p
+SITES = [(4096, 320), (1024, 640), (256, 1280), (64, 1280),
+         (9216, 320), (2304, 640), (576, 1280), (144, 1280)]
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _match_args(f=4, k=2, s=64, d=64, ns=3, dtypes=(torch.float32,) * 3, seed=0):
+    rng = np.random.default_rng(seed)
+    x, p, kf = (rng.standard_normal(shape).astype(np.float32)
+                for shape in ((f, s, d), (k, s, d), (ns, k, s, d)))
+    pa, pb, w1 = jprop.propagation_indices(f, f // k)
+    tables = [torch.from_numpy(a).to(t) for a, t in zip((x, p, kf), dtypes)]
+    return tables + [torch.from_numpy(a) for a in (pa, pb, w1)]
+
+
+MATCH_WRAPPERS = [ttm.token_match_gather_kernel, tms.token_match_gather_split_kernel]
+
+
+@pytest.mark.parametrize("q,k,v", [
+    (torch.float32, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32, torch.bfloat16),
+])
+def test_k1_mixed_dtypes_raise(q, k, v):
+    """q, k and v share one dtype; mixed operands are never cast to one."""
+    args = [torch.zeros(1, 8, 1, 64, dtype=t) for t in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="alike"):
+        tfa.flash_attention_kernel(*args)
+
+
+@pytest.mark.parametrize("wrapper", MATCH_WRAPPERS, ids=["K2", "K3"])
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float16,) * 3,
+], ids=["x_kf_f32", "kf_f32", "fp16"])
+def test_match_mixed_or_other_dtypes_raise(wrapper, dtypes):
+    """Three bf16 or three fp32 tables; anything else raises before any
+    device check or launch."""
+    with pytest.raises(NotImplementedError, match="three bf16 or three fp32"):
+        wrapper(*_match_args(dtypes=dtypes))
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_k1_f32_passes_the_dtype_check(d):
+    """An fp32 operand at every instantiated head dim is K1's now: on the
+    CPU it stops at the CUDA-device check, no longer at the dtype check."""
+    q = torch.zeros(1, 8, 1, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_kernel(q, q, q)
+
+
+@pytest.mark.parametrize("wrapper", MATCH_WRAPPERS, ids=["K2", "K3"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_match_f32_passes_the_dtype_check(wrapper, d):
+    """Three fp32 tables are the match core's now: on the CPU they stop at
+    the CUDA-device check, no longer at the dtype check."""
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(*_match_args(d=d))
+
+
+@pytest.mark.parametrize("ns", [3, 2])
+@pytest.mark.parametrize("s,d", SITES)
+def test_use_split_is_the_jax_route_at_both_dtypes(s, d, ns):
+    """K2 or K3 by the JAX dispatch's predicates, which count the keyframe
+    table in bf16 whatever its dtype: the same site runs the same kernel in
+    bf16 and in fp32, and neither path's site falls to the jnp version."""
+    jax_route = (
+        "K2" if fits_vmem(s, d, ns=ns) else "K3" if split_fits_vmem(s, d, ns=ns) else "jnp"
+    )
+    assert jax_route != "jnp"
+    assert ("K3" if tms.use_split(s, d, ns) else "K2") == jax_route
+    # an fp32 table twice the cap's bytes at the PnP top level still runs K2
+    if (s, d, ns) == (4096, 320, 3):
+        assert ns * s * d * 4 > tms.SPLIT_KF_TABLE_BYTES and jax_route == "K2"
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10-bit mantissa, round to nearest)."""
+    i = x.view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("case,passes", [
+    ("other_block_order", True), ("tf32_products", False), ("tail_as_zero", False),
+])
+def test_k1_f32_limits_separate_right_from_wrong(case, passes):
+    """chip_smoke.py's K1-f32 limits on the CPU at a ragged shape: the
+    plain version in another KV block order passes; single-pass TF32
+    products, or a ragged tail counted as zero logits, fail."""
+    smoke = _chip_smoke()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, n, 2, 64), generator=g) for n in (200, 1000, 1000))
+    ref = tfa.flash_attention_plain(q, k, v, kv_block=128)
+    if case == "other_block_order":
+        out = tfa.flash_attention_plain(q, k, v, kv_block=96)
+    elif case == "tf32_products":
+        out = tfa.flash_attention_plain(_tf32(q), _tf32(k), _tf32(v), kv_block=128)
+    else:
+        pad = torch.zeros((1, 24, 2, 64))
+        out = tfa.flash_attention_plain(q, torch.cat([k, pad], 1), torch.cat([v, pad], 1),
+                                        kv_block=128)
+    m = smoke.k1_f32_mismatch(out, ref)
+    assert smoke.k1_within_limits(m) is passes, m
+
+
+@pytest.mark.parametrize("mode,fault,passes", [
+    ("separated", None, True), ("ties", None, True), ("random", None, True),
+    ("ties", "later_ties", False), ("separated", "blend_bf16", False),
+])
+def test_match_f32_verdict_separates_right_from_wrong(mode, fault, passes):
+    """chip_smoke.py's fp32 token-match verdict on the CPU: the plain
+    version against itself passes; a tie resolved to a later row, or rows
+    blended and rounded through bf16, fail."""
+    smoke = _chip_smoke()
+    x, p_hat, kf, pa, pb, w1 = smoke._match_inputs(
+        torch.Generator().manual_seed(0), 256, 64, mode, 4, 2, device="cpu",
+        dtype=torch.float32,
+    )
+    ref, ref_idx = ttm.token_match_gather_plain(x, p_hat, kf, pa, pb, w1,
+                                                return_indices=True)
+    out, idx = ref.clone(), ref_idx.clone()
+    if fault == "later_ties":  # the odd twin of every matched even row
+        idx = idx + 1
+    elif fault == "blend_bf16":
+        out = out.bfloat16().float()
+    args = ("[test]", mode, idx, ref_idx, out, ref)
+    kf_max = float(kf.abs().max())
+    if passes:
+        smoke._match_verdict(*args, kf_max=kf_max)
+    else:
+        with pytest.raises(AssertionError):
+            smoke._match_verdict(*args, kf_max=kf_max)
+
+
+def test_flipped_matches_counts_each_site():
+    """chip_smoke.py's per-site flip count, which only a small reference
+    past its limit runs: two propagation sites through
+    ``ops/propagation.token_propagation`` on the CPU, the "card" run with
+    the second site's queries moved so that exactly one token matches
+    another row; the sites' functions are restored afterwards."""
+    from tokenflow_torch.ops import propagation as prop
+
+    smoke = _chip_smoke()
+    saved = prop.match_gather
+    x, p, kf, pa, pb, w1 = _match_args(f=4, k=2, s=32, d=16)
+
+    def run(models, device, dtype):
+        for site in range(2):
+            q = x.clone()
+            if device == "cuda" and site == 1:
+                q[0, 5] = p[pa[0], 9] * 10.0  # token 5 of frame 0 now matches row 9
+            prop.token_propagation(q, p, kf, pa, pb, w1)
+
+    flips = smoke.flipped_matches(run, [], torch.float32, [])
+    assert prop.match_gather is saved
+    share = 1 / (2 * 4 * 32)  # one index of (2, F, S), pa[0] == pb[0]: both rows
+    assert flips[0] == 0.0 and flips[1] == pytest.approx(2 * share)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_k1_f32_matches_plain_on_cuda(d):
+    """K1-f32 against its plain version in fp32, TF32 off, with ragged Q
+    and KV tails and on head-split views (skips without a GPU;
+    chip_smoke.py covers the paths' shapes)."""
+    _cuda()
+    smoke = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(d)
+    # head-split views of wider projections: strided, 16-byte aligned
+    q, k, v = (torch.randn((2, n, 4 * d), generator=g, device="cuda")[..., d:]
+               .unflatten(-1, (3, d)) for n in (100, 300, 300))
+    before = dict(tfa.launches_by_dtype)
+    out = tfa.flash_attention_kernel(q, k, v)
+    assert tfa.launches_by_dtype["float32"] == before.get("float32", 0) + 1
+    assert out.dtype == torch.float32
+    m = smoke.k1_f32_mismatch(out, tfa.flash_attention_plain(q, k, v, kv_block=64))
+    assert smoke.k1_within_limits(m), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [3, 2])
+def test_match_f32_matches_plain_on_cuda(ns):
+    """The fp32 match core through K2 and K3 against the plain version on
+    separated inputs with a ragged tail (S = 200): identical indices, rows
+    within the fp32 limit, K2 and K3 bitwise equal (skips without a GPU)."""
+    _cuda()
+    smoke = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = smoke._match_inputs(torch.Generator(device="cuda").manual_seed(ns), 200, 64,
+                               "separated", 8, 2, ns=ns, dtype=torch.float32)
+    before = dict(ttm.launches_by_dtype)
+    out, idx = ttm.token_match_gather_kernel(*args, return_indices=True)
+    assert ttm.launches_by_dtype["float32"] == before.get("float32", 0) + 1
+    ref, ref_idx = ttm.token_match_gather_plain(*args, return_indices=True)
+    smoke._match_verdict("[test]", "separated", idx, ref_idx, out, ref,
+                         kf_max=float(args[2].abs().max()))
+    k3_out, ia, ib = tms.token_match_gather_split_kernel(*args, return_indices=True)
+    assert torch.equal(k3_out, out)
+    assert torch.equal(torch.stack([ia[:, 0], ib[:, 0]]), idx)

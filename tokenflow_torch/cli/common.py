@@ -67,21 +67,10 @@ UNPORTED_KEYS = (
 )
 
 
-def check_dtype_device(dtype: str, device: str) -> None:
-    """fp32 runs only on the CPU for now: K1 and the token-match core (K2,
-    K3) are instantiated for bf16 on the card."""
-    if dtype == "f32" and str(device).startswith("cuda"):
-        raise ValueError(
-            "dtype f32 on a CUDA device is not supported yet: the flash-attention "
-            "kernel (K1) and the token-match core (K2/K3) are built for bf16 only "
-            "(ROADMAP B1/B2 ports their fp32 versions); use dtype bf16, or device cpu"
-        )
-
-
 def validate_config(config: dict, mode: str) -> dict:
     """Fail fast on missing keys, a bad propagate_chunk, device, dtype or
-    group_norm_kernel, f32 on a CUDA device, and a key of an unported
-    feature set to anything but its default."""
+    group_norm_kernel, and a key of an unported feature set to anything but
+    its default."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
@@ -102,7 +91,6 @@ def validate_config(config: dict, mode: str) -> dict:
             )
     if config.get("dtype", "bf16") not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
-    check_dtype_device(config.get("dtype", "bf16"), config.get("device", "cuda"))
     utils.resolve_device(config.get("device", "cuda"))
     if not isinstance(config.get("group_norm_kernel", False), bool):
         raise ValueError("group_norm_kernel must be true or false")

@@ -6,10 +6,11 @@ store the latent trajectory (stage 1 of the two-stage pipeline).
 Same flags (the main-path subset), defaults and save layout as
 ``tokenflow_tpu/cli/preprocess.py``: ``latents/sd_{ver}/{video}/steps_{N}/
 nframes_{F}/latents/trajectory.npz`` plus ``inverted.mp4`` and the
-reconstructed ``frames/``. ``--device`` is ``cuda`` (default) or ``cpu``;
-``--dtype f32`` runs on the CPU only. ``--sd_version ControlNet`` (and its
-tiny test stack ``tiny-controlnet``) adds the residuals of a canny
-ControlNet (``--controlnet_dir``, else random weights) to every UNet call.
+reconstructed ``frames/``. ``--device`` is ``cuda`` (default) or ``cpu``,
+``--dtype`` ``bf16`` (default) or ``f32`` on either. ``--sd_version
+ControlNet`` (and its tiny test stack ``tiny-controlnet``) adds the
+residuals of a canny ControlNet (``--controlnet_dir``, else random weights)
+to every UNet call.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from tokenflow_torch import runtime, utils
 from tokenflow_torch.cli import controlnet_utils
-from tokenflow_torch.cli.common import DTYPES, check_dtype_device
+from tokenflow_torch.cli.common import DTYPES
 from tokenflow_torch.diffusion import ddim, inversion
 from tokenflow_torch.io import latents as latents_io
 from tokenflow_torch.io import video as video_io
@@ -163,7 +164,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     opt = build_parser().parse_args(argv)
-    check_dtype_device(opt.dtype, opt.device)
     if opt.data_path.endswith((".mp4", ".mov", ".avi")):
         video_io.video_to_frames(opt.data_path, img_size=(opt.W, opt.H))
         opt.data_path = os.path.join("data", Path(opt.data_path).stem)

@@ -45,8 +45,11 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "tf_flash_attention": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12
     + [ctypes.c_float, _P],
+    "tf_flash_attention_f32": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12
+    + [ctypes.c_float, _P],
     "tf_token_match": [_P] * 8 + [_I] * 5 + [_P],
     "tf_token_match_split": [_P] * 9 + [_I] * 5 + [_P],
+    "tf_token_match_f32": [_P] * 9 + [_I] * 5 + [_P],
     "tf_group_norm": [_P] * 5 + [_I] * 4 + [_L, _I] + [_L] * 3
     + [ctypes.c_float, _I, _P],
     "tf_group_norm_occupancy": [_I] * 3 + [_L, _I] + [_L] * 2 + [_P] * 2,

@@ -1,11 +1,12 @@
 """Operands a TMA tensor map accepts, shared by the kernels that load by
-TMA (K1's flash attention, the token-match core of K2 and K3).
+TMA (K1's flash attention, the token-match core of K2 and K3) and by
+their fp32 versions, which load rows with 16-byte vector loads.
 
 ``cuTensorMapEncodeTiled`` needs a 16-byte aligned base, a unit stride
 along the last dim and byte strides that are positive multiples of 16
-(so element strides that are positive multiples of 8 for bf16; a
-broadcast ``expand`` view has stride 0). A tensor that breaks a rule is
-cloned; one that keeps them all is passed as it is.
+(so element strides that are positive multiples of 8 for bf16 and of 4
+for fp32; a broadcast ``expand`` view has stride 0). A tensor that breaks
+a rule is cloned; one that keeps them all is passed as it is.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ def tma_operand(t: torch.Tensor, *, contiguous: bool = False) -> torch.Tensor:
     it is contiguous, for kernels that are given no strides), else a
     contiguous clone. A clone, not ``.contiguous()``, which returns a
     contiguous view at a misaligned base as it is."""
+    step = 16 // t.element_size()  # elements per 16 bytes
     ok = (
         t.stride(-1) == 1
-        and all(s > 0 and s % 8 == 0 for s in t.stride()[:-1])
+        and all(s > 0 and s % step == 0 for s in t.stride()[:-1])
         and t.data_ptr() % 16 == 0
         and (t.is_contiguous() or not contiguous)
     )

@@ -16,9 +16,14 @@ positive multiples of 16, so a tensor whose strides are not positive
 multiples of 8 elements (a broadcast ``expand`` view has stride 0) or whose
 base is not 16-byte aligned is first copied into a new contiguous tensor
 (``kernels/_operands.py``, the rule the token-match core shares).
-Instantiated for bf16 at ``HEAD_DIMS``: D = 64 (every SD-2.x site) and D =
-40, 80, 160 (SD-1.5's 8 heads over 320, 640 and 1280 channels); any other
-dtype or head dim on CUDA raises.
+Instantiated for bf16 and for fp32 at ``HEAD_DIMS``: D = 64 (every SD-2.x
+site) and D = 40, 80, 160 (SD-1.5's 8 heads over 320, 640 and 1280
+channels). fp32 (the stack's ``dtype: f32``) launches its own kernel,
+``tokenflow_torch/csrc/flash_attention_f32.cu``: the same function with
+products in plain fp32 FFMA on the CUDA cores (no TF32), bound at 67
+TFLOP/s; its rows need 16-byte alignment only, which ``tma_operand``'s
+rule gives at 4 elements. An fp32 operand is never cast to bf16. Mixed
+dtypes, any other dtype (fp16) or head dim on CUDA raise.
 """
 
 from __future__ import annotations
@@ -32,8 +37,12 @@ from tokenflow_torch.kernels._operands import tma_operand
 launches = 0
 # launches by head dim, the same launches as ``launches``
 launches_by_head_dim: dict[int, int] = {}
-# the head dims the CUDA kernel is instantiated for
+# launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
+launches_by_dtype: dict[str, int] = {}
+# the head dims the CUDA kernels are instantiated for, in both dtypes
 HEAD_DIMS = (40, 64, 80, 160)
+# the C entry point of each dtype's kernel
+ENTRY_POINTS = {torch.bfloat16: "tf_flash_attention", torch.float32: "tf_flash_attention_f32"}
 
 
 def flash_attention_plain(
@@ -85,8 +94,8 @@ def flash_attention_kernel(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Launch K1 on CUDA tensors q (B, Sq, H, D), k/v (B, Skv, H, D), all
-    bf16 on one device, D in ``HEAD_DIMS``. Returns a new (B, Sq, H, D)
-    bf16 tensor."""
+    bf16 or all fp32 on one device, D in ``HEAD_DIMS``. Returns a new (B,
+    Sq, H, D) tensor in their dtype."""
     global launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
@@ -96,10 +105,13 @@ def flash_attention_kernel(
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d not in HEAD_DIMS or not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+    if d not in HEAD_DIMS or q.dtype not in ENTRY_POINTS or not (
+        q.dtype == k.dtype == v.dtype
+    ):
         raise NotImplementedError(
-            "the CUDA flash-attention kernel is instantiated for bf16 with "
-            f"head dims {HEAD_DIMS}; got {q.dtype}, head dim {d}"
+            "the CUDA flash-attention kernels are instantiated for bf16 and fp32 "
+            f"(q, k, v alike) with head dims {HEAD_DIMS}; got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}, head dim {d}"
         )
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
@@ -119,7 +131,7 @@ def flash_attention_kernel(
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tf_flash_attention(
+        rc = getattr(lib, ENTRY_POINTS[q.dtype])(
             d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, sq, skv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -129,4 +141,6 @@ def flash_attention_kernel(
     _build.check(lib, rc, "flash_attention_kernel launch")
     launches += 1
     launches_by_head_dim[d] = launches_by_head_dim.get(d, 0) + 1
+    name = str(q.dtype).removeprefix("torch.")
+    launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
     return out

@@ -26,6 +26,8 @@ from tokenflow_torch.kernels import _build
 
 # kernel launches made by :func:`group_norm_kernel`
 launches = 0
+# launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
+launches_by_dtype: dict[str, int] = {}
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _MAX_GROUP_CHANNELS = 1024  # channels per group the kernels take
@@ -257,4 +259,6 @@ def group_norm_kernel(
     p = plan(b, c, x.numel() // (b * c), groups, x.dtype)
     launch(ops, out, scratch(x, groups, p), groups, eps, act, p)
     launches += 1
+    name = str(x.dtype).removeprefix("torch.")
+    launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
     return out

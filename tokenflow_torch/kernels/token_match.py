@@ -13,6 +13,10 @@ design: TMA pivot stream, wgmma, a running first argmax per row, the
 gather and blend in its epilogue with indexed 16-byte loads); it writes
 (2, F, S) int32 indices and the output. Bound on the H100: compute (4 S^2
 D flops per frame; the gather's bytes are a few percent of that time).
+fp32 tables (the stack's ``dtype: f32``) launch the fp32 match core,
+``tokenflow_torch/csrc/token_match_f32.cu`` (plain fp32 FFMA on the CUDA
+cores, the same first-max rule and fused gather, bound at 67 TFLOP/s),
+which K3 launches too; an fp32 table is never cast to bf16.
 """
 
 from __future__ import annotations
@@ -24,9 +28,14 @@ from tokenflow_torch.kernels._operands import tma_operand
 
 # kernel-pair launches made by :func:`token_match_gather_kernel`
 launches = 0
+# launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
+launches_by_dtype: dict[str, int] = {}
+# the table dtypes the match cores are instantiated for
+DTYPES = (torch.bfloat16, torch.float32)
 
-# largest head width the match core takes: its resident query tile of 64
-# rows (128 D bytes) beside a 4-stage ring in 227 KB of shared memory
+# largest head width the match cores take: the bf16 core's resident query
+# tile of 64 rows (128 D bytes) beside a 4-stage ring in 227 KB of shared
+# memory (the fp32 core, which sums over D in chunks, keeps the same limit)
 MAX_D = 1280
 _PLAIN_FRAMES = 8  # frames per plain-version chunk: bounds the (f, S, S) sims
 
@@ -78,21 +87,22 @@ def token_match_gather_plain(
 
 
 def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
-    """The checks shared by the token-match wrappers (K2 and K3): one CUDA
-    device, bf16 tables, agreeing shapes, D % 8 == 0 and D <= MAX_D, pivot
-    indices in [0, K) (IndexError; the kernels address the tables with them
-    directly). Returns tables a TMA tensor map accepts, contiguous and
-    16-byte aligned (``_operands.tma_operand``: a misaligned or strided
-    table is cloned), int32 pa/pb and fp32 w1."""
+    """The checks shared by the token-match wrappers (K2 and K3): three bf16
+    or three fp32 tables (NotImplementedError otherwise), one CUDA device,
+    agreeing shapes, D % 8 == 0 and D <= MAX_D, pivot indices in [0, K)
+    (IndexError; the kernels address the tables with them directly).
+    Returns tables a TMA tensor map accepts, contiguous and 16-byte aligned
+    (``_operands.tma_operand``: a misaligned or strided table is cloned),
+    int32 pa/pb and fp32 w1."""
+    if norm_h.dtype not in DTYPES or not (norm_h.dtype == p_hat.dtype == kf_attn.dtype):
+        raise NotImplementedError(
+            "the CUDA token-match kernels are instantiated for three bf16 or three "
+            f"fp32 tables; got {norm_h.dtype}, {p_hat.dtype}, {kf_attn.dtype}"
+        )
     dev = norm_h.device
     tensors = (norm_h, p_hat, kf_attn, pa, pb, w1)
     if not norm_h.is_cuda or any(t.device != dev for t in tensors):
         raise ValueError(f"{name} needs every operand on one CUDA device")
-    if not (norm_h.dtype == p_hat.dtype == kf_attn.dtype == torch.bfloat16):
-        raise NotImplementedError(
-            "the CUDA token-match kernels are instantiated for bf16 tables; got "
-            f"{norm_h.dtype}, {p_hat.dtype}, {kf_attn.dtype}"
-        )
     return check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1)
 
 
@@ -124,29 +134,39 @@ def check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
     )
 
 
-def launch(ops, idx: torch.Tensor, out: torch.Tensor | None) -> None:
-    """One launch of K2's kernel on operands from :func:`prepare_operands`:
-    the matched indices into the (2, F, S) int32 ``idx`` and the blended
-    rows into ``out``; with ``out`` None the indices only (the match timed
-    alone). The wrapper counts its launches."""
+def launch(ops, idx: torch.Tensor, out: torch.Tensor | None, *, split: bool = False) -> None:
+    """One launch of the match core of the tables' dtype, K2's (``split``
+    False) or K3's, on operands from :func:`prepare_operands`: the matched
+    indices into the (2, F, S) int32 ``idx`` (pivot a's in row 0, pivot
+    b's in row 1) and the blended rows into ``out``; with ``out`` None the
+    indices only (the match timed alone). bf16 tables launch the wgmma
+    core through K2's or K3's C entry (one core; K3's takes the two index
+    rows apart), fp32 tables the FFMA core through its one entry. The
+    wrappers count their launches."""
     norm_h, p_hat, kf_attn, pa, pb, w1 = ops
     f_total, s, d = norm_h.shape
     ns, k = kf_attn.shape[:2]
     lib = _build.load_library()
+    if norm_h.dtype == torch.float32:
+        entry, rows = lib.tf_token_match_f32, (idx[0], idx[1])
+    elif split:
+        entry, rows = lib.tf_token_match_split, (idx[0], idx[1])
+    else:
+        entry, rows = lib.tf_token_match, (idx,)
     with torch.cuda.device(norm_h.device):
-        rc = lib.tf_token_match(
+        rc = entry(
             norm_h.data_ptr(), p_hat.data_ptr(), kf_attn.data_ptr(), pa.data_ptr(),
-            pb.data_ptr(), w1.data_ptr(), idx.data_ptr(),
+            pb.data_ptr(), w1.data_ptr(), *(r.data_ptr() for r in rows),
             None if out is None else out.data_ptr(), ns, f_total, k, s, d,
             torch.cuda.current_stream(norm_h.device).cuda_stream,
         )
-    _build.check(lib, rc, "token-match kernel launch")
+    _build.check(lib, rc, f"{'K3' if split else 'K2'} {norm_h.dtype} token-match launch")
 
 
 def token_match_gather_kernel(
-    norm_h: torch.Tensor,  # (F, S, D) bf16
-    p_hat: torch.Tensor,  # (K, S, D) bf16, pre-normalized
-    kf_attn: torch.Tensor,  # (ns, K, S, D) bf16
+    norm_h: torch.Tensor,  # (F, S, D) bf16 or fp32
+    p_hat: torch.Tensor,  # (K, S, D) pre-normalized, norm_h's dtype
+    kf_attn: torch.Tensor,  # (ns, K, S, D) norm_h's dtype
     pa: torch.Tensor,  # (F,) pivot index in [0, K)
     pb: torch.Tensor,  # (F,)
     w1: torch.Tensor,  # (F,)
@@ -155,17 +175,19 @@ def token_match_gather_kernel(
 ):
     """Launch K2 (match, gather and blend in one kernel) on CUDA tensors. Pivot
     indices outside [0, K) raise IndexError. Returns a new (ns, F, S, D)
-    bf16 tensor, and with ``return_indices`` also the (2, F, S) int32
-    matched token indices."""
+    tensor in the tables' dtype, and with ``return_indices`` also the (2,
+    F, S) int32 matched token indices."""
     global launches
     ops = prepare_operands("token_match_gather_kernel", norm_h, p_hat, kf_attn, pa, pb, w1)
     f_total, s, d = ops[0].shape
     ns = ops[2].shape[0]
     dev = ops[0].device
     idx = torch.empty((2, f_total, s), dtype=torch.int32, device=dev)
-    out = torch.empty((ns, f_total, s, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((ns, f_total, s, d), dtype=ops[2].dtype, device=dev)
     if f_total == 0 or s == 0:
         return (out, idx) if return_indices else out
     launch(ops, idx, out)
     launches += 1
+    name = str(out.dtype).removeprefix("torch.")
+    launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
     return (out, idx) if return_indices else out

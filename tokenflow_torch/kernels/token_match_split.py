@@ -10,7 +10,8 @@ out shaped (F, 1, S) beside the gathered and blended output. The CUDA
 entry point is ``tokenflow_torch/csrc/token_match_split.cu``, one launch
 of the token-match core that K2 launches too (``csrc/token_match_core.cuh``,
 whose header gives the design; the gather is its epilogue). Bound on the
-H100: compute (4 S^2 D flops per frame).
+H100: compute (4 S^2 D flops per frame). fp32 tables launch the fp32 match
+core K2 launches too (``csrc/token_match_f32.cu``).
 
 :func:`use_split` keeps the port's K2/K3 choice at the JAX package's sites.
 """
@@ -19,26 +20,31 @@ from __future__ import annotations
 
 import torch
 
-from tokenflow_torch.kernels import _build
 from tokenflow_torch.kernels.token_match import (
+    launch,
     prepare_operands,
     token_match_gather_plain,
 )
 
 # kernel-pair launches made by :func:`token_match_gather_split_kernel`
 launches = 0
+# launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
+launches_by_dtype: dict[str, int] = {}
 
 # The JAX package's profitability cap for K2 (tokenflow_tpu/kernels/
 # token_match.py:94-96, fits_vmem): a site whose one (ns, S, D) bf16
 # keyframe table exceeds it runs K3 there (ops/propagation.py:186-209). At
 # 768p that is the top level (3 * 9216 * 320 * 2 B = 16.9 MiB). Whether the
-# threshold suits the H100 is not measured.
+# threshold suits the H100 is not measured. The byte count is bf16's at
+# every dtype, as in the JAX dispatch, which calls the same predicate for
+# fp32 tables: K2 and K3 share the sites in both dtypes.
 SPLIT_KF_TABLE_BYTES = 12 << 20
 
 
 def use_split(s: int, d: int, ns: int = 3) -> bool:
     """True where the JAX dispatch takes K3 instead of K2: one (ns, S, D)
-    bf16 keyframe table larger than :data:`SPLIT_KF_TABLE_BYTES`."""
+    keyframe table larger than :data:`SPLIT_KF_TABLE_BYTES` counted in bf16
+    (whatever the tables' dtype)."""
     return ns * s * d * 2 > SPLIT_KF_TABLE_BYTES
 
 
@@ -64,29 +70,10 @@ def token_match_gather_split_plain(
     return out, ia, ib
 
 
-def launch(ops, ia: torch.Tensor, ib: torch.Tensor, out: torch.Tensor | None) -> None:
-    """One launch of K3's kernel on operands from ``prepare_operands``: the
-    matched indices into the (F, 1, S) int32 ``ia`` and ``ib`` and the
-    blended rows into ``out``; with ``out`` None the indices only. The
-    wrapper counts its launches."""
-    norm_h, p_hat, kf_attn, pa, pb, w1 = ops
-    f_total, s, d = norm_h.shape
-    ns, k = kf_attn.shape[:2]
-    lib = _build.load_library()
-    with torch.cuda.device(norm_h.device):
-        rc = lib.tf_token_match_split(
-            norm_h.data_ptr(), p_hat.data_ptr(), kf_attn.data_ptr(), pa.data_ptr(),
-            pb.data_ptr(), w1.data_ptr(), ia.data_ptr(), ib.data_ptr(),
-            None if out is None else out.data_ptr(), ns, f_total, k, s, d,
-            torch.cuda.current_stream(norm_h.device).cuda_stream,
-        )
-    _build.check(lib, rc, "split token-match kernel launch")
-
-
 def token_match_gather_split_kernel(
-    norm_h: torch.Tensor,  # (F, S, D) bf16
-    p_hat: torch.Tensor,  # (K, S, D) bf16, pre-normalized
-    kf_attn: torch.Tensor,  # (ns, K, S, D) bf16
+    norm_h: torch.Tensor,  # (F, S, D) bf16 or fp32
+    p_hat: torch.Tensor,  # (K, S, D) pre-normalized, norm_h's dtype
+    kf_attn: torch.Tensor,  # (ns, K, S, D) norm_h's dtype
     pa: torch.Tensor,  # (F,) pivot index in [0, K)
     pb: torch.Tensor,  # (F,)
     w1: torch.Tensor,  # (F,)
@@ -95,8 +82,8 @@ def token_match_gather_split_kernel(
 ):
     """Launch K3 (match, gather and blend in one kernel) on CUDA tensors, with K2's
     checks (pivot indices outside [0, K) raise IndexError). Returns a new
-    (ns, F, S, D) bf16 tensor, and with ``return_indices`` also ``ia``,
-    ``ib``: (F, 1, S) int32."""
+    (ns, F, S, D) tensor in the tables' dtype, and with ``return_indices``
+    also ``ia``, ``ib``: (F, 1, S) int32."""
     global launches
     ops = prepare_operands(
         "token_match_gather_split_kernel", norm_h, p_hat, kf_attn, pa, pb, w1
@@ -107,9 +94,11 @@ def token_match_gather_split_kernel(
     # ia and ib are the two rows of one (2, F, S) buffer, K2's index layout
     idx = torch.empty((2, f_total, s), dtype=torch.int32, device=dev)
     ia, ib = idx[0, :, None], idx[1, :, None]
-    out = torch.empty((ns, f_total, s, d), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((ns, f_total, s, d), dtype=ops[2].dtype, device=dev)
     if f_total == 0 or s == 0:
         return (out, ia, ib) if return_indices else out
-    launch(ops, ia, ib, out)
+    launch(ops, idx, out, split=True)
     launches += 1
+    name = str(out.dtype).removeprefix("torch.")
+    launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
     return (out, ia, ib) if return_indices else out

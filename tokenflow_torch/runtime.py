@@ -164,7 +164,17 @@ def load_stack(
     ``group_norm_kernel`` sets ``use_kernel`` on every GroupNorm of the UNet
     and the VAE (the sites the JAX switch ``TOKENFLOW_PALLAS_GN=1``
     reaches); it is applied on every call, so it never sticks to the held
-    stack."""
+    stack.
+
+    An fp32 stack turns TF32 off for matmuls and cuDNN convolutions
+    (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32``; PyTorch's default lets cuDNN take
+    10-bit-mantissa products), so ``dtype: f32`` runs full fp32 products on
+    the card as the JAX reference does. A bf16 stack leaves both flags as
+    they are: they touch only fp32 products."""
+    if dtype == torch.float32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     found = None if init == "random" else resolve_model_dir(sd_version, model_dir)
     if init == "pretrained" and found is None:
         raise FileNotFoundError(
