@@ -22,10 +22,11 @@ Phases (any failure raises, and the script exits non-zero):
      on and off, with its plan (variant, cluster size, CTAs per SM), the
      wrapper's time and one launch's device time, and a repeat launch that
      must match bit for bit. The fp32 kernels (``dtype: f32``) against
-     their plain versions in fp32, TF32 off, bounded at 67 TFLOP/s of fp32
-     on the CUDA cores: K1-f32 at every shape of the fp32 paths and one
-     row per SD-1.5 head dim (K1_F32_SHAPES) and on the D = 64 row's
-     strided views, with SDPA's fp32 time beside it; the fp32 match core
+     their plain versions in fp32, TF32 off, bounded as their 3xTF32 splits
+     run, at three times the flops on the 495 TFLOP/s TF32 tensor cores,
+     and also at 67 TFLOP/s of fp32 on the CUDA cores: K1-f32 at every shape of the
+     fp32 paths and one row per SD-1.5 head dim (K1_F32_SHAPES) and on
+     the D = 64 row's strided views, with SDPA's fp32 time beside it; the fp32 match core
      through K2 (F=40, 4096x320 in four modes: separated, duplicated-row,
      random and all-negative inputs; every other K2_SHAPES site separated
      and random; the ragged all-negative row) and K3 (F=24, 9216x320 in
@@ -161,16 +162,28 @@ F32_SDEDIT_STEPS = 4
 # 40, 80, 160)
 K1_STRIDED = [(5, 4096, 5, 320), (5, 4096, 8, 320), (5, 1024, 8, 640), (5, 256, 8, 1280)]
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM3 bytes/s, dense
-# bf16 tensor-core FLOP/s and fp32 FLOP/s on the CUDA cores (the fp32
-# kernels' FFMA products), at the 700 W power limit
+# bf16 and TF32 tensor-core FLOP/s and fp32 FLOP/s on the CUDA cores (the
+# plain fp32 rate), at the 700 W power limit
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12
-# the peak each dtype's kernels are bounded by, as named in their rows
+H100_TF32_FLOPS = 495e12
+# the peak each dtype's kernels are bounded by, as named in their rows:
+# the fp32 kernels run every fp32 product as three TF32 products on the
+# tensor cores (3xTF32 splits), so 3 x flops at the TF32 peak
 PEAKS = {
     torch.bfloat16: (H100_BF16_FLOPS, "bf16 tensor cores, 989 TFLOP/s"),
-    torch.float32: (H100_FP32_FLOPS, "fp32 CUDA cores (FFMA), 67 TFLOP/s"),
+    torch.float32: (H100_TF32_FLOPS / 3,
+                    "3xTF32: 3 x flops on the TF32 tensor cores, 495 TFLOP/s"),
 }
+# the fp32 rows' second reading: flops at the plain fp32 rate
+FFMA = (H100_FP32_FLOPS, "fp32 CUDA cores (FFMA), 67 TFLOP/s")
+
+
+def ffma_bound_ms(nbytes: float, flops: float) -> float:
+    """The fp32 rows' second bound: ``flops`` at the CUDA cores' fp32 (FFMA)
+    peak, or the bytes, whichever takes longer."""
+    return bound(nbytes, flops, FFMA[0])[0]
 # K1-f32's rows (B, Sq, Skv, H, D): every shape the fp32 paths give it (D =
 # 64), the 24-frame 768p pivotal row, one row per SD-1.5 head dim at its
 # largest path shape, and the ragged row
@@ -244,6 +257,7 @@ SLEEP_CYCLES = 400_000
 KERNEL_CLASSES = [
     ("K1 flash attention", ("flash_fwd",)),
     ("K2/K3 token match", ("match_core",)),
+    ("fp32 split pre-pass (K1-f32, K2/K3-f32)", ("tf32_split",)),
     ("K4 GroupNorm", ("gn_cluster", "gn_stats", "gn_apply", "gn_resident")),
     ("convolution", ("conv", "cudnn", "xmma_fprop", "implicit", "winograd", "dgrad")),
     ("matmul", ("gemm", "nvjet", "cutlass", "sm90_xmma")),
@@ -396,20 +410,25 @@ def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
     library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     flops = 4.0 * b * h * sq * skv * d
     peak, peak_name = PEAKS[q.dtype]
-    bound_ms, bound_by = bound(q.element_size() * d * b * h * (2 * sq + 2 * skv), flops, peak)
+    nbytes = q.element_size() * d * b * h * (2 * sq + 2 * skv)
+    bound_ms, bound_by = bound(nbytes, flops, peak)
     tflops = flops / ms * 1e-9
     tag = "[K1]" if q.dtype == torch.bfloat16 else "[K1 fp32]"
+    split = {}
+    if q.dtype == torch.float32:
+        split = {"bound_ffma_ms": ffma_bound_ms(nbytes, flops)}
     print(
         f"{tag} {label}: max|err|={err:.3e} (limit {m['max_abs_limit']:.3e}) "
         f"rel L2 {m['rel_l2']:.3e}, kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
         f"SDPA {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by}; {peak_name})",
+        f"({bound_by}; {peak_name})"
+        + (f", bound {split['bound_ffma_ms']:.3f} ms ({FFMA[1]})" if split else ""),
         flush=True,
     )
     return {"shape": [b, sq, skv, h], "head_dim": d, "strided": strided, **m,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak_name,
-            "tflops": tflops}
+            **split, "tflops": tflops}
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -517,12 +536,13 @@ def check_flash_f32(gen: torch.Generator) -> dict:
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "rel_l2": max(r["rel_l2"] for r in rows),
         **{key: main[key] for key in
-           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_peak", "tflops")},
+           ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_peak",
+            "bound_ffma_ms", "tflops")},
         "library": "scaled_dot_product_attention in fp32, TF32 off",
         "by_head_dim": {
             str(d): {key: r[key] for key in
                      ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                      "tflops", "max_abs_err", "rel_l2")}
+                      "bound_ffma_ms", "tflops", "max_abs_err", "rel_l2")}
             for d, r in sorted(by_d.items())
         },
         "shapes": rows,
@@ -677,15 +697,21 @@ def _match_row(tag, kernel, plain, launch, args, mode, f, s, d, k, extra=None):
     plain_ms = median_ms(lambda: plain(*args), runs=5)
     bound_ms, bound_by = _match_bound(f, s, d, k, K2_NS, dtype)
     stage_bounds = _stage_bounds(f, s, d, k, K2_NS, dtype)
+    split = {}
+    if dtype == torch.float32:
+        split = {"bound_ffma_ms": ffma_bound_ms(
+            4.0 * d * s * (f + k + K2_NS * (k + f)), 4.0 * f * s * s * d)}
     print(f"{line} wrapper {ms:.3f} ms, kernel {stages['kernel_ms']:.3f} (match "
           f"{stages['match_ms']:.3f}, gather {stages['gather_ms']:.3f}), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"(match {stage_bounds['match_bound_ms']:.3f}, gather "
-          f"{stage_bounds['gather_bound_ms']:.3f}; {PEAKS[dtype][1]})", flush=True)
+          f"{stage_bounds['gather_bound_ms']:.3f}; {PEAKS[dtype][1]})"
+          + (f", bound {split['bound_ffma_ms']:.3f} ms ({FFMA[1]})" if split else ""),
+          flush=True)
     return {"shape": [f, s, d], "k": k, "mode": mode, "dtype": str(dtype).split(".")[-1],
             "flipped": flipped, "max_abs_err": err, "ms": ms, **stages,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_peak": PEAKS[dtype][1], **stage_bounds}
+            "bound_peak": PEAKS[dtype][1], **split, **stage_bounds}
 
 
 def _k2_kernel(*args):
@@ -824,8 +850,9 @@ def check_token_match_f32(gen: torch.Generator) -> tuple[dict, dict]:
                                    extra=extra))
             del args
             torch.cuda.empty_cache()
-        entries.append(_match_entry(name, "tokenflow_torch/csrc/token_match_f32.cu",
-                                    replaces, rows))
+        entry = _match_entry(name, "tokenflow_torch/csrc/token_match_f32.cu", replaces, rows)
+        entry["bound_ffma_ms"] = rows[0]["bound_ffma_ms"]
+        entries.append(entry)
     return tuple(entries)
 
 

@@ -1,7 +1,7 @@
 """Parent/change comparison of the PyTorch port on one card.
 
-    python scripts/torch_ab.py PARENT_DIR CHANGE_DIR [--what k1 k4 sass profile smoke]
-        [--out DIR]
+    python scripts/torch_ab.py PARENT_DIR CHANGE_DIR
+        [--what k1 k1f32 m32 k4 sass profile smoke] [--out DIR]
 
 PARENT_DIR and CHANGE_DIR are checkouts of the repo (``git archive``
 unpacked into a git-ignored directory). Each measurement runs in the order
@@ -13,13 +13,23 @@ helpers (so both trees are measured alike):
     ``flash_attention_kernel``, held to its plain version by
     ``chip_smoke.k1_within_limits``: the wrapper's time (``median_ms``) and
     one call's device time with host work hidden (``device_ms``);
+  - k1f32: K1 in fp32 at ``chip_smoke.K1_F32_SHAPES`` through the tree's
+    ``flash_attention_kernel``, held to its plain version by
+    ``chip_smoke.k1_f32_mismatch``: the wrapper's time, one call's device
+    time and SDPA's in fp32 (TF32 off) on the same tensors;
+  - m32: the fp32 match core at ``chip_smoke.K2_F32`` and every other
+    ``K2_SHAPES`` site through the tree's K2 wrapper and at
+    ``chip_smoke.K3_F32`` through its K3 wrapper, on separated inputs held
+    to the plain version by ``chip_smoke._match_verdict``: the wrapper's
+    time and one call's device time;
   - k4: K4 at ``chip_smoke.GN_SHAPES`` through the tree's
     ``group_norm_kernel``, held to its plain version by
     ``chip_smoke.gn_verdict``: the wrapper's time (``median_ms``) and one
     call's device time with host work hidden (``device_ms``);
   - sass: ``cuobjdump -sass`` of K1's (``flash_fwd``) and the match core's
     (``match_core``) bf16 functions (not the fp32 ``flash_fwd_f32`` and
-    ``match_f32``) in the two trees' libraries, compared line by
+    ``match_core_f32``, nor an older tree's ``match_f32``) in the two
+    trees' libraries, compared line by
     line (both listings written to ``sass_{parent,change}.txt``); K1's
     functions are matched by head dim (``flash_fwd_d64`` of a tree from
     before K1 took D as a template parameter is ``flash_fwd<64>``);
@@ -47,7 +57,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 ORDER = ("parent", "change", "change", "parent")
 SASS_FUNCTIONS = ("flash_fwd", "match_core")
-# the fp32 kernels (flash_fwd_f32, match_f32) are not the bf16 functions
+# the fp32 kernels (flash_fwd_f32, match_core_f32) are not the bf16 functions
 # the comparison holds
 SASS_SKIP = ("_f32",)
 
@@ -106,11 +116,71 @@ def run_k1(smoke) -> list:
     return rows
 
 
+def run_k1f32(smoke) -> list:
+    import torch
+    import torch.nn.functional as F
+
+    from tokenflow_torch.kernels import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, sq, skv, h, d in smoke.K1_F32_SHAPES:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda")
+                   for n in (sq, skv, skv))
+
+        def call():
+            return fa.flash_attention_kernel(q, k, v)
+
+        m = smoke.k1_f32_mismatch(call(), fa.flash_attention_plain(q, k, v, kv_block=1024))
+        if not smoke.k1_within_limits(m):
+            raise AssertionError(f"K1-f32 at {(b, sq, skv, h, d)}: {m}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rows.append({"shape": [b, sq, skv, h, d], **m, "wrapper_ms": smoke.median_ms(call),
+                     "device_ms": smoke.device_ms(call),
+                     "sdpa_ms": smoke.median_ms(
+                         lambda: F.scaled_dot_product_attention(qt, kt, vt))})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_m32(smoke) -> list:
+    import torch
+
+    from tokenflow_torch.kernels import token_match as tm
+    from tokenflow_torch.kernels import token_match_split as tms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(smoke.K2_F32, tm.token_match_gather_kernel)]
+    cases += [(row, tm.token_match_gather_kernel) for row in smoke.K2_SHAPES
+              if row != smoke.K2_F32]
+    cases += [(smoke.K3_F32, tms.token_match_gather_split_kernel)]
+    rows = []
+    for (s, d, f, k), kernel in cases:
+        args = smoke._match_inputs(gen, s, d, "separated", f, k, dtype=torch.float32)
+
+        def call():
+            return kernel(*args)
+
+        ref, ref_idx = tm.token_match_gather_plain(*args, return_indices=True)
+        out, *idx = kernel(*args, return_indices=True)
+        # K2 returns (2, F, S) indices, K3 ia and ib as (F, 1, S) each
+        idx = idx[0] if len(idx) == 1 else torch.stack([i[:, 0] for i in idx])
+        smoke._match_verdict("[ab m32]", "separated", idx, ref_idx, out, ref,
+                             kf_max=float(args[2].abs().max()))
+        rows.append({"shape": [f, s, d], "k": k, "kernel": kernel.__name__,
+                     "wrapper_ms": smoke.median_ms(call), "device_ms": smoke.device_ms(call)})
+        del args, ref, out
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_one(what: str, tree: str) -> None:
     """One run in this process, with ``tree``'s port first on the path."""
     sys.path.insert(0, tree)
     smoke = _smoke()
-    runs = {"k1": run_k1, "k4": run_k4}
+    runs = {"k1": run_k1, "k1f32": run_k1f32, "m32": run_m32, "k4": run_k4}
     result = runs[what](smoke) if what in runs else smoke.profile_edit_step()
     print("RESULT " + json.dumps(result), flush=True)
 
@@ -166,7 +236,7 @@ def main() -> int:
     parser.add_argument("parent", nargs="?")
     parser.add_argument("change", nargs="?")
     parser.add_argument("--what", nargs="+", default=["k4", "sass", "profile", "smoke"],
-                        choices=["k1", "k4", "sass", "profile", "smoke"])
+                        choices=["k1", "k1f32", "m32", "k4", "sass", "profile", "smoke"])
     parser.add_argument("--out", type=Path, default=HERE / "build" / "ab_results",
                         help="directory for results.jsonl and the smoke logs")
     parser.add_argument("--one", nargs=2, metavar=("WHAT", "TREE"), help=argparse.SUPPRESS)

@@ -12,6 +12,7 @@ repeated here.
 import importlib.util
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,6 +20,7 @@ import torch
 from tokenflow_torch.kernels import flash_attention as tfa
 from tokenflow_torch.kernels import token_match as ttm
 from tokenflow_torch.kernels import token_match_split as tms
+from tokenflow_tpu.kernels.flash_attention import flash_attention_bhsd
 from tokenflow_tpu.kernels.token_match import fits_vmem
 from tokenflow_tpu.kernels.token_match_split import split_fits_vmem
 from tokenflow_tpu.ops import propagation as jprop
@@ -239,3 +241,132 @@ def test_match_f32_matches_plain_on_cuda(ns):
     k3_out, ia, ib = tms.token_match_gather_split_kernel(*args, return_indices=True)
     assert torch.equal(k3_out, out)
     assert torch.equal(torch.stack([ia[:, 0], ib[:, 0]]), idx)
+
+
+# ---- the 3xTF32 split of the fp32 kernels, emulated on the CPU ----
+# csrc/tf32.cuh: hi = rna(x) (cvt.rna.tf32.f32, _tf32 above), lo = rna(x -
+# hi); a product a b = a_lo b_hi + a_hi b_lo + a_hi b_hi, cross terms
+# first. TF32 x TF32 products are exact in fp32, so fp32 matmuls of the
+# parts give the tensor cores' products; "tf32" is the one-pass control
+# (a_hi b_hi alone). The emulation checks the split's rounding, not the
+# tensor cores' accumulation: their sums are taken here as the CPU's fp32
+# matmul takes them (round to nearest, the match's D in one sum), while the
+# hardware's fp32 accumulation is not round-to-nearest and the match core
+# chains 32-dim chunks. A kernel that went back to one accumulation chain
+# over every KV tile would pass these tests; the card's rows in
+# chip_smoke.py hold the accumulation.
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor, scheme: str) -> torch.Tensor:
+    """a @ b (last dim of a against the second-last of b) as the kernels
+    take it: three TF32 products ("3xtf32") or one ("tf32")."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    if scheme == "tf32":
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _emulated_k1(q, k, v, scheme, kv_tile):
+    """K1-f32's arithmetic: per KV tile S = Q K^T (split), the online
+    softmax in the exp2 domain in fp32, the tile's P V (split, P split as
+    the kernel splits it in registers) added to O in fp32; (B, S, H, D)."""
+    d = q.shape[-1]
+    scale_log2 = np.float32(d**-0.5 * 1.4426950408889634)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    b, h, sq, _ = qh.shape
+    acc = torch.zeros((b, h, sq, d))
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros((b, h, sq, 1))
+    for j in range(0, kh.shape[2], kv_tile):
+        s = _split_product(qh, kh[:, :, j:j + kv_tile].transpose(-1, -2), scheme)
+        s = s * scale_log2
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _split_product(p, vh[:, :, j:j + kv_tile], scheme)
+        m = m_new
+    return (acc / l).transpose(1, 2)
+
+
+@pytest.mark.parametrize("scheme,passes", [("3xtf32", True), ("tf32", False)])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_k1_split_arithmetic_against_jax(d, scheme, passes):
+    """K1-f32's 3xTF32 arithmetic (emulated, the kernel's KV tile per head
+    dim, a ragged KV tail) against the JAX package's fp32 flash attention
+    in interpret mode: within chip_smoke.py's K1-f32 limits (2e-5 relative
+    L2, 1e-4 max|err|); one TF32 pass per product fails them."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((1, n, 2, d)).astype(np.float32) for n in (96, 300, 300))
+    want = flash_attention_bhsd(
+        *(jnp.asarray(t).transpose(0, 2, 1, 3) for t in (q, k, v)),
+        scale=d**-0.5, bq=32, bk=64, interpret=True,
+    ).transpose(0, 2, 1, 3)
+    got = _emulated_k1(*(torch.from_numpy(t) for t in (q, k, v)), scheme,
+                       kv_tile=64 if d <= 64 else 32)
+    m = smoke.k1_f32_mismatch(got, torch.from_numpy(np.array(want)))
+    assert smoke.k1_within_limits(m) is passes, m
+
+
+def _match_tables(mode, f=16, k=2, s=1024, d=64, seed=0):
+    """numpy (x, p_hat): "random", or "separated" (every pivot row a
+    permuted base row plus noise, so each query has one clear match)."""
+    rng = np.random.default_rng(seed)
+    if mode == "random":
+        x = rng.standard_normal((f, s, d))
+        p = rng.standard_normal((k, s, d))
+    else:
+        base = rng.standard_normal((s, d))
+        x = np.stack([base[rng.permutation(s)] for _ in range(f)])
+        p = np.stack([base[rng.permutation(s)] for _ in range(k)])
+        x = x + 0.01 * rng.standard_normal(x.shape)
+        p = p + 0.01 * rng.standard_normal(p.shape)
+    p_hat = p / (np.linalg.norm(p, axis=-1, keepdims=True) + 1e-12)
+    return x.astype(np.float32), p_hat.astype(np.float32)
+
+
+def _jax_indices(x, p_hat, pa, pb):
+    """(2, F, S) indices of jnp_match_gather: keyframe rows that hold their
+    own token index, gathered with w1 = 1 (pivot a's) and w1 = 0 (b's)."""
+    k, s, d = p_hat.shape
+    kf = np.broadcast_to(np.arange(s, dtype=np.float32)[None, None, :, None],
+                         (3, k, s, d))
+    f = x.shape[0]
+    rows = [np.asarray(jprop.jnp_match_gather(
+        jnp.asarray(x), jnp.asarray(p_hat), jnp.asarray(kf), jnp.asarray(pa),
+        jnp.asarray(pb), jnp.full((f,), w, jnp.float32)))[0, :, :, 0] for w in (1.0, 0.0)]
+    return np.stack(rows).astype(np.int64)
+
+
+@pytest.mark.parametrize("scheme", ["3xtf32", "tf32"])
+@pytest.mark.parametrize("mode", ["separated", "random"])
+def test_match_split_arithmetic_against_jax(mode, scheme):
+    """The fp32 match core's 3xTF32 similarities (emulated) against
+    jnp_match_gather's indices: equal on separated inputs, at most
+    chip_smoke.py's K2_F32_MAX_FLIP_SHARE flipped on random ones. One TF32
+    pass per product flips more than that on the random inputs."""
+    smoke = _chip_smoke()
+    x, p_hat = _match_tables(mode)
+    f, k = x.shape[0], p_hat.shape[0]
+    pa, pb, _ = jprop.propagation_indices(f, f // k)
+    want = _jax_indices(x, p_hat, pa, pb)
+    xt, pt = torch.from_numpy(x), torch.from_numpy(p_hat)
+    got = np.stack([
+        _split_product(xt, pt[torch.from_numpy(piv).long()].transpose(-1, -2), scheme)
+        .argmax(-1).numpy() for piv in (pa, pb)
+    ])
+    flipped = float((got != want).mean())
+    if mode == "separated":
+        assert flipped == 0.0
+    elif scheme == "3xtf32":
+        assert flipped <= smoke.K2_F32_MAX_FLIP_SHARE, flipped
+    else:
+        assert flipped > smoke.K2_F32_MAX_FLIP_SHARE, flipped
+

@@ -163,6 +163,25 @@ def test_match_operands_meet_tma_rules(case):
     assert (got[0].data_ptr() == args[0].data_ptr()) is kept
 
 
+@pytest.mark.parametrize("pivot", [2, 3, -1], ids=["in_range", "past_k", "negative"])
+def test_pivot_range_is_checked_on_host(pivot):
+    """The match wrappers check the pivot indices on host values: the main
+    path hands them over on the host (``propagation_indices``), so no call
+    waits for the device. K = 3 here: an index outside [0, 3) raises
+    IndexError before any launch; valid ones come back as int32 on the
+    tables' device."""
+    args, _ = _operand_case("aligned")
+    args = list(args)
+    args[3] = torch.full_like(args[3], pivot)
+    if pivot in (0, 1, 2):
+        got = ttm.check_operands("test", *args)
+        assert got[3].dtype == torch.int32 and got[3].device == args[0].device
+        assert torch.equal(got[3].long(), args[3].long())
+    else:
+        with pytest.raises(IndexError, match="pivot indices"):
+            ttm.check_operands("test", *args)
+
+
 def _chip_smoke():
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)

@@ -148,9 +148,10 @@ def tokenflow_sample_loop(
     n_steps = len(schedule.timesteps)
     pivots = validate_pivot_indices(pivot_indices, n_steps, n_windows, window_size)
     dev = x_init.device
-    pa, pb, w1 = (
-        torch.as_tensor(a, device=dev) for a in propagation_indices(f_total, window_size)
-    )
+    # the pivot indices stay on the host: the match wrappers check their range
+    # there without a device sync and copy them over asynchronously
+    pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f_total, window_size))
+    w1 = w1.to(dev)
     embeds_piv = embeds3.repeat(n_windows, 1, 1)  # frame-major [inv,uncond,cond]
     embeds_prop = embeds3.repeat(chunk, 1, 1)
     if (controlnet_fn is None) != (cond_image is None):

@@ -46,13 +46,20 @@ SIGNATURES = {
     "tf_flash_attention": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12
     + [ctypes.c_float, _P],
     "tf_flash_attention_f32": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12
-    + [ctypes.c_float, _P],
+    + [ctypes.c_float, _P, _P],
+    "tf_flash_attention_f32_workspace": [_I] * 5,
     "tf_token_match": [_P] * 8 + [_I] * 5 + [_P],
     "tf_token_match_split": [_P] * 9 + [_I] * 5 + [_P],
-    "tf_token_match_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "tf_token_match_f32": [_P] * 9 + [_I] * 5 + [_P, _P],
+    "tf_token_match_f32_workspace": [_I] * 4,
     "tf_group_norm": [_P] * 5 + [_I] * 4 + [_L, _I] + [_L] * 3
     + [ctypes.c_float, _I, _P],
     "tf_group_norm_occupancy": [_I] * 3 + [_L, _I] + [_L] * 2 + [_P] * 2,
+}
+# return types other than int: the workspace sizes in bytes
+RESTYPES = {
+    "tf_flash_attention_f32_workspace": _L,
+    "tf_token_match_f32_workspace": _L,
 }
 
 
@@ -156,7 +163,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     lib.tf_error_string.argtypes = [ctypes.c_int]
     lib.tf_error_string.restype = ctypes.c_char_p
     return lib

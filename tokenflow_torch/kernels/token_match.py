@@ -14,9 +14,15 @@ gather and blend in its epilogue with indexed 16-byte loads); it writes
 (2, F, S) int32 indices and the output. Bound on the H100: compute (4 S^2
 D flops per frame; the gather's bytes are a few percent of that time).
 fp32 tables (the stack's ``dtype: f32``) launch the fp32 match core,
-``tokenflow_torch/csrc/token_match_f32.cu`` (plain fp32 FFMA on the CUDA
-cores, the same first-max rule and fused gather, bound at 67 TFLOP/s),
-which K3 launches too; an fp32 table is never cast to bf16.
+``tokenflow_torch/csrc/token_match_f32.cu`` (wgmma on the tensor cores as
+3xTF32 splits, fp32-class error: against the plain version in fp32 on
+the H100 no index flipped on separated or tied inputs and at most 1.8e-5
+on random and all-negative ones, near ties; the same first-max rule and
+fused gather; a split pre-pass into a workspace the wrapper allocates;
+bound at 3 x its flops on the 495 TFLOP/s TF32 tensor cores, and at 67
+TFLOP/s of FFMA read at the plain fp32 rate), which K3 launches too; an fp32 table is never cast to
+bf16. The pivot indices' range is checked on host values: the main path
+passes them on the host, so no call waits for the device.
 """
 
 from __future__ import annotations
@@ -88,7 +94,8 @@ def token_match_gather_plain(
 
 def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
     """The checks shared by the token-match wrappers (K2 and K3): three bf16
-    or three fp32 tables (NotImplementedError otherwise), one CUDA device,
+    or three fp32 tables (NotImplementedError otherwise), one CUDA device
+    (pa and pb on it or on the host),
     agreeing shapes, D % 8 == 0 and D <= MAX_D, pivot indices in [0, K)
     (IndexError; the kernels address the tables with them directly).
     Returns tables a TMA tensor map accepts, contiguous and 16-byte aligned
@@ -100,9 +107,13 @@ def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
             f"fp32 tables; got {norm_h.dtype}, {p_hat.dtype}, {kf_attn.dtype}"
         )
     dev = norm_h.device
-    tensors = (norm_h, p_hat, kf_attn, pa, pb, w1)
-    if not norm_h.is_cuda or any(t.device != dev for t in tensors):
-        raise ValueError(f"{name} needs every operand on one CUDA device")
+    tensors = (norm_h, p_hat, kf_attn, w1)
+    if (not norm_h.is_cuda or any(t.device != dev for t in tensors)
+            or any(t.device not in (dev, torch.device("cpu")) for t in (pa, pb))):
+        raise ValueError(
+            f"{name} needs every operand on one CUDA device (pa and pb there or "
+            "on the host)"
+        )
     return check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1)
 
 
@@ -124,12 +135,17 @@ def check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
         )
     if f_total > 65535:
         raise ValueError(f"{f_total} frames exceed the grid limit")
-    piv = torch.cat([pa.reshape(-1), pb.reshape(-1)])
+    # the range check reads host values: pa and pb on the host (the main
+    # path's, from propagation_indices) are checked without a device sync and
+    # copied to the device asynchronously; a device copy is read back once
+    piv = torch.cat([pa.reshape(-1), pb.reshape(-1)]).cpu()
     if piv.numel() and bool(((piv < 0) | (piv >= k)).any()):
         raise IndexError(f"pivot indices must lie in [0, {k})")
+    dev = norm_h.device
     return (
         *(tma_operand(t, contiguous=True) for t in (norm_h, p_hat, kf_attn)),
-        pa.to(torch.int32).contiguous(), pb.to(torch.int32).contiguous(),
+        *(t.to(device=dev, dtype=torch.int32, non_blocking=True).contiguous()
+          for t in (pa, pb)),
         w1.to(torch.float32).contiguous(),
     )
 
@@ -141,14 +157,18 @@ def launch(ops, idx: torch.Tensor, out: torch.Tensor | None, *, split: bool = Fa
     b's in row 1) and the blended rows into ``out``; with ``out`` None the
     indices only (the match timed alone). bf16 tables launch the wgmma
     core through K2's or K3's C entry (one core; K3's takes the two index
-    rows apart), fp32 tables the FFMA core through its one entry. The
+    rows apart), fp32 tables the 3xTF32 core through its one entry. The
     wrappers count their launches."""
     norm_h, p_hat, kf_attn, pa, pb, w1 = ops
     f_total, s, d = norm_h.shape
     ns, k = kf_attn.shape[:2]
     lib = _build.load_library()
+    workspace = ()
     if norm_h.dtype == torch.float32:
         entry, rows = lib.tf_token_match_f32, (idx[0], idx[1])
+        # the split tables (hi and lo parts of norm_h and p_hat)
+        workspace = (torch.empty(lib.tf_token_match_f32_workspace(f_total, k, s, d),
+                                 dtype=torch.uint8, device=norm_h.device),)
     elif split:
         entry, rows = lib.tf_token_match_split, (idx[0], idx[1])
     else:
@@ -158,6 +178,7 @@ def launch(ops, idx: torch.Tensor, out: torch.Tensor | None, *, split: bool = Fa
             norm_h.data_ptr(), p_hat.data_ptr(), kf_attn.data_ptr(), pa.data_ptr(),
             pb.data_ptr(), w1.data_ptr(), *(r.data_ptr() for r in rows),
             None if out is None else out.data_ptr(), ns, f_total, k, s, d,
+            *(w.data_ptr() for w in workspace),
             torch.cuda.current_stream(norm_h.device).cuda_stream,
         )
     _build.check(lib, rc, f"{'K3' if split else 'K2'} {norm_h.dtype} token-match launch")
