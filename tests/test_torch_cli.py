@@ -1,9 +1,11 @@
 """The port's CLIs end to end on the tiny stack on the CPU: preprocess
-(inversion + reconstruction), then the PnP editor, the SDEdit editor (with
-every GroupNorm on the GroupNorm kernel's switch) and the vanilla SDEdit
-baseline, then preprocess and the ControlNet editor on the tiny-controlnet
-stack, in a fresh subprocess that must never import JAX or any module of
-the JAX package. Checks the artifact tree that tests/test_e2e_cli.py
+(inversion + reconstruction), then the PnP editor (exact, with
+``prop_approx: true`` and with ``fused_step: true``, which runs the exact
+two passes), the SDEdit editor
+(with every GroupNorm on the GroupNorm kernel's switch) and the vanilla
+SDEdit baseline, then preprocess and the ControlNet editor on the
+tiny-controlnet stack, in a fresh subprocess that must never import JAX or
+any module of the JAX package. Checks the artifact tree that tests/test_e2e_cli.py
 asserts for the JAX CLIs, that the trajectory reads back through
 tokenflow_tpu.io.latents, the device rules, the config keys the port
 refuses (features it lacks) or ignores (the JAX relay's), that fp32 on a
@@ -64,6 +66,18 @@ SCRIPT = textwrap.dedent(
         yaml.safe_dump(config, f)
     decoded = run_pnp.main(["--config_path", "config_pnp.yaml"])
     out = run_pnp.resolve_output_path(dict(config))["output_path"]
+    variants = {{}}
+    for name, extra in (("approx", dict(prop_approx=True)),
+                        ("fused", dict(fused_step=True))):
+        cfg = dict(config, output_path="results_" + name, **extra)
+        with open(f"config_pnp_{{name}}.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        frames = run_pnp.main(["--config_path", f"config_pnp_{{name}}.yaml"])
+        variants[name] = {{
+            "path": run_pnp.resolve_output_path(dict(cfg))["output_path"],
+            "shape": list(frames.shape), "finite": bool(np.isfinite(frames).all()),
+            "max_diff_exact": float(np.abs(frames.astype(np.float64) - decoded).max()),
+        }}
     sdedit = dict(config, start=0.9, group_norm_kernel=True)
     for k in ("n_inversion_steps", "pnp_attn_t", "pnp_f_t"):
         del sdedit[k]
@@ -90,6 +104,7 @@ SCRIPT = textwrap.dedent(
     print("RESULT " + json.dumps({{
         "save_path": pre["save_path"],
         "output_path": out,
+        "pnp_variants": variants,
         "sdedit_path": run_sdedit.resolve_output_path(dict(sdedit))["output_path"],
         "shape": list(decoded.shape),
         "finite": bool(np.isfinite(decoded).all()),
@@ -166,6 +181,27 @@ def test_pnp_artifacts(run_cli):
     assert pivots.shape == (N_TIMESTEPS, F // 2)
 
 
+@pytest.mark.parametrize("variant", ["approx", "fused"])
+def test_pnp_variant_artifacts(run_cli, variant):
+    """``prop_approx: true`` runs the two passes, source-free propagation,
+    to another output than the exact run's; ``fused_step: true`` runs the
+    exact two passes, to the exact run's output."""
+    root, result = run_cli
+    run = result["pnp_variants"][variant]
+    assert run["shape"] == [F, HW, HW, 3] and run["finite"]
+    out = root / run["path"]
+    assert out.parts[-6].endswith(f"results_{variant}_pnp_SD_tiny")
+    for name in ("img_ode/00000.png", "tokenflow_PnP_fps_10.mp4", "config.yaml",
+                 "metrics.json", "pivots.json"):
+        assert (out / name).exists(), name
+    phases = set(json.loads((out / "metrics.json").read_text())["phases_seconds"])
+    assert {"edit_pivotal", "edit_propagate"} <= phases
+    if variant == "fused":
+        assert run["max_diff_exact"] == 0
+    else:
+        assert run["max_diff_exact"] > 0
+
+
 @pytest.mark.parametrize("vanilla", [False, True])
 def test_sdedit_artifacts(run_cli, vanilla):
     root, result = run_cli
@@ -222,8 +258,7 @@ def _controlnet_base(**kw):
 
 @pytest.mark.parametrize(
     "key,value,item",
-    [("prop_approx", True, "A11"), ("fused_step", True, "A11"),
-     ("checkpoint_edit", True, "A15"), ("checkpoint_every", 5, "A15"),
+    [("checkpoint_edit", True, "A15"), ("checkpoint_every", 5, "A15"),
      ("data_parallel", 2, "A16"), ("data_parallel", "4", "A16"),
      ("shard_pivotal", False, "A16")],
 )
@@ -239,8 +274,9 @@ def test_config_refuses_unported_features(key, value, item):
     [dict(prop_approx=False, fused_step=False, checkpoint_edit=False, checkpoint_every=1),
      dict(data_parallel="auto", shard_pivotal=True), dict(data_parallel="off"),
      dict(data_parallel=1), dict(steps_per_dispatch=5, frames_per_dispatch=8,
-                                 compile_ahead=True)],
-    ids=["defaults", "auto", "off", "one_device", "relay_keys"],
+                                 compile_ahead=True),
+     dict(prop_approx=True), dict(fused_step=True)],
+    ids=["defaults", "auto", "off", "one_device", "relay_keys", "prop_approx", "fused_step"],
 )
 def test_config_accepts_defaults_and_relay_keys(extra):
     common.validate_config(_controlnet_base(**extra), "controlnet")
@@ -267,6 +303,12 @@ def test_f32_cli_turns_tf32_off(run_cli):
     port's fp32 runs take full fp32 products, as the JAX reference does."""
     _, result = run_cli
     assert result["allow_tf32"] == [False, False]
+
+
+@pytest.mark.parametrize("key", ["prop_approx", "fused_step", "group_norm_kernel"])
+def test_config_switches_must_be_booleans(key):
+    with pytest.raises(ValueError, match=f"{key} must be true or false"):
+        common.validate_config(_controlnet_base(**{key: "yes"}), "controlnet")
 
 
 def test_sdedit_config_keys():

@@ -170,29 +170,75 @@ def test_match_f32_verdict_separates_right_from_wrong(mode, fault, passes):
             smoke._match_verdict(*args, kf_max=kf_max)
 
 
+def _two_sites(x, p, kf, pa, pb, w1, moved: bool):
+    """Two propagation sites through ``ops/propagation.token_propagation``
+    on the CPU; with ``moved`` the second site's token 5 of frame 0 is
+    moved onto pivot row 9, so exactly that token matches another row."""
+    from tokenflow_torch.ops import propagation as prop
+
+    for site in range(2):
+        q = x.clone()
+        if moved and site == 1:
+            q[0, 5] = p[pa[0], 9] * 10.0
+        prop.token_propagation(q, p, kf, pa, pb, w1)
+
+
 def test_flipped_matches_counts_each_site():
-    """chip_smoke.py's per-site flip count, which only a small reference
-    past its limit runs: two propagation sites through
-    ``ops/propagation.token_propagation`` on the CPU, the "card" run with
-    the second site's queries moved so that exactly one token matches
-    another row; the sites' functions are restored afterwards."""
+    """chip_smoke.py's per-site flip share, which every small reference
+    reports: two runs' matches recorded by ``record_matches`` at two sites,
+    the "card" run with one token moved at the second; the sites' functions
+    are restored afterwards."""
+    from tokenflow_torch.ops import propagation as prop
+
+    smoke = _chip_smoke()
+    saved = prop.match_gather
+    args = _match_args(f=4, k=2, s=32, d=16)
+    want, got = [], []
+    with smoke.record_matches(want):
+        _two_sites(*args, moved=False)
+    with smoke.record_matches(got):
+        _two_sites(*args, moved=True)
+    assert prop.match_gather is saved
+    flips = smoke.flipped_matches(got, want)
+    share = 1 / (2 * 4 * 32)  # one index of (2, F, S), pa[0] == pb[0]: both rows
+    assert flips[0] == 0.0 and flips[1] == pytest.approx(2 * share)
+
+
+@pytest.mark.parametrize("tie", [True, False], ids=["near_tie", "no_tie"])
+def test_replay_matches_takes_only_near_ties(tie):
+    """chip_smoke.py's fp32 references replay the card's matches into the
+    CPU run: the gathered rows follow the card's index, through the plain
+    version's blend, and each site records its flips' largest similarity
+    gap; a flip between two pivot rows equal to within REF_TIE_TOL passes
+    ``check_ties``, any other flip fails it."""
     from tokenflow_torch.ops import propagation as prop
 
     smoke = _chip_smoke()
     saved = prop.match_gather
     x, p, kf, pa, pb, w1 = _match_args(f=4, k=2, s=32, d=16)
-
-    def run(models, device, dtype):
-        for site in range(2):
-            q = x.clone()
-            if device == "cuda" and site == 1:
-                q[0, 5] = p[pa[0], 9] * 10.0  # token 5 of frame 0 now matches row 9
-            prop.token_propagation(q, p, kf, pa, pb, w1)
-
-    flips = smoke.flipped_matches(run, [], torch.float32, [])
+    p[:, 9] = p[:, 3] * (1 + 1e-7)  # rows 3 and 9 tie to within fp32 rounding
+    p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
+    ref, idx = ttm.token_match_gather_plain(x, p_hat, kf, pa, pb, w1, return_indices=True)
+    card = idx.clone()
+    if tie:
+        card[idx == 3] = 9
+        assert bool((card != idx).any())
+    else:  # another row, no partner of a tie
+        card[0, 0, 0] = next(r for r in range(32) if r not in (int(idx[0, 0, 0]), 3, 9))
+    ties = []
+    with smoke.replay_matches([card], ties):
+        out = prop.token_propagation(x, p, kf, pa, pb, w1)
     assert prop.match_gather is saved
-    share = 1 / (2 * 4 * 32)  # one index of (2, F, S), pa[0] == pb[0]: both rows
-    assert flips[0] == 0.0 and flips[1] == pytest.approx(2 * share)
+    assert len(ties) == 1 and ties[0][0] == int((card != idx).sum())
+    torch.testing.assert_close(out, ttm.gather_blend(kf, card, pa, pb, w1), rtol=0, atol=0)
+    assert not torch.equal(out, ref)
+    if not tie:
+        assert smoke.tie_gap(ties) > smoke.REF_TIE_TOL
+        with pytest.raises(AssertionError, match="no near tie"):
+            smoke.check_ties(ties)
+        return
+    assert smoke.tie_gap(ties) <= smoke.REF_TIE_TOL
+    smoke.check_ties(ties)
 
 
 def _cuda():

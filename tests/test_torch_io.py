@@ -149,6 +149,8 @@ def test_port_imports_nothing_of_the_jax_package():
     line = [l for l in proc.stdout.splitlines() if l.startswith("RESULT ")][-1]
     result = json.loads(line[len("RESULT "):])
     for name in ("cli.run_sdedit", "io.latents", "cli.run_controlnet",
-                 "cli.controlnet_utils", "models.controlnet"):
+                 "cli.controlnet_utils", "models.controlnet", "ops.editctx",
+                 "models.layers", "models.unet2d", "editing.pipeline", "cli.common",
+                 "kernels.token_match", "kernels.token_match_split"):
         assert f"tokenflow_torch.{name}" in result["modules"], name
     assert result["foreign"] == []

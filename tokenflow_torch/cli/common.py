@@ -2,7 +2,12 @@
 outputs) for the port's PnP, SDEdit and ControlNet editors; the counterpart
 of the main-path part of ``tokenflow_tpu/cli/common.py``. Same YAML keys and
 output tree, plus ``group_norm_kernel`` (bool, default false): run every
-UNet and VAE GroupNorm through K4.
+UNet and VAE GroupNorm through K4. ``prop_approx`` (approximate,
+source-free propagation; NON-PARITY) is read from the config only: the JAX
+package's ``TOKENFLOW_PROP_APPROX`` environment fallback has no counterpart
+here. ``fused_step`` is accepted, and the loop runs its two passes all the
+same: the JAX package's single-pass step computes the same maths in one
+UNet call, and the port takes it up once it measures faster on the card.
 
 Keys of JAX features the port does not have yet are refused when set to
 anything but their default (``UNPORTED_KEYS``), so that a config never runs
@@ -58,8 +63,6 @@ def _data_parallel_default(v) -> bool:
 # JAX config keys of features the port lacks: (key, is-default test, the
 # ROADMAP item that ports it). tokenflow_tpu/cli/common.py reads them.
 UNPORTED_KEYS = (
-    ("prop_approx", lambda v: not v, "A11 (prop_approx)"),
-    ("fused_step", lambda v: not v, "A11 (FUSED mode)"),
     ("checkpoint_edit", lambda v: not v, "A15 (checkpoint/resume)"),
     ("checkpoint_every", lambda v: v in (None, 0, 1), "A15 (checkpoint/resume)"),
     ("data_parallel", _data_parallel_default, "A16 (multi-GPU frames sharding)"),
@@ -67,10 +70,14 @@ UNPORTED_KEYS = (
 )
 
 
+# switches that must be YAML booleans
+BOOL_KEYS = ("group_norm_kernel", "prop_approx", "fused_step")
+
+
 def validate_config(config: dict, mode: str) -> dict:
     """Fail fast on missing keys, a bad propagate_chunk, device, dtype or
-    group_norm_kernel, and a key of an unported feature set to anything but
-    its default."""
+    switch (``BOOL_KEYS``), and a key of an unported feature set to anything
+    but its default."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
@@ -92,8 +99,9 @@ def validate_config(config: dict, mode: str) -> dict:
     if config.get("dtype", "bf16") not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}")
     utils.resolve_device(config.get("device", "cuda"))
-    if not isinstance(config.get("group_norm_kernel", False), bool):
-        raise ValueError("group_norm_kernel must be true or false")
+    for key in BOOL_KEYS:
+        if not isinstance(config.get(key, False), bool):
+            raise ValueError(f"{key} must be true or false")
     return config
 
 
@@ -214,12 +222,19 @@ def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
 def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.ndarray,
                   metrics, *, pnp: bool, **loop_kw) -> tuple[torch.Tensor, float]:
     """The TokenFlow edit loop on the editor's data (window ``batch_size``,
-    the config's guidance and ``propagate_chunk``), timed as the
-    ``edit_loop`` phase with its passes as ``edit_pivotal`` and
+    the config's guidance, ``propagate_chunk`` and ``prop_approx``), timed
+    as the ``edit_loop`` phase with its passes as ``edit_pivotal`` and
     ``edit_propagate``; ``loop_kw`` goes to ``tokenflow_sample_loop``.
     Returns (latents, the loop's seconds)."""
     stack, config = data.stack, data.config
     device = stack.device
+    approx = config.get("prop_approx", False)
+    if approx:
+        print("[tokenflow-torch] prop_approx ON: source-free propagation pass "
+              "(NON-PARITY: the output deviates from the exact loop's)")
+    if config.get("fused_step", False):
+        print("[tokenflow-torch] fused_step: two passes a step (the same maths; "
+              "the port has no single-pass step)")
     with device_phase(metrics, "edit_loop", device), utils.Timer() as t_edit:
         latents = pipeline.tokenflow_sample_loop(
             stack.unet_apply,
@@ -233,6 +248,7 @@ def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.n
             pivot_indices=pivots,
             propagate_chunk=config.get("propagate_chunk"),
             phase=lambda name: device_phase(metrics, f"edit_{name}", device),
+            prop_approx=approx,
             **loop_kw,
         )
     return latents, t_edit.seconds

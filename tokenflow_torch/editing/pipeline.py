@@ -1,6 +1,6 @@
 """The TokenFlow edit loop, the counterpart of
-``tokenflow_tpu/editing/pipeline.py`` in its two-pass exact mode, and the
-per-frame SDEdit baseline (:func:`vanilla_sample_loop`).
+``tokenflow_tpu/editing/pipeline.py``, and the per-frame SDEdit baseline
+(:func:`vanilla_sample_loop`).
 
 Per denoising step:
   1. pivotal pass: one UNet call over the keyframes (3-stream
@@ -12,6 +12,8 @@ Per denoising step:
   3. classifier-free guidance and a DDIM step.
 With a ``controlnet_fn``, both passes add ControlNet residuals computed on
 their own batch (the conditioning images of their frames, one per stream).
+``prop_approx`` (NON-PARITY) makes the propagation pass source-free
+([uncond|cond]), and the pivotal pass too without PnP.
 """
 
 from __future__ import annotations
@@ -128,13 +130,20 @@ def tokenflow_sample_loop(
     phase: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext(),
     controlnet_fn: Optional[ControlNetFn] = None,
     cond_image: Optional[torch.Tensor] = None,  # (F, H, W, 3) for controlnet_fn
+    prop_approx: bool = False,
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
     x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
     pass (a timing hook). ``controlnet_fn`` adds its residuals to every UNet
     call: the pivotal pass on ``cond_image[pivots]``, the propagation pass
-    on its chunk's frames, each image repeated for the three streams
-    frame-major (``jnp.repeat(cond, 3, axis=0)`` in the JAX loop)."""
+    on its chunk's frames, each image repeated for the pass's streams
+    frame-major (``jnp.repeat(cond, ns, axis=0)`` in the JAX loop).
+
+    ``prop_approx`` (NON-PARITY, held to the JAX package's approximate
+    loop, not to the exact one): the propagation pass runs [uncond|cond]
+    and matches on uncond; under PnP the pivotal pass stays three-stream
+    and also caches the uncond matching tables and the pivots' source conv
+    features, without PnP it is [uncond|cond] too."""
     f_total = x_init.shape[0]
     n_windows = f_total // window_size
     if n_windows * window_size != f_total:
@@ -152,18 +161,27 @@ def tokenflow_sample_loop(
     # there without a device sync and copy them over asynchronously
     pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f_total, window_size))
     w1 = w1.to(dev)
-    embeds_piv = embeds3.repeat(n_windows, 1, 1)  # frame-major [inv,uncond,cond]
-    embeds_prop = embeds3.repeat(chunk, 1, 1)
+    # stream counts: the propagation pass drops the source under approx; the
+    # pivotal pass too when nothing injects from it (no PnP)
+    n_prop = 2 if prop_approx else 3
+    src_free_piv = prop_approx and not pnp
+    n_piv = 2 if src_free_piv else 3
+    # frame-major [inv, uncond, cond] (or [uncond, cond]) per frame
+    embeds_piv = (embeds3[1:] if src_free_piv else embeds3).repeat(n_windows, 1, 1)
+    embeds_prop = (embeds3[1:] if prop_approx else embeds3).repeat(chunk, 1, 1)
     if (controlnet_fn is None) != (cond_image is None):
         raise ValueError("controlnet_fn and cond_image come together")
 
-    def residuals(sample, t, embeds, cond):
-        """ControlNet residuals of a 3-stream pass (the reference's 3x
+    def residuals(sample, t, embeds, cond, ns):
+        """ControlNet residuals of an ns-stream pass (the reference's 3x
         concat of the conditioning)."""
         if controlnet_fn is None:
             return {}
-        down, mid = controlnet_fn(sample, t, embeds, cond.repeat_interleave(3, dim=0))
+        down, mid = controlnet_fn(sample, t, embeds, cond.repeat_interleave(ns, dim=0))
         return dict(down_block_residuals=down, mid_block_residual=mid)
+
+    def streams(src, x_f, ns):
+        return _stack_streams(x_f, x_f) if ns == 2 else _stack_streams(src, x_f, x_f)
 
     x = x_init
     for i in range(n_steps):
@@ -176,14 +194,15 @@ def tokenflow_sample_loop(
             x_piv = x[piv]
             edit_piv = editctx.UNetEdit(
                 mode=editctx.EditMode.PIVOTAL, n_frames=n_windows, pnp=pnp,
-                qk_gate=qk_g, conv_gate=conv_g,
+                prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
             )
             # the pivot eps is discarded; only the cache matters (reference
             # run_tokenflow_pnp.py:227)
-            sample = _stack_streams(src[piv], x_piv, x_piv)
+            sample = streams(src[piv], x_piv, n_piv)
             _, cache = unet_apply(
                 sample, t, embeds_piv, edit_piv,
-                **residuals(sample, t, embeds_piv, None if cond_image is None else cond_image[piv]),
+                **residuals(sample, t, embeds_piv,
+                            None if cond_image is None else cond_image[piv], n_piv),
             )
 
         with phase("propagate"):
@@ -192,20 +211,21 @@ def tokenflow_sample_loop(
                 sl = slice(c0, c0 + chunk)
                 edit = editctx.UNetEdit(
                     mode=editctx.EditMode.PROPAGATE, n_frames=chunk, pnp=pnp,
-                    qk_gate=qk_g, conv_gate=conv_g, cache=cache,
-                    prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
+                    prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
+                    cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
                 )
-                sample = _stack_streams(src[sl], x[sl], x[sl])
+                sample = streams(src[sl], x[sl], n_prop)
                 eps_c, _ = unet_apply(
                     sample, t, embeds_prop, edit,
                     **residuals(sample, t, embeds_prop,
-                                None if cond_image is None else cond_image[sl]),
+                                None if cond_image is None else cond_image[sl], n_prop),
                 )
-                eps3.append(eps_c.reshape(chunk, 3, *eps_c.shape[1:]))
+                eps3.append(eps_c.reshape(chunk, n_prop, *eps_c.shape[1:]))
             eps3 = torch.cat(eps3)
-            eps = ddim.classifier_free_guidance(
-                eps3[:, 1], eps3[:, 2], guidance_scale
-            )
+            # CFG on streams (1, 2) of [source|uncond|cond], (0, 1) of the
+            # approximate pass's [uncond|cond] (tokenflow_tpu/editing/pipeline.py:476)
+            u, c = (0, 1) if prop_approx else (1, 2)
+            eps = ddim.classifier_free_guidance(eps3[:, u], eps3[:, c], guidance_scale)
             x = ddim.ddim_step(
                 x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
             ).to(x.dtype)

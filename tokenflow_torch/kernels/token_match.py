@@ -36,6 +36,9 @@ from tokenflow_torch.kernels._operands import tma_operand
 launches = 0
 # launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
 launches_by_dtype: dict[str, int] = {}
+# launches by the kf table's stream count (3: [source|uncond|cond], 2: the
+# approximate pass's [uncond|cond]), the same launches as ``launches``
+launches_by_streams: dict[int, int] = {}
 # the table dtypes the match cores are instantiated for
 DTYPES = (torch.bfloat16, torch.float32)
 
@@ -77,19 +80,23 @@ def token_match_gather_plain(
     for f0 in range(0, f_total, _PLAIN_FRAMES):
         sl = slice(f0, f0 + _PLAIN_FRAMES)
         x = xq[sl].float()
-        gathered = []
         for j, p_idx in enumerate((pa[sl], pb[sl])):
             sim = torch.einsum("fsd,fzd->fsz", x, ph[p_idx])
             idx[j, sl] = sim.argmax(dim=-1)  # first maximum, as jnp.argmax
-            table = kf_attn[:, p_idx]  # (ns, f, S, D)
-            gathered.append(
-                torch.gather(
-                    table, 2, idx[j, sl][None, :, :, None].expand(ns, -1, -1, d)
-                ).float()
-            )
-        wf = w[sl][None, :, None, None]
-        out[:, sl] = (wf * gathered[0] + (1 - wf) * gathered[1]).to(kf_attn.dtype)
+        out[:, sl] = gather_blend(kf_attn, idx[:, sl], pa[sl], pb[sl], w[sl])
     return (out, idx) if return_indices else out
+
+
+def gather_blend(kf_attn: torch.Tensor, idx: torch.Tensor, pa: torch.Tensor,
+                 pb: torch.Tensor, w1: torch.Tensor) -> torch.Tensor:
+    """The plain version's gather and blend at given (2, F, S) matched
+    indices: w1 * kf_attn[:, pa][idx[0]] + (1 - w1) * kf_attn[:, pb][idx[1]]
+    in fp32, cast to kf_attn's dtype once; (ns, F, S, D)."""
+    ns, d = kf_attn.shape[0], kf_attn.shape[-1]
+    rows = [torch.gather(kf_attn[:, p.long()], 2, i[None, :, :, None].expand(ns, -1, -1, d))
+            .float() for p, i in ((pa, idx[0]), (pb, idx[1]))]
+    w = w1.float()[None, :, None, None]
+    return (w * rows[0] + (1 - w) * rows[1]).to(kf_attn.dtype)
 
 
 def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
@@ -211,4 +218,5 @@ def token_match_gather_kernel(
     launches += 1
     name = str(out.dtype).removeprefix("torch.")
     launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
+    launches_by_streams[ns] = launches_by_streams.get(ns, 0) + 1
     return (out, idx) if return_indices else out

@@ -30,6 +30,9 @@ from tokenflow_torch.kernels.token_match import (
 launches = 0
 # launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
 launches_by_dtype: dict[str, int] = {}
+# launches by the kf table's stream count (3: [source|uncond|cond], 2: the
+# approximate pass's [uncond|cond]), the same launches as ``launches``
+launches_by_streams: dict[int, int] = {}
 
 # The JAX package's profitability cap for K2 (tokenflow_tpu/kernels/
 # token_match.py:94-96, fits_vmem): a site whose one (ns, S, D) bf16
@@ -101,4 +104,5 @@ def token_match_gather_split_kernel(
     launches += 1
     name = str(out.dtype).removeprefix("torch.")
     launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
+    launches_by_streams[ns] = launches_by_streams.get(ns, 0) + 1
     return (out, ia, ib) if return_indices else out

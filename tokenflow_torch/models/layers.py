@@ -169,8 +169,11 @@ class BasicTransformerBlock(nn.Module):
     modes (tokenflow_tpu/models/layers.py:244-348):
       NONE      standard self-attention;
       PIVOTAL   keyframe extended attention (+ PnP q/k injection); returns
-                the site cache {pivot_h (K,S,C), kf_attn (3,K,S,C)};
+                the site cache {pivot_h (K,S,C), kf_attn (ns,K,S,C)}, and
+                pivot_h_uncond (K,S,C) when the directive asks for it;
       PROPAGATE self-attention replaced by the NN gather from the cache.
+    The stream count of PIVOTAL and PROPAGATE comes from the directive: 3
+    ([source|uncond|cond]) or 2 ([uncond|cond], a source-free pass).
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
@@ -193,23 +196,29 @@ class BasicTransformerBlock(nn.Module):
         if mode == editctx.EditMode.NONE:
             attn_out = self.attn1(h_norm)
         elif mode == editctx.EditMode.PIVOTAL:
-            kf, ns = edit.n_frames, editctx.N_STREAMS
-            q, k, v = self.attn1.qkv(h_norm)
-            q3, k3, v3 = (t.reshape(kf, ns, s, -1).transpose(0, 1) for t in (q, k, v))
+            kf, ns = edit.n_frames, edit.n_streams
+            h3 = h_norm.reshape(kf, ns, s, dim)
+            # projected stream-major, so the cached (ns, K, S, C) kf_attn is
+            # contiguous and its [1:] view reaches the match kernels uncopied
+            q, k, v = self.attn1.qkv(h3.transpose(0, 1).reshape(ns * kf, s, dim))
+            q3, k3, v3 = (t.reshape(ns, kf, s, -1) for t in (q, k, v))
             if edit.qk_inject_site:
                 q3, k3 = inject_source_qk(q3, k3, edit.qk_gate)
-            o3 = extended_attention(
-                q3, k3, v3, heads=self.heads, kv_block=self.kv_block
-            )
-            attn_out = self.attn1.out(o3.transpose(0, 1).reshape(b, s, -1))
+            o3 = extended_attention(q3, k3, v3, heads=self.heads, kv_block=self.kv_block)
+            kf_attn = self.attn1.out(o3.reshape(ns * kf, s, -1)).reshape(ns, kf, s, dim)
+            attn_out = kf_attn.transpose(0, 1).reshape(b, s, dim)
             cache = {
-                # the source stream's normed states drive the NN matching
-                # (reference pivot_hidden_states[0], tokenflow_utils.py:335)
-                "pivot_h": h_norm.reshape(kf, ns, s, dim)[:, 0],
-                "kf_attn": attn_out.reshape(kf, ns, s, dim).transpose(0, 1),
+                # stream 0's normed states drive the NN matching: the source
+                # stream (reference pivot_hidden_states[0],
+                # tokenflow_utils.py:335), or uncond in a source-free pass
+                "pivot_h": h3[:, 0],
+                "kf_attn": kf_attn,
             }
+            if edit.cache_uncond:
+                # the approximate propagation pass's matching table
+                cache["pivot_h_uncond"] = h3[:, 1]
         elif mode == editctx.EditMode.PROPAGATE:
-            f, ns = edit.n_frames, editctx.N_STREAMS
+            f, ns = edit.n_frames, edit.n_streams
             o3 = token_propagation(
                 h_norm.reshape(f, ns, s, dim)[:, 0],
                 edit.pivot_h, edit.kf_attn,
@@ -261,10 +270,14 @@ class Transformer2DModel(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """GN-silu-conv twice with the additive time embedding, and the exact
-    PnP feature injection after conv2 (reference tokenflow_utils.py:86-91:
-    the uncond/cond streams take the source stream; the shortcut is not
-    injected)."""
+    """GN-silu-conv twice with the additive time embedding, and the PnP
+    feature injection after conv2 (reference tokenflow_utils.py:86-91: the
+    uncond/cond streams take the source stream; the shortcut is not
+    injected). With an edit directive the call returns ``(out, cache)``, as
+    the JAX block does (tokenflow_tpu/models/layers.py:440-467): ``cache``
+    is ``{"conv_src": (K, c, h, w)}`` in an approximate PIVOTAL pass, else
+    None; the approximate PROPAGATE pass, source-free, injects the pa/pb
+    blend of those cached pivot features, computed in fp32."""
 
     def __init__(self, in_channels: int, out_channels: int, eps: float = 1e-5,
                  groups: int = 32, temb_channels: Optional[int] = None):
@@ -283,13 +296,28 @@ class ResnetBlock2D(nn.Module):
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         h = self.conv2(self.norm2(h))
-        if edit is not None and edit.gate:
+        cache = None
+        if edit is not None:
             # frame-major batch: (f, ns, ...) view, stream axis 1
-            h3 = h.reshape(edit.n_frames, editctx.N_STREAMS, *h.shape[1:])
-            h = h3[:, :1].expand_as(h3).reshape(h.shape)
+            h3 = h.reshape(edit.n_frames, edit.n_streams, *h.shape[1:])
+            if edit.approx and edit.mode == editctx.EditMode.PROPAGATE:
+                src = None
+                if edit.gate:
+                    w = edit.prop_w1.float()[:, None, None, None]
+                    table = edit.src_cache
+                    src = (w * table[edit.prop_pa.long()].float()
+                           + (1.0 - w) * table[edit.prop_pb.long()].float()).to(h.dtype)
+                    src = src[:, None]
+            else:
+                src = h3[:, :1] if edit.gate else None
+                if edit.approx and edit.mode == editctx.EditMode.PIVOTAL:
+                    cache = {"conv_src": h3[:, 0]}
+            if src is not None:
+                h = src.expand_as(h3).reshape(h.shape)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
-        return x + h
+        out = x + h
+        return out if edit is None else (out, cache)
 
 
 class Downsample2D(nn.Module):

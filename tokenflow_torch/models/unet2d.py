@@ -5,7 +5,8 @@ Public layout is NHWC in and out, as in JAX; the body runs NCHW. Module
 names follow diffusers' ``UNet2DConditionModel`` state-dict keys. The edit
 directive (:class:`tokenflow_torch.ops.editctx.UNetEdit`) fans out to the
 self-attention sites by name (``down_{i}_{j}``, ``mid``, ``up_{i}_{j}``) and
-the PIVOTAL pass returns the per-site cache. ControlNet residuals
+the PIVOTAL pass returns the per-site cache (with the PnP conv site's
+``conv_src`` entry under approximate propagation). ControlNet residuals
 (``down_block_residuals``, ``mid_block_residual``) are added to the skips
 and to the mid block's output, as diffusers' UNet adds them.
 """
@@ -252,7 +253,14 @@ class UNet2DConditionModel(nn.Module):
         for i, block in enumerate(self.up_blocks):
             for j, res in enumerate(block.resnets):
                 h = torch.cat([h, skips.pop()], dim=1)
-                h = res(h, temb, edit.for_conv(f"up_{i}_res_{j}"))
+                conv_site = f"up_{i}_res_{j}"
+                conv_edit = edit.for_conv(conv_site)
+                if conv_edit is None:
+                    h = res(h, temb)
+                else:
+                    h, c = res(h, temb, conv_edit)
+                    if c is not None:
+                        cache[conv_site] = c
                 if len(block.attentions):
                     site = f"up_{i}_{j}"
                     h, c = block.attentions[j](h, context, edit.for_site(site))

@@ -1,13 +1,15 @@
 """Edit-context types: explicit per-call editing state for the UNet.
 
-PyTorch counterpart of ``tokenflow_tpu/ops/editctx.py`` for the exact
-two-pass modes (NONE, PIVOTAL, PROPAGATE). The directives are plain
-dataclasses passed as UNet arguments; the UNet returns the PIVOTAL cache
-instead of stashing it on modules.
+PyTorch counterpart of ``tokenflow_tpu/ops/editctx.py``: the two-pass
+modes (NONE, PIVOTAL, PROPAGATE) and the approximate (source-free)
+propagation of ``UNetEdit.prop_approx``. The directives are plain dataclasses passed as UNet arguments; the UNet returns
+the PIVOTAL cache instead of stashing it on modules.
 
-Batch layout: editing passes run the UNet on ``N_STREAMS * n_frames``
-items laid out FRAME-MAJOR, item i = (frame i // 3, stream i % 3), streams
-[source, uncond, cond] (tokenflow_tpu/ops/editctx.py:7-16).
+Batch layout: editing passes run the UNet on ``n_streams * n_frames``
+items laid out FRAME-MAJOR, item i = (frame i // ns, stream i % ns),
+streams [source, uncond, cond] (tokenflow_tpu/ops/editctx.py:7-16), or
+[uncond, cond] where the pass is source-free. Stream 0 of a batch always
+drives the NN matching.
 """
 
 from __future__ import annotations
@@ -16,9 +18,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-
-
-N_STREAMS = 3  # [source | uncond | cond]
 
 
 class EditMode:
@@ -34,6 +33,12 @@ class BlockEdit:
     mode: str = EditMode.NONE
     n_frames: int = 1
     qk_inject_site: bool = False
+    # streams in this pass's frame-major batch: 3 ([source|uncond|cond]),
+    # or 2 ([uncond|cond]) in a source-free pass
+    n_streams: int = 3
+    # PIVOTAL only: also cache the uncond stream's normed states, the
+    # matching table of the approximate propagation pass
+    cache_uncond: bool = False
     qk_gate: bool = False  # t is in the PnP q/k injection schedule
     pivot_h: Optional[torch.Tensor] = None  # (K, S, D) cached matching states
     kf_attn: Optional[torch.Tensor] = None  # (ns, K, S, D) cached outputs
@@ -44,24 +49,42 @@ class BlockEdit:
 
 @dataclasses.dataclass(frozen=True)
 class ConvEdit:
-    """Directive for the PnP feature-injection resnet site (exact mode: the
+    """Directive for the PnP feature-injection resnet site. Exact mode: the
     uncond/cond streams are overwritten with the source stream after conv2
-    when ``gate`` is set)."""
+    when ``gate`` is set. Approximate mode (``approx``): the PIVOTAL pass
+    also returns the pivots' source conv2 features as ``{"conv_src": (K, c,
+    h, w)}``, and the source-free PROPAGATE pass injects the pa/pb blend of
+    those cached features instead."""
 
     mode: str = EditMode.NONE
     n_frames: int = 1
+    n_streams: int = 3
+    approx: bool = False
     gate: bool = False
+    src_cache: Optional[torch.Tensor] = None  # (K, c, h, w) pivot source conv2
+    prop_pa: Optional[torch.Tensor] = None  # (F,)
+    prop_pb: Optional[torch.Tensor] = None  # (F,)
+    prop_w1: Optional[torch.Tensor] = None  # (F,)
 
 
 @dataclasses.dataclass(frozen=True)
 class UNetEdit:
     """Whole-UNet directive; the UNet fans it out to sites. ``cache`` maps a
-    site name to {"pivot_h", "kf_attn"} and is read in PROPAGATE mode;
-    PIVOTAL mode returns a new cache of that structure."""
+    site name to {"pivot_h", "kf_attn"} (plus "pivot_h_uncond" under PnP
+    approx, and {"conv_src"} at the conv site) and is read in PROPAGATE
+    mode; PIVOTAL mode returns a new cache of that structure.
+
+    ``prop_approx`` (NON-PARITY): the propagation pass drops the source
+    stream and runs [uncond|cond]; it matches on the uncond stream against
+    the pivots' uncond states and, under PnP, injects the blend of the
+    pivots' cached source conv features. Without PnP no stream consumes
+    the source, so the pivotal pass is source-free too and its cache is
+    born two-stream, led by uncond."""
 
     mode: str = EditMode.NONE
     n_frames: int = 1
     pnp: bool = False
+    prop_approx: bool = False
     qk_gate: bool = False
     conv_gate: bool = False
     cache: Optional[dict] = None
@@ -71,13 +94,26 @@ class UNetEdit:
 
     def for_site(self, site: str) -> BlockEdit:
         entry = (self.cache or {}).get(site)
+        approx_prop = self.prop_approx and self.mode == EditMode.PROPAGATE
+        src_free_piv = self.prop_approx and not self.pnp and self.mode == EditMode.PIVOTAL
+        if entry is None:
+            pivot_h = kf_attn = None
+        elif approx_prop and self.pnp:
+            # three-stream pivotal cache: match uncond against uncond, gather
+            # the [uncond|cond] outputs
+            pivot_h, kf_attn = entry["pivot_h_uncond"], entry["kf_attn"][1:]
+        else:
+            # the exact cache, or the source-free one, already two-stream
+            pivot_h, kf_attn = entry["pivot_h"], entry["kf_attn"]
         return BlockEdit(
             mode=self.mode,
             n_frames=self.n_frames,
             qk_inject_site=self.pnp and site in QK_INJECT_SITES,
+            n_streams=2 if (approx_prop or src_free_piv) else 3,
+            cache_uncond=self.prop_approx and self.pnp and self.mode == EditMode.PIVOTAL,
             qk_gate=self.qk_gate,
-            pivot_h=None if entry is None else entry["pivot_h"],
-            kf_attn=None if entry is None else entry["kf_attn"],
+            pivot_h=pivot_h,
+            kf_attn=kf_attn,
             prop_pa=self.prop_pa,
             prop_pb=self.prop_pb,
             prop_w1=self.prop_w1,
@@ -86,7 +122,19 @@ class UNetEdit:
     def for_conv(self, site: str) -> Optional[ConvEdit]:
         if not self.pnp or site != CONV_INJECT_SITE:
             return None
-        return ConvEdit(mode=self.mode, n_frames=self.n_frames, gate=self.conv_gate)
+        entry = (self.cache or {}).get(site)
+        approx_prop = self.prop_approx and self.mode == EditMode.PROPAGATE
+        return ConvEdit(
+            mode=self.mode,
+            n_frames=self.n_frames,
+            n_streams=2 if approx_prop else 3,
+            approx=self.prop_approx,
+            gate=self.conv_gate,
+            src_cache=None if entry is None else entry["conv_src"],
+            prop_pa=self.prop_pa,
+            prop_pb=self.prop_pb,
+            prop_w1=self.prop_w1,
+        )
 
 
 # PnP q/k injection runs on decoder attention blocks 4-11 only (reference

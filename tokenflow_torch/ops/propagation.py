@@ -47,19 +47,20 @@ def propagation_indices(
 
 
 def token_propagation(
-    norm_h_src: torch.Tensor,  # (F, S, D) source-stream normed states
-    pivot_h_src: torch.Tensor,  # (K, S, D) cached pivot states
+    norm_h_src: torch.Tensor,  # (F, S, D) stream-0 normed states
+    pivot_h_src: torch.Tensor,  # (K, S, D) cached pivot states of that stream
     kf_attn: torch.Tensor,  # (ns, K, S, D) cached keyframe outputs
     pa: torch.Tensor,  # (F,)
     pb: torch.Tensor,  # (F,)
     w1: torch.Tensor,  # (F,)
 ) -> torch.Tensor:
     """Gather per-frame attention outputs from the keyframe cache; returns
-    (ns, F, S, D) in kf_attn's dtype. CUDA tensors launch K3 where
-    :func:`use_split` holds (the large-S sites) and K2 elsewhere, with the
-    normalized pivots cast to the query dtype (as the TPU dispatch does,
-    tokenflow_tpu/ops/propagation.py:186-209); CPU tensors run the plain
-    version on fp32 normalized pivots."""
+    (ns, F, S, D) in kf_attn's dtype. Stream 0 is the source stream, or
+    uncond in the approximate pass, whose ns = 2 tables are [uncond|cond].
+    CUDA tensors launch K3 where :func:`use_split` holds (the large-S
+    sites) and K2 elsewhere, with the normalized pivots cast to the query
+    dtype (as the TPU dispatch does, tokenflow_tpu/ops/propagation.py:
+    186-209); CPU tensors run the plain version on fp32 normalized pivots."""
     p = pivot_h_src.float()
     p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
     if norm_h_src.is_cuda:
