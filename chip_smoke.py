@@ -55,7 +55,19 @@ Phases (any failure raises, and the script exits non-zero):
      frames with --sd_version ControlNet, then a 10-step run_controlnet
      edit with 5 pivots; K1 must launch at head dims 40, 80 and 160 and K2
      must launch, K3 and K4 not. Then the same small-input check for the
-     SD-1.5 UNet with the ControlNet's residuals. Each small-input check
+     SD-1.5 UNet with the ControlNet's residuals. Then, counters zeroed
+     again, the depth path at 512^2: a DPT-Large checkpoint with random
+     weights from a seed in HF layout (build/, removed after), preprocess
+     40 frames with --sd_version depth --depth_model_dir (the DPT makes
+     each frame's depth map at 384^2, cached to depth/%05d.npy; SD-2-depth's
+     5-channel UNet, 10 + 10 steps) and a 10-step PnP edit with 5 pivots,
+     then the same edit with prop_approx, the CLIs run with TF32 on around
+     them; K1 (D = 64 only) and K2 must launch, K3 and K4 not; the 40 maps
+     must be finite and not constant, and the CLI's raw map of frame 0
+     within DPT_REL_L2 of the CPU's fp32 run of the same checkpoint (the
+     card's model run with TF32 on printed beside it, a control); the DPT's
+     seconds for the 40 frames. Then the SD-2.1 small-input check's exact
+     mode on the SD-2-depth UNet (5 input channels). Each small-input check
      also runs the card's weights in fp32 (fp32 kernels) against the same
      CPU run, and once more with TF32 on as a control, through one check:
      where a run's matched indices differ from the CPU's, each must be a
@@ -174,6 +186,15 @@ K1_SD15_SHAPES = [
 ]
 # K1's checks end the run if they take longer (a hung kernel)
 K1_PHASE_SECONDS = 420
+# the depth path (SD-2-depth, DPT-Large): this many inversion,
+# reconstruction and edit steps
+DEPTH_STEPS = 10
+# the DPT-Large on the card (fp32, TF32 off) against the CPU's fp32 run:
+# relative L2 of the raw prediction on one 384^2 frame. fp32 sums in another
+# order over 24 layers sit near 1e-6 relative; TF32 products (10-bit
+# mantissa) near 1e-3
+DPT_REL_L2 = 1e-4
+DPT_SEED = 21
 # the fp32 paths' depth: PnP 512^2 (40 frames) with this many inversion,
 # reconstruction and edit steps; SDEdit 768p with F32_SDEDIT_FRAMES frames,
 # this many inversion and reconstruction steps and a schedule of as many
@@ -1327,15 +1348,27 @@ def per_step(pre: dict, after_edit: dict, steps: dict) -> dict:
             for phase, counts in (("inversion+reconstruction", pre), ("edit", edit))}
 
 
+# the PnP 512^2 path's further edits of its latents (run_variant): (name,
+# config keys, the stream count K2 must launch at)
+PNP_VARIANTS = (("pnp_approx", {"prop_approx": True}, 2), ("pnp_exact_again", {}, 3))
+
+
 def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
-                  edit_steps: int = 10) -> dict:
+                  edit_steps: int = 10, sd_version: str = "2.1", pre_args: tuple = (),
+                  variants=None, tag=None) -> dict:
     """PnP at 512^2 with the GroupNorm kernel off, the stack in ``dtype``:
-    K1 and K2 of that dtype must launch and no kernel of the other dtype;
-    K3 (no site past its table size at 512^2) and K4 (off) must not."""
+    K1 (at D = 64 only) and K2 of that dtype must launch and no kernel of
+    the other dtype; K3 (no site past its table size at 512^2) and K4 (off)
+    must not. ``pre_args`` go to preprocess as well; ``variants`` (default:
+    PNP_VARIANTS in bf16, none in fp32) are the further edits of the
+    latents."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_pnp
 
+    if variants is None:
+        variants = PNP_VARIANTS if dtype == "bf16" else ()
+    tag = tag or ("[main path]" if dtype == "bf16" else "[pnp 512 f32]")
     n_frames = 40
     write_frames(root, n_frames, 512)
     cwd = os.getcwd()
@@ -1346,18 +1379,19 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         t0 = time.perf_counter()
         pre = preprocess.main([
             "--data_path", "data/clip", "--H", "512", "--W", "512",
-            "--sd_version", "2.1", "--init", "random", "--dtype", dtype,
+            "--sd_version", sd_version, "--init", "random", "--dtype", dtype,
             "--n_frames", str(n_frames), "--batch_size", str(n_frames),
             "--steps", str(inv_steps), "--save_steps", str(edit_steps),
-            "--device", "cuda",
+            "--device", "cuda", *pre_args,
         ])
         t_pre = time.perf_counter() - t0
         pre_counts = read_counts()
+        peak_pre = torch.cuda.max_memory_allocated()
         config = {
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
             "n_inversion_steps": inv_steps, "n_frames": n_frames,
-            "sd_version": "2.1", "init": "random", "dtype": dtype,
+            "sd_version": sd_version, "init": "random", "dtype": dtype,
             "guidance_scale": 7.5, "n_timesteps": edit_steps,
             "prompt": "a marble sculpture of a woman running",
             "negative_prompt": "ugly, blurry, low res",
@@ -1370,7 +1404,7 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         t_edit = time.perf_counter() - t0
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        counts = read_counts()
+        counts, dims = read_counts(), read_k1_head_dims()
         out_dir = run_pnp.resolve_output_path(dict(config))["output_path"]
         for name in (
             "img_ode/00000.png", "tokenflow_PnP_fps_10.mp4", "vae_recon_10.mp4",
@@ -1387,20 +1421,21 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         with open(os.path.join(out_dir, "metrics.json")) as f:
             metrics = json.load(f)
         exact = _edit_report(out_dir, edit_steps)
-        variants = {}
-        if dtype == "bf16":
-            # the same edit with approximate propagation, and exact once
-            # more: the first edit of the process also pays its shapes' first
-            # calls, so the repeat is the like-for-like reading
-            for name, extra, k2_streams in (("pnp_approx", {"prop_approx": True}, 2),
-                                            ("pnp_exact_again", {}, 3)):
-                variants[name] = run_variant(
-                    run_pnp, config, name, extra, edit_steps,
-                    ("flash_attention", "token_match_gather"),
-                    ("token_match_gather_split", "group_norm") + F32_KERNELS, k2_streams,
-                )
+        # the same edit with approximate propagation, and exact once more:
+        # the first edit of the process also pays its shapes' first calls,
+        # so the repeat is the like-for-like reading
+        variants = {
+            name: run_variant(
+                run_pnp, config, name, extra, edit_steps,
+                ("flash_attention", "token_match_gather"),
+                ("token_match_gather_split", "group_norm") + F32_KERNELS, k2_streams,
+            )
+            for name, extra, k2_streams in variants
+        }
     finally:
         os.chdir(cwd)
+    if set(dims) != {64}:
+        raise AssertionError(f"{tag}: K1 must launch at head dim 64 only, launched {dims}")
     if dtype == "bf16":
         check_launched(counts, "PnP 512^2", ("flash_attention", "token_match_gather"),
                        ("token_match_gather_split", "group_norm") + F32_KERNELS)
@@ -1410,7 +1445,9 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
     ph = metrics["phases_seconds"]
     report = {
         "dtype": dtype,
+        "sd_version": sd_version,
         "launches": counts,
+        "k1_launches_by_head_dim": {str(d): n for d, n in dims.items()},
         "launches_per_step": per_step(
             pre_counts, counts, {"inversion+reconstruction": 2 * inv_steps,
                                  "edit": edit_steps},
@@ -1424,9 +1461,11 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         "edit_loop_seconds": ph["edit_loop"],
         "decode_seconds": ph["decode"],
         "peak_memory_bytes": peak,
+        "peak_memory_preprocess_bytes": peak_pre,
         "reconstruction_psnr": pre["reconstruction_psnr"],
     }
-    tag = "[main path]" if dtype == "bf16" else "[pnp 512 f32]"
+    if "depth_seconds" in pre:
+        report["depth_maps_seconds"] = pre["depth_seconds"]
     if variants:
         report["variants"] = variants
         report["steps_by_variant"] = compare_steps(tag, exact, variants)
@@ -1537,6 +1576,7 @@ def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
         ])
         t_pre = time.perf_counter() - t0
         pre_counts = read_counts()
+        peak_pre = torch.cuda.max_memory_allocated()
         config = {
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
@@ -1840,10 +1880,13 @@ def compare_reference(tag: str, run, card_models, cpu_models) -> dict:
     return result
 
 
-def check_small_reference() -> dict:
+def check_small_reference(sd_version: str = "2.1",
+                          modes=(("exact", 3), ("pnp_approx", 2), ("sdedit_approx", 2)),
+                          ) -> dict:
     """One pivotal and one propagation UNet call of the main path's SD-2.1
-    stack on a small input, through the kernels on the card (bf16, and the
-    same weights in fp32) and through the plain versions on the CPU (an
+    stack (or ``sd_version``'s: SD-2-depth's UNet takes 5 input channels) on
+    a small input, through the kernels on the card (bf16, and the same
+    weights in fp32) and through the plain versions on the CPU (an
     fp32 copy of the same weights, the same bf16-rounded inputs). 2 frames,
     1 window, 40x40 latents: S = 1600 > kv_block, so K1 runs (the source
     stream on strided views) and K2 runs at every site, in each dtype.
@@ -1851,7 +1894,8 @@ def check_small_reference() -> dict:
     weights and activations, relative step 2^-8, over the ~70 layers of
     the UNet, plus NN matches that near-ties flip between the two
     precisions), REF_REL_L2_F32 in fp32, and the fp32 run with TF32
-    on must fail that check. Three modes on the same weights and inputs:
+    on must fail that check. ``modes`` on the same weights and inputs
+    (each with the stream count K2 must launch at), by default three:
     the exact passes; PnP approx (a three-stream pivotal pass that also
     caches the uncond tables and the conv features, then a two-stream
     propagation pass); SDEdit approx (two-stream pivotal and propagation
@@ -1862,16 +1906,16 @@ def check_small_reference() -> dict:
     from tokenflow_torch.ops import editctx
     from tokenflow_torch.ops.propagation import propagation_indices
 
-    stack = runtime.load_stack("2.1", device="cuda", dtype=torch.bfloat16, init="random")
+    stack = runtime.load_stack(sd_version, device="cuda", dtype=torch.bfloat16, init="random")
     cpu_unet = UNet2DConditionModel(stack.unet.config)
     cpu_unet.load_state_dict(
         {k: v.float().cpu() for k, v in stack.unet.state_dict().items()}
     )
     cpu_unet.eval()
     gen = torch.Generator().manual_seed(3)
-    hw, f, t = 40, 2, 801
-    x = torch.randn((3, hw, hw, 4), generator=gen).bfloat16()  # pivot: 3 streams
-    xp = torch.randn((3 * f, hw, hw, 4), generator=gen).bfloat16()
+    hw, f, t, c = 40, 2, 801, stack.unet.config.in_channels
+    x = torch.randn((3, hw, hw, c), generator=gen).bfloat16()  # pivot: 3 streams
+    xp = torch.randn((3 * f, hw, hw, c), generator=gen).bfloat16()
     emb = torch.randn((3, 77, 1024), generator=gen).bfloat16()
     pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f, f))
 
@@ -1906,9 +1950,10 @@ def check_small_reference() -> dict:
             return eps.float().cpu()
         return run
 
+    name = {"2.1": "SD-2.1", "depth": "SD-2-depth"}[sd_version]
     results, failures = {}, []
-    for mode, k2_streams in (("exact", 3), ("pnp_approx", 2), ("sdedit_approx", 2)):
-        result = compare_reference(f"SD-2.1 {mode}", runner(mode), [stack.unet],
+    for mode, k2_streams in modes:
+        result = compare_reference(f"{name} {mode}", runner(mode), [stack.unet],
                                    [cpu_unet])
         for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
             counts = result[name]["launches"]
@@ -2147,6 +2192,119 @@ def check_small_reference_controlnet() -> dict:
     return result
 
 
+def build_dpt_checkpoint(path: str, seed: int = DPT_SEED) -> str:
+    """A DPT-Large state dict in HF layout with random weights from
+    ``seed`` (the port's init scales; the CLS token and position table,
+    zeros in Flax, normal(0.02) as HF initialises them), with the keys HF
+    has and the model never reads, as one fp32 .safetensors file of about
+    1.37 GB at ``path``. Returns ``path``."""
+    from safetensors.torch import save_file
+
+    from tokenflow_torch.models import weights
+    from tokenflow_torch.models.dpt import DPTConfig, DPTDepthModel
+
+    cfg = DPTConfig.dpt_large()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        model = DPTDepthModel(cfg)
+    weights.init_random_(model, gen)
+    with torch.no_grad():
+        for p in (model.dpt.embeddings.cls_token, model.dpt.embeddings.position_embeddings):
+            p.normal_(0.0, 0.02, generator=gen)
+    sd = {k: v.cpu().contiguous() for k, v in model.state_dict().items()}
+    ch = cfg.fusion_hidden_size
+    sd.update({"dpt.layernorm.weight": torch.ones(cfg.hidden_size),
+               "dpt.layernorm.bias": torch.zeros(cfg.hidden_size)})
+    for i in (1, 2):
+        unit = f"neck.fusion_stage.layers.0.residual_layer1.convolution{i}."
+        sd.update({unit + "weight": torch.zeros(ch, ch, 3, 3), unit + "bias": torch.zeros(ch)})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    save_file(sd, path)
+    return path
+
+
+def check_dpt(ckpt: str, data: str, n_frames: int) -> dict:
+    """The depth path's DPT-Large, full width, on the preprocess's frames:
+    the raw map the CLI cached for frame 0 (its DPT run with TF32 on around
+    it, which ``predict_depth`` must turn off) against the CPU's fp32 run of
+    the same checkpoint, within DPT_REL_L2; the card's model called with
+    TF32 on, a control printed beside it; every cached map finite and not
+    constant; and the DPT's seconds for the ``n_frames`` frames (batches of
+    8, fp32, after a warm-up batch) and its peak memory above what was
+    allocated before them."""
+    from tokenflow_torch.io import depth as depth_io
+
+    frames = depth_io.dpt_inputs(data, n_frames)
+    raw = np.stack([np.load(p) for p in depth_io.depth_paths(data, n_frames)])
+    if not np.isfinite(raw).all() or (raw.reshape(n_frames, -1).std(axis=1) == 0).any():
+        raise AssertionError("[dpt] a cached depth map is not finite or is constant")
+    with torch.inference_mode():
+        want = depth_io.load_dpt_model(ckpt, device="cpu")(torch.as_tensor(frames[:1]))[0]
+    want = want.numpy().astype(np.float64)
+    card = depth_io.load_dpt_model(ckpt, device="cuda")
+    with allow_tf32(True), torch.inference_mode():
+        control = card(torch.as_tensor(frames[:1], device="cuda"))[0].cpu().numpy()
+    depth_io.predict_depth(card, frames[:8])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    preds = depth_io.predict_depth(card, frames)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+
+    def rel_l2(got):
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    result = {
+        "rel_l2_cli_tf32_off": rel_l2(raw[0]), "limit": DPT_REL_L2,
+        "rel_l2_tf32_control": rel_l2(control),
+        "rel_l2_predict_depth": rel_l2(preds[0]),
+        "max_abs_err": float(np.abs(raw[0] - want).max()),
+        "raw_range": [float(raw.min()), float(raw.max())],
+        "dpt_seconds": seconds, "frames": n_frames,
+        "dpt_peak_memory_bytes_above_weights": peak,
+        "input": list(frames.shape[1:3]), "layers": card.config.num_layers,
+    }
+    for k, v in result.items():
+        print(f"[dpt] {k}: {v}", flush=True)
+    if not result["rel_l2_cli_tf32_off"] <= DPT_REL_L2:
+        raise AssertionError(f"[dpt] card (TF32 off) vs CPU: rel L2 "
+                             f"{result['rel_l2_cli_tf32_off']} > {DPT_REL_L2}")
+    if rel_l2(preds[0]) > DPT_REL_L2:
+        raise AssertionError(f"[dpt] predict_depth vs CPU: rel L2 {rel_l2(preds[0])}")
+    return result
+
+
+def run_depth_path(root: str) -> dict:
+    """Depth-conditioned PnP at 512^2: a random DPT-Large checkpoint
+    (``build_dpt_checkpoint``, under build/, removed after), preprocess
+    ``--sd_version depth --depth_model_dir`` (40 frames, DEPTH_STEPS
+    inversion and reconstruction steps; the DPT makes the frames' depth maps
+    at 384^2) and a DEPTH_STEPS-step PnP edit with 5 pivots on SD-2-depth's
+    5-channel UNet, bf16, random weights, the CLIs run with TF32 on as a
+    caller might leave it; then the same edit with ``prop_approx``. K1 (D =
+    64 only) and K2 must launch, K3 and K4 not. Then ``check_dpt``."""
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "dpt_large_random", "model.safetensors")
+    try:
+        t0 = time.perf_counter()
+        build_dpt_checkpoint(ckpt)
+        t_ckpt = time.perf_counter() - t0
+        with allow_tf32(True):
+            report = run_main_path(
+                root, inv_steps=DEPTH_STEPS, edit_steps=DEPTH_STEPS, sd_version="depth",
+                pre_args=("--depth_model_dir", ckpt),
+                variants=(("depth_approx", {"prop_approx": True}, 2),), tag="[pnp 512 depth]",
+            )
+        report["checkpoint_seconds"] = t_ckpt
+        report["dpt"] = check_dpt(ckpt, os.path.join(root, "data", "clip"), 40)
+    finally:
+        if os.path.exists(ckpt):
+            os.remove(ckpt)
+    return report
+
+
 def main() -> int:
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -2192,6 +2350,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_controlnet_") as root:
         controlnet = run_controlnet_path(root)
     controlnet["reference"] = check_small_reference_controlnet()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_depth_") as root:
+        depth = run_depth_path(root)
+    depth["reference"] = check_small_reference("depth", modes=(("exact", 3),))
+    print(f"[pnp 512 depth] {card}: " + json.dumps({
+        k: depth[k] for k in (
+            "inversion_seconds_per_step", "reconstruction_seconds_per_step",
+            "edit_pivotal_seconds_per_step", "edit_propagate_seconds_per_step",
+            "decode_seconds", "peak_memory_bytes", "launches_per_step",
+            "depth_maps_seconds")
+    } | {"dpt_seconds_40_frames": depth["dpt"]["dpt_seconds"]}), flush=True)
     # the stack in fp32 (dtype f32): fp32 kernels only, depth cut further
     with tempfile.TemporaryDirectory(prefix="chip_smoke_f32_") as root:
         pnp_f32 = run_main_path(root, "f32", inv_steps=F32_PNP_STEPS,
@@ -2201,9 +2369,9 @@ def main() -> int:
                                      inv_steps=F32_SDEDIT_STEPS,
                                      n_timesteps=F32_SDEDIT_STEPS)
     by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"],
-               "controlnet_512": controlnet["launches"], "pnp_512_f32": pnp_f32["launches"],
-               "sdedit_768_f32": sdedit_f32["launches"]}
-    for path in (report, sdedit, controlnet):  # the approximate edits
+               "controlnet_512": controlnet["launches"], "pnp_512_depth": depth["launches"],
+               "pnp_512_f32": pnp_f32["launches"], "sdedit_768_f32": sdedit_f32["launches"]}
+    for path in (report, sdedit, controlnet, depth):  # the approximate edits
         by_path.update({name: v["launches"] for name, v in path["variants"].items()})
     for entry in kernels:
         entry["launches_by_path"] = {
@@ -2213,7 +2381,8 @@ def main() -> int:
 
     # phase 4: result lines
     print(json.dumps({"main_path": report, "sdedit_path": sdedit,
-                      "controlnet_path": controlnet, "pnp_f32_path": pnp_f32,
+                      "controlnet_path": controlnet, "depth_path": depth,
+                      "pnp_f32_path": pnp_f32,
                       "sdedit_f32_path": sdedit_f32}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)

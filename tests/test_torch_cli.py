@@ -4,8 +4,10 @@
 two passes), the SDEdit editor
 (with every GroupNorm on the GroupNorm kernel's switch) and the vanilla
 SDEdit baseline, then preprocess and the ControlNet editor on the
-tiny-controlnet stack, in a fresh subprocess that must never import JAX or
-any module of the JAX package. Checks the artifact tree that tests/test_e2e_cli.py
+tiny-controlnet stack, then preprocess and the PnP editor (exact and
+``prop_approx``) on the tiny-depth stack with precomputed depth maps, in a
+fresh subprocess that must never import JAX, any module of the JAX package
+or ``transformers``. Checks the artifact tree that tests/test_e2e_cli.py
 asserts for the JAX CLIs, that the trajectory reads back through
 tokenflow_tpu.io.latents, the device rules, the config keys the port
 refuses (features it lacks) or ignores (the JAX relay's), that fp32 on a
@@ -101,6 +103,23 @@ SCRIPT = textwrap.dedent(
     with open("config_controlnet.yaml", "w") as f:
         yaml.safe_dump(cn_config, f)
     cn = run_controlnet.main(["--config_path", "config_controlnet.yaml"])
+    depth_pre = preprocess.main([
+        "--data_path", "data/clip", "--H", "{HW}", "--W", "{HW}",
+        "--sd_version", "tiny-depth", "--init", "random", "--dtype", "f32",
+        "--steps", "{STEPS}", "--save_steps", "{SAVE_STEPS}",
+        "--n_frames", "{F}", "--batch_size", "2",
+        "--inversion_prompt", "a test clip", "--device", "cpu",
+    ])
+    depth_runs = {{}}
+    for name, extra in (("depth", {{}}), ("depth_approx", dict(prop_approx=True))):
+        cfg = dict(config, sd_version="tiny-depth", output_path="results_" + name, **extra)
+        with open(f"config_{{name}}.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        frames = run_pnp.main(["--config_path", f"config_{{name}}.yaml"])
+        depth_runs[name] = {{
+            "path": run_pnp.resolve_output_path(dict(cfg))["output_path"],
+            "shape": list(frames.shape), "finite": bool(np.isfinite(frames).all()),
+        }}
     print("RESULT " + json.dumps({{
         "save_path": pre["save_path"],
         "output_path": out,
@@ -114,11 +133,14 @@ SCRIPT = textwrap.dedent(
         "controlnet_path": run_controlnet.resolve_output_path(dict(cn_config))["output_path"],
         "controlnet_shape": list(cn.shape),
         "controlnet_finite": bool(np.isfinite(cn).all()),
+        "depth_save_path": depth_pre["save_path"],
+        "depth_seconds": depth_pre.get("depth_seconds"),
+        "depth_runs": depth_runs,
         "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
                        torch.backends.cudnn.allow_tf32],
         "jax_loaded": sorted(
             m for m in sys.modules
-            if m.split(".")[0] in ("jax", "flax", "jaxlib", "tokenflow_tpu")
+            if m.split(".")[0] in ("jax", "flax", "jaxlib", "tokenflow_tpu", "transformers")
         ),
     }}))
     """
@@ -130,9 +152,15 @@ def run_cli(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_cli")
     data = root / "data" / "clip"
     data.mkdir(parents=True)
+    (data / "depth").mkdir()
     base = np.random.default_rng(0).integers(40, 210, (HW, HW, 3), dtype=np.uint8)
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:37, 0:41]
     for i in range(F):
         Image.fromarray(np.roll(base, 2 * i, axis=1)).save(data / f"{i:05d}.png")
+        # raw depth maps of another size than the frames (tests/test_e2e_cli.py)
+        np.save(data / "depth" / f"{i:05d}.npy",
+                (yy * 10.0 + xx + rng.random((37, 41)) * 5 + i).astype(np.float32))
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT], cwd=root, env=env,
@@ -248,6 +276,49 @@ def test_controlnet_artifacts(run_cli):
     for name in ("vae_recon", "edit_loop", "edit_pivotal", "edit_propagate", "decode"):
         assert name in metrics["phases_seconds"], name
     assert metrics["device"] == "cpu" and metrics["n_steps"] == N_TIMESTEPS
+
+
+@pytest.mark.parametrize("run", ["depth", "depth_approx"])
+def test_depth_artifacts(run_cli, run):
+    """preprocess --sd_version tiny-depth reads the precomputed maps (no
+    DPT runs), and the PnP editor edits with them, exact and under
+    prop_approx."""
+    root, result = run_cli
+    sp = root / result["depth_save_path"]
+    assert sp.parts[-4:-2] == ("sd_tiny-depth", "clip")
+    assert (sp / "latents" / "trajectory.npz").exists() and (sp / "inverted.mp4").exists()
+    assert result["depth_seconds"] is not None
+    traj = latents_io.load_trajectory(str(sp))
+    assert traj.traj.shape[-1] == 4 and np.isfinite(traj.traj).all()
+    edit = result["depth_runs"][run]
+    assert edit["shape"] == [F, HW, HW, 3] and edit["finite"]
+    out = root / edit["path"]
+    assert out.parts[-6].endswith(f"results_{run}_pnp_SD_tiny-depth")
+    for name in ("img_ode/00000.png", "tokenflow_PnP_fps_10.mp4", "vae_recon_10.mp4",
+                 "input_fps10.mp4", "config.yaml", "metrics.json", "pivots.json"):
+        assert (out / name).exists(), name
+    phases = json.loads((out / "metrics.json").read_text())["phases_seconds"]
+    assert {"edit_pivotal", "edit_propagate", "decode"} <= set(phases)
+
+
+@pytest.mark.parametrize("sd_version", ["depth", "tiny-depth"])
+def test_sdedit_config_refuses_depth(sd_version):
+    """SDEdit refuses the depth models at config time, with the JAX
+    editor's message; PnP takes them."""
+    base = dict.fromkeys(common.REQUIRED_KEYS["base"], 0)
+    base.update(batch_size=2, device="cpu", start=0.9, sd_version=sd_version)
+    with pytest.raises(ValueError, match="SDEdit does not support depth-conditioned models"):
+        common.validate_config(base, "sdedit")
+    pnp = dict(base, n_inversion_steps=8, pnp_attn_t=0.5, pnp_f_t=0.8)
+    common.validate_config(pnp, "pnp")
+
+
+def test_preprocess_names_depth_versions():
+    args = preprocess.build_parser().parse_args(
+        ["--sd_version", "depth", "--depth_model_dir", "ckpt/dpt-large"])
+    assert args.sd_version == "depth" and args.depth_model_dir == "ckpt/dpt-large"
+    assert preprocess.build_parser().parse_args(
+        ["--sd_version", "tiny-depth"]).depth_model_dir is None
 
 
 def _controlnet_base(**kw):

@@ -1,6 +1,7 @@
 """The port's own IO modules against the JAX package's: the same token ids,
-the same trajectory.npz read both ways, the same frames; and no module of
-tokenflow_torch imports JAX or any module of the JAX package.
+the same trajectory.npz read both ways, the same frames, the same
+normalized depth maps; and no module of tokenflow_torch imports JAX, any
+module of the JAX package or ``transformers``.
 """
 
 import json
@@ -14,9 +15,11 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tokenflow_torch.io import depth as tdepth
 from tokenflow_torch.io import latents as tlat
 from tokenflow_torch.io import tokenizer as ttok
 from tokenflow_torch.io import video as tvid
+from tokenflow_tpu.io import depth as jdepth
 from tokenflow_tpu.io import latents as jlat
 from tokenflow_tpu.io import tokenizer as jtok
 from tokenflow_tpu.io import video as jvid
@@ -122,6 +125,21 @@ def test_saved_frames_load_back_alike(tmp_path):
     )
 
 
+@pytest.mark.parametrize("pred_hw,latent_hw", [((37, 41), (8, 8)), ((384, 384), (64, 64)),
+                                               ((6, 6), (16, 12)), ((5, 5), (4, 4))])
+def test_normalize_resize_matches_jax(pred_hw, latent_hw):
+    """The port's copy of the depth maps' bicubic resize and per-frame
+    min-max, bit for bit (a constant map included)."""
+    rng = np.random.default_rng(3)
+    pred = (rng.random(pred_hw) * 30).astype(np.float32)
+    if pred_hw == (5, 5):
+        pred[:] = 2.5
+    got = tdepth._normalize_resize(pred, latent_hw)
+    want = jdepth._normalize_resize(pred, latent_hw)
+    assert got.shape == (*latent_hw, 1) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
 IMPORT_ALL = textwrap.dedent(
     """
     import importlib, json, pkgutil, sys
@@ -133,7 +151,8 @@ IMPORT_ALL = textwrap.dedent(
     print("RESULT " + json.dumps({
         "modules": names,
         "foreign": sorted(m for m in sys.modules
-                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "tokenflow_tpu")),
+                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "tokenflow_tpu",
+                                                 "transformers")),
     }))
     """
 )
@@ -151,6 +170,7 @@ def test_port_imports_nothing_of_the_jax_package():
     for name in ("cli.run_sdedit", "io.latents", "cli.run_controlnet",
                  "cli.controlnet_utils", "models.controlnet", "ops.editctx",
                  "models.layers", "models.unet2d", "editing.pipeline", "cli.common",
-                 "kernels.token_match", "kernels.token_match_split"):
+                 "kernels.token_match", "kernels.token_match_split", "models.dpt",
+                 "io.depth"):
         assert f"tokenflow_torch.{name}" in result["modules"], name
     assert result["foreign"] == []

@@ -8,6 +8,10 @@ package's ``TOKENFLOW_PROP_APPROX`` environment fallback has no counterpart
 here. ``fused_step`` is accepted, and the loop runs its two passes all the
 same: the JAX package's single-pass step computes the same maths in one
 UNet call, and the port takes it up once it measures faster on the card.
+``depth_model_dir`` (an Intel/dpt-large checkpoint) is where a depth model
+(``sd_version: depth``) computes its frames' depth maps when the data has
+none precomputed; the JAX package reads ``TOKENFLOW_MIDAS_CKPT`` instead.
+SDEdit refuses the depth models, as the JAX editor does.
 
 Keys of JAX features the port does not have yet are refused when set to
 anything but their default (``UNPORTED_KEYS``), so that a config never runs
@@ -22,7 +26,7 @@ import dataclasses
 import json
 import os
 from pathlib import Path
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -74,16 +78,29 @@ UNPORTED_KEYS = (
 BOOL_KEYS = ("group_norm_kernel", "prop_approx", "fused_step")
 
 
+def refuse_depth_for_sdedit(sd_version) -> None:
+    """The SDEdit editor has no depth plumbing (nor has the reference's):
+    raises for a depth model."""
+    if runtime.is_depth(sd_version):
+        raise ValueError(
+            "SDEdit does not support depth-conditioned models "
+            f"(sd_version={sd_version!r}); use the PnP editor for "
+            "sd_version='depth'"
+        )
+
+
 def validate_config(config: dict, mode: str) -> dict:
     """Fail fast on missing keys, a bad propagate_chunk, device, dtype or
-    switch (``BOOL_KEYS``), and a key of an unported feature set to anything
-    but its default."""
+    switch (``BOOL_KEYS``), a key of an unported feature set to anything
+    but its default, and a depth model under SDEdit."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
     ]
     if missing:
         raise KeyError(f"config missing required keys for {mode}: {missing}")
+    if mode == "sdedit":
+        refuse_depth_for_sdedit(config["sd_version"])
     pc = config.get("propagate_chunk")
     if pc is not None and pc % config["batch_size"]:
         raise ValueError(
@@ -216,6 +233,21 @@ def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
     return EditorData(
         stack=stack, config=config, frames=frames, latents=latents, eps=eps,
         trajectory=trajectory, embeds3=embeds3,
+    )
+
+
+def load_depth(data: EditorData) -> Optional[torch.Tensor]:
+    """A depth model's per-frame depth maps at the latent size, (F, h, w, 1)
+    on the stack's device (precomputed, else the DPT on the config's
+    ``depth_model_dir``, else torch.hub); None for other models."""
+    config = data.config
+    if not runtime.is_depth(config["sd_version"]):
+        return None
+    from tokenflow_torch.cli.preprocess import load_depth_maps
+
+    return load_depth_maps(
+        config["data_path"], config["n_frames"], data.latents.shape[1:3],
+        model_dir=config.get("depth_model_dir"), device=data.stack.device,
     )
 
 

@@ -10,7 +10,11 @@ reconstructed ``frames/``. ``--device`` is ``cuda`` (default) or ``cpu``,
 ``--dtype`` ``bf16`` (default) or ``f32`` on either. ``--sd_version
 ControlNet`` (and its tiny test stack ``tiny-controlnet``) adds the
 residuals of a canny ControlNet (``--controlnet_dir``, else random weights)
-to every UNet call.
+to every UNet call. ``--sd_version depth`` (and ``tiny-depth``) runs the
+5-channel SD-2-depth UNet with each frame's depth map as the fifth latent
+channel: maps from ``{data_path}/depth/%05d.npy``, else the port's DPT on
+``--depth_model_dir`` (an Intel/dpt-large checkpoint), else MiDaS through
+torch.hub (``tokenflow_torch/io/depth.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from tokenflow_torch import runtime, utils
 from tokenflow_torch.cli import controlnet_utils
 from tokenflow_torch.cli.common import DTYPES
 from tokenflow_torch.diffusion import ddim, inversion
+from tokenflow_torch.io import depth as depth_io
 from tokenflow_torch.io import latents as latents_io
 from tokenflow_torch.io import video as video_io
 
@@ -36,33 +41,53 @@ def build_eps_fn(
     frame_chunk=None,
     controlnet=None,
     canny=None,
+    depth=None,
 ):
     """Conditional-only eps (no CFG during inversion, reference
     preprocess.py:271), over frame chunks of ``frame_chunk`` (the
     reference's frame micro-batching, preprocess.py:203). With a
-    ``controlnet``, its residuals on the per-frame ``canny`` images (chunked
-    together with x) are added to every UNet call (reference
-    preprocess.py:129-149)."""
+    ``controlnet``, its residuals on the per-frame ``canny`` images are
+    added to every UNet call (reference preprocess.py:129-149); per-frame
+    ``depth`` maps (F, h, w, 1) are concatenated to x as a fifth channel in
+    the stack's dtype (reference preprocess.py:207-209). Both chunk together
+    with x."""
 
-    def single(x, t, cn):
+    def single(x, t, cn, d):
         ctx = cond.expand(x.shape[0], *cond.shape[1:])
+        sample = x
+        if d is not None:
+            sample = torch.cat([x.to(stack.dtype), d.to(stack.dtype)], dim=-1)
         residuals = {}
         if controlnet is not None:
-            down, mid = controlnet(x, t, ctx, cn)
+            down, mid = controlnet(sample, t, ctx, cn)
             residuals = dict(down_block_residuals=down, mid_block_residual=mid)
-        eps, _ = stack.unet_apply(x, t, ctx, None, **residuals)
+        eps, _ = stack.unet_apply(sample, t, ctx, None, **residuals)
         return eps
+
+    def part(a, sl):
+        return None if a is None else a[sl]
 
     def eps_fn(x, t):
         f = x.shape[0]
         if not frame_chunk or f <= frame_chunk:
-            return single(x, t, canny)
+            return single(x, t, canny, depth)
         return torch.cat([
-            single(x[i : i + frame_chunk], t, None if canny is None else canny[i : i + frame_chunk])
-            for i in range(0, f, frame_chunk)
+            single(x[sl], t, part(canny, sl), part(depth, sl))
+            for sl in (slice(i, i + frame_chunk) for i in range(0, f, frame_chunk))
         ])
 
     return eps_fn
+
+
+def load_depth_maps(data_path: str, n_frames: int, latent_hw, *, model_dir=None,
+                    device: torch.device | str = "cuda") -> torch.Tensor:
+    """The frames' depth maps at the latent size, (F, h, w, 1) fp32 on
+    ``device`` (``io/depth.py``: precomputed maps, the DPT on
+    ``model_dir``, then torch.hub)."""
+    maps = depth_io.load_or_compute_depth(
+        data_path, n_frames, latent_hw, model_dir=model_dir, device=device
+    )
+    return torch.as_tensor(maps, device=device)
 
 
 def run(opt) -> dict:
@@ -85,15 +110,22 @@ def run(opt) -> dict:
     frames = video_io.load_frames(opt.data_path, opt.n_frames, resize_square=opt.H)
     lat = stack.encode_frames(frames)  # (F, h, w, 4) fp32
     cond = stack.encode_prompt(opt.inversion_prompt, "")[1:2]  # cond only
-    controlnet = canny = None
+    controlnet = canny = depth = None
     if runtime.is_controlnet(opt.sd_version):
         controlnet, canny = controlnet_utils.build_controlnet(
             stack, frames, opt.controlnet_dir, opt.init
         )
+    t_depth = None
+    if runtime.is_depth(opt.sd_version):
+        with utils.Timer() as t_depth:
+            depth = load_depth_maps(opt.data_path, opt.n_frames, lat.shape[1:3],
+                                    model_dir=opt.depth_model_dir, device=device)
+            utils.synchronize(device)
+        print(f"[tokenflow-torch] depth maps: {t_depth.seconds:.1f}s")
 
     sched = ddim.make_schedule(opt.steps)
     frame_chunk = opt.batch_size if opt.batch_size < opt.n_frames else None
-    eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny)
+    eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny, depth)
 
     utils.synchronize(device)
     with utils.Timer() as t_inv:
@@ -111,6 +143,8 @@ def run(opt) -> dict:
     if opt.export_pt:
         latents_io.export_reference_layout(save_path)
     result = {"save_path": save_path, "inversion_seconds": t_inv.seconds}
+    if t_depth is not None:
+        result["depth_seconds"] = t_depth.seconds
     if opt.skip_reconstruction:
         return result
 
@@ -143,6 +177,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--controlnet_dir", type=str, default=None,
         help="diffusers-layout ControlNet directory (sd_version ControlNet)",
+    )
+    p.add_argument(
+        "--depth_model_dir", type=str, default=None,
+        help="Intel/dpt-large checkpoint (directory or weight file) for the "
+             "depth maps of sd_version depth, when data_path has no depth/*.npy",
     )
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--init", choices=["auto", "pretrained", "random"], default="auto")

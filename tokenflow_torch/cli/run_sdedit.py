@@ -44,13 +44,7 @@ def start_noise(config: dict, eps: torch.Tensor) -> torch.Tensor:
 
 
 def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
-    if config["sd_version"] in ("depth", "tiny-depth"):
-        # the reference SDEdit editor has no depth plumbing either
-        raise ValueError(
-            "SDEdit does not support depth-conditioned models "
-            f"(sd_version={config['sd_version']!r}); use the PnP editor for "
-            "sd_version='depth'"
-        )
+    common.refuse_depth_for_sdedit(config["sd_version"])
     generator = utils.seed_everything(config["seed"])
     data = common.setup_editor(config, use_steps_dir=False)
     stack, device = data.stack, data.stack.device

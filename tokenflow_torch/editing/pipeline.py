@@ -13,7 +13,9 @@ Per denoising step:
 With a ``controlnet_fn``, both passes add ControlNet residuals computed on
 their own batch (the conditioning images of their frames, one per stream).
 ``prop_approx`` (NON-PARITY) makes the propagation pass source-free
-([uncond|cond]), and the pivotal pass too without PnP.
+([uncond|cond]), and the pivotal pass too without PnP. With per-frame
+``depth`` maps (the 5-channel depth UNet), every stream of both passes
+carries its frame's map as a fifth channel.
 """
 
 from __future__ import annotations
@@ -114,6 +116,14 @@ def _stack_streams(*streams: torch.Tensor) -> torch.Tensor:
     return torch.stack(streams, dim=1).reshape(-1, *streams[0].shape[1:])
 
 
+def _with_depth(x: torch.Tensor, depth: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (F, h, w, 4) with the frames' depth maps (F, h, w, 1) as a fifth
+    channel, in x's dtype."""
+    if depth is None:
+        return x
+    return torch.cat([x, depth.to(x.dtype)], dim=-1)
+
+
 @torch.inference_mode()
 def tokenflow_sample_loop(
     unet_apply: UNetApply,
@@ -131,6 +141,7 @@ def tokenflow_sample_loop(
     controlnet_fn: Optional[ControlNetFn] = None,
     cond_image: Optional[torch.Tensor] = None,  # (F, H, W, 3) for controlnet_fn
     prop_approx: bool = False,
+    depth: Optional[torch.Tensor] = None,  # (F, h, w, 1) for the depth UNet
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
     x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
@@ -143,7 +154,11 @@ def tokenflow_sample_loop(
     loop, not to the exact one): the propagation pass runs [uncond|cond]
     and matches on uncond; under PnP the pivotal pass stays three-stream
     and also caches the uncond matching tables and the pivots' source conv
-    features, without PnP it is [uncond|cond] too."""
+    features, without PnP it is [uncond|cond] too.
+
+    ``depth`` (the 5-channel depth UNet): each stream's sample carries its
+    frame's map, ``depth[pivots]`` in the pivotal pass and the chunk's maps
+    in the propagation pass."""
     f_total = x_init.shape[0]
     n_windows = f_total // window_size
     if n_windows * window_size != f_total:
@@ -180,8 +195,12 @@ def tokenflow_sample_loop(
         down, mid = controlnet_fn(sample, t, embeds, cond.repeat_interleave(ns, dim=0))
         return dict(down_block_residuals=down, mid_block_residual=mid)
 
-    def streams(src, x_f, ns):
-        return _stack_streams(x_f, x_f) if ns == 2 else _stack_streams(src, x_f, x_f)
+    def streams(src, x_f, ns, d):
+        parts = (x_f, x_f) if ns == 2 else (src, x_f, x_f)
+        return _stack_streams(*(_with_depth(p, d) for p in parts))
+
+    def part(a, sel):
+        return None if a is None else a[sel]
 
     x = x_init
     for i in range(n_steps):
@@ -198,11 +217,10 @@ def tokenflow_sample_loop(
             )
             # the pivot eps is discarded; only the cache matters (reference
             # run_tokenflow_pnp.py:227)
-            sample = streams(src[piv], x_piv, n_piv)
+            sample = streams(src[piv], x_piv, n_piv, part(depth, piv))
             _, cache = unet_apply(
                 sample, t, embeds_piv, edit_piv,
-                **residuals(sample, t, embeds_piv,
-                            None if cond_image is None else cond_image[piv], n_piv),
+                **residuals(sample, t, embeds_piv, part(cond_image, piv), n_piv),
             )
 
         with phase("propagate"):
@@ -214,11 +232,10 @@ def tokenflow_sample_loop(
                     prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
                     cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
                 )
-                sample = streams(src[sl], x[sl], n_prop)
+                sample = streams(src[sl], x[sl], n_prop, part(depth, sl))
                 eps_c, _ = unet_apply(
                     sample, t, embeds_prop, edit,
-                    **residuals(sample, t, embeds_prop,
-                                None if cond_image is None else cond_image[sl], n_prop),
+                    **residuals(sample, t, embeds_prop, part(cond_image, sl), n_prop),
                 )
                 eps3.append(eps_c.reshape(chunk, n_prop, *eps_c.shape[1:]))
             eps3 = torch.cat(eps3)

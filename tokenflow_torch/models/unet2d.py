@@ -53,6 +53,12 @@ class UNet2DConfig:
         return UNet2DConfig()
 
     @staticmethod
+    def sd21_depth() -> "UNet2DConfig":
+        """stabilityai/stable-diffusion-2-depth: SD-2.1 with 5 input channels
+        (4 latent channels and the depth map); eps keeps 4."""
+        return UNet2DConfig(in_channels=5)
+
+    @staticmethod
     def sd15() -> "UNet2DConfig":
         """SD-1.5: 8 heads at every level (head dims 40, 80, 160), 1x1-conv
         projections, CLIP ViT-L context."""

@@ -6,9 +6,10 @@ The port's module names ARE the diffusers / transformers state-dict keys,
 so a local checkpoint loads with ``load_state_dict`` after two legacy
 renames. ``state_dict_from_flax`` turns a JAX parameter tree (numpy leaves)
 back into that state dict, the inverse of
-``tokenflow_tpu/models/weights.py::convert_{unet,vae,clip_text,controlnet}_state_dict``:
+``tokenflow_tpu/models/weights.py::convert_{unet,vae,clip_text,controlnet,dpt}_state_dict``:
 Dense (in, out) -> (out, in), Conv HWIO -> OIHW, norm ``scale`` ->
-``weight``.
+``weight``; the DPT's transposed-conv resize kernels (k, k, in, out) ->
+(in, out, k, k).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from tokenflow_torch.models.dpt import UNREAD_KEYS as DPT_UNREAD_KEYS
 
 # ---------------------------------------------------------------------------
 # diffusers-directory loading
@@ -66,10 +69,16 @@ def normalize_state_dict(sd: dict[str, torch.Tensor], kind: str) -> dict:
     """Drop buffers the port does not keep (position_ids, the CLIP text
     projection) and rename legacy VAE attention keys; 1x1-conv legacy
     attention weights become linear weights. ``kind`` is ``unet``, ``vae``,
-    ``clip_text`` or ``controlnet`` (a diffusers ``ControlNetModel``, whose
-    keys are the port's as they are)."""
+    ``clip_text``, ``controlnet`` (a diffusers ``ControlNetModel``, whose
+    keys are the port's as they are) or ``dpt`` (an HF
+    ``DPTForDepthEstimation``: the keys the model never reads,
+    ``models.dpt.UNREAD_KEYS``, are dropped, and only those)."""
     out = {}
     for key, w in sd.items():
+        if kind == "dpt":
+            if not key.startswith(DPT_UNREAD_KEYS):
+                out[key] = w
+            continue
         if key.endswith("position_ids") or key.startswith("text_projection"):
             continue
         if kind == "vae":
@@ -100,16 +109,22 @@ ZERO_INIT = re.compile(r"^(controlnet_cond_embedding\.conv_out|controlnet_down_b
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Flax default initializers, drawn from ``generator``: lecun-normal
-    (truncated normal, variance 1/fan_in) for Linear and Conv weights, zero
-    biases, unit/zero norms, embeddings normal with std 1/sqrt(width) and
-    the CLIP position table normal(0.01) (tokenflow_tpu/models/*.py); zero
-    weights for the ControlNet projections (``ZERO_INIT``)."""
+    (truncated normal, variance 1/fan_in) for Linear, Conv and transposed
+    Conv weights (the DPT's resize kernels, fan_in in x k x k as Flax
+    counts their (k, k, in, out) kernels), zero biases, unit/zero norms,
+    embeddings normal with std 1/sqrt(width) and the CLIP position table
+    normal(0.01) (tokenflow_tpu/models/*.py); zero weights for the
+    ControlNet projections (``ZERO_INIT``). Bare parameters (the DPT's CLS
+    token and position table, zeros in Flax) are left as they are."""
     for name, m in module.named_modules():
         if isinstance(m, nn.Conv2d) and ZERO_INIT.match(name):
             m.weight.zero_()
             m.bias.zero_()
-        elif isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
+        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
+            else:
+                fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
             nn.init.trunc_normal_(
                 m.weight, std=std, a=-2 * std, b=2 * std, generator=generator
@@ -172,8 +187,33 @@ _CONTROLNET_INV = _UNET_INV + [
     (r"^controlnet_mid\.", r"controlnet_mid_block."),
 ]
 
+_DPT_INV = [
+    (r"^cls_token$", r"dpt.embeddings.cls_token"),
+    (r"^pos_embed$", r"dpt.embeddings.position_embeddings"),
+    (r"^patch_embed\.", r"dpt.embeddings.patch_embeddings.projection."),
+    (r"^block_(\d+)\.norm1\.", r"dpt.encoder.layer.\1.layernorm_before."),
+    (r"^block_(\d+)\.norm2\.", r"dpt.encoder.layer.\1.layernorm_after."),
+    (r"^block_(\d+)\.q\.", r"dpt.encoder.layer.\1.attention.attention.query."),
+    (r"^block_(\d+)\.k\.", r"dpt.encoder.layer.\1.attention.attention.key."),
+    (r"^block_(\d+)\.v\.", r"dpt.encoder.layer.\1.attention.attention.value."),
+    (r"^block_(\d+)\.proj\.", r"dpt.encoder.layer.\1.attention.output.dense."),
+    (r"^block_(\d+)\.fc1\.", r"dpt.encoder.layer.\1.intermediate.dense."),
+    (r"^block_(\d+)\.fc2\.", r"dpt.encoder.layer.\1.output.dense."),
+    (r"^reassemble_(\d+)\.readout\.", r"neck.reassemble_stage.readout_projects.\1.0."),
+    (r"^reassemble_(\d+)\.proj\.", r"neck.reassemble_stage.layers.\1.projection."),
+    (r"^reassemble_(\d+)\.resize\.", r"neck.reassemble_stage.layers.\1.resize."),
+    (r"^reassemble_(\d+)\.resize_bias$", r"neck.reassemble_stage.layers.\1.resize.bias"),
+    (r"^neck_conv_(\d+)\.", r"neck.convs.\1."),
+    (r"^fusion_(\d+)\.proj\.", r"neck.fusion_stage.layers.\1.projection."),
+    (r"^fusion_(\d+)\.res(\d)\.conv(\d)\.",
+     r"neck.fusion_stage.layers.\1.residual_layer\2.convolution\3."),
+    (r"^head_conv1\.", r"head.head.0."),
+    (r"^head_conv2\.", r"head.head.2."),
+    (r"^head_conv3\.", r"head.head.4."),
+]
+
 _RULES = {"unet": _UNET_INV, "vae": _VAE_INV, "clip_text": _CLIP_INV,
-          "controlnet": _CONTROLNET_INV}
+          "controlnet": _CONTROLNET_INV, "dpt": _DPT_INV}
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
@@ -196,13 +236,16 @@ def _torch_leaf(path: str, w: np.ndarray) -> tuple[str, np.ndarray]:
         return f"{head}.weight", w.T  # dense (in, out) -> (out, in)
     if leaf == "scale":
         return f"{head}.weight", w
+    if leaf == "resize_kernel":  # DPT transposed conv (k, k, in, out) -> (in, out, k, k)
+        return f"{head}.resize.weight", w.transpose(2, 3, 0, 1)
     return path, w  # bias, embeddings, position table
 
 
 def state_dict_from_flax(params: dict, kind: str) -> dict[str, torch.Tensor]:
     """JAX parameter tree (``{"params": ...}`` or its inner dict, numpy
-    leaves) of kind ``unet``, ``vae``, ``clip_text`` or ``controlnet`` ->
-    the port's state dict (contiguous CPU tensors, the leaves' dtype)."""
+    leaves) of kind ``unet``, ``vae``, ``clip_text``, ``controlnet`` or
+    ``dpt`` -> the port's state dict (contiguous CPU tensors, the leaves'
+    dtype)."""
     if kind not in _RULES:
         raise ValueError(f"kind must be one of {sorted(_RULES)}, got {kind!r}")
     tree = params.get("params", params)

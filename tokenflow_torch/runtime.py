@@ -30,8 +30,16 @@ MODEL_KEYS = {
     "2.0": "stabilityai/stable-diffusion-2-base",
     "1.5": "runwayml/stable-diffusion-v1-5",
     "ControlNet": "runwayml/stable-diffusion-v1-5",
+    "depth": "stabilityai/stable-diffusion-2-depth",
 }
-SD_VERSIONS = ("1.5", "2.0", "2.1", "ControlNet", "tiny", "tiny-controlnet")
+SD_VERSIONS = ("1.5", "2.0", "2.1", "ControlNet", "depth", "tiny", "tiny-controlnet",
+               "tiny-depth")
+
+
+def is_depth(sd_version: str) -> bool:
+    """Depth-conditioned variants: the 5-channel SD-2-depth UNet (4 latent
+    channels and the frame's depth map), and its tiny test stack."""
+    return sd_version in ("depth", "tiny-depth")
 
 
 def is_controlnet(sd_version: str) -> bool:
@@ -41,10 +49,15 @@ def is_controlnet(sd_version: str) -> bool:
 
 
 def configs_for(sd_version: str):
-    if sd_version in ("tiny", "tiny-controlnet"):
-        return UNet2DConfig.tiny(), AutoencoderKLConfig.tiny(), CLIPTextConfig.tiny()
+    if sd_version in ("tiny", "tiny-controlnet", "tiny-depth"):
+        unet_cfg = UNet2DConfig.tiny()
+        if is_depth(sd_version):
+            unet_cfg = dataclasses.replace(unet_cfg, in_channels=5)
+        return unet_cfg, AutoencoderKLConfig.tiny(), CLIPTextConfig.tiny()
     if sd_version in ("2.1", "2.0"):
         return UNet2DConfig.sd21_base(), AutoencoderKLConfig.sd(), CLIPTextConfig.sd21()
+    if sd_version == "depth":
+        return UNet2DConfig.sd21_depth(), AutoencoderKLConfig.sd(), CLIPTextConfig.sd21()
     if sd_version in ("1.5", "ControlNet"):
         return UNet2DConfig.sd15(), AutoencoderKLConfig.sd(), CLIPTextConfig.sd15()
     raise ValueError(
