@@ -41,8 +41,26 @@ Phases (any failure raises, and the script exits non-zero):
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
      5 pivots; check the output tree, finite frames, that K1 and K2 were
-     launched and that K3 and K4 were not. Then, counters zeroed again,
-     the SDEdit path at 768p
+     launched and that K3 and K4 were not. ``[clip]`` (``check_clip``):
+     a full-width ViT-L/14 CLIP checkpoint in HF layout with random
+     weights from a seed (build/, removed after); the port's
+     ``compare_outputs`` CLI (PSNR, CLIP temporal consistency and score)
+     of that exact edit against its ``prop_approx`` edit on the card, in a
+     subprocess; in this process, the scorer its ``load_scorer`` builds
+     (fp32): the 40 frames' image-feature seconds and peak memory, its
+     metrics equal to the CLI's, its image and text features against
+     ``load_scorer``'s CPU scorer within CLIP_REL_L2, and the card with
+     TF32 on, a control that must read above it; then the port's
+     ``prop_approx_ab`` CLI at its defaults (cuda, SD-2.1, 40 x 512^2,
+     exact then pinned ``prop_approx`` PnP, the report with that
+     checkpoint) in a subprocess. ``[resume]`` (``run_resume_path``): checkpoint/resume
+     through the CLIs in subprocesses at 40 x 512^2 (SD-2.1, bf16):
+     preprocess + run_pnp uninterrupted; preprocess --checkpoint_inversion
+     --then_edit killed at its first inversion checkpoint; the same command
+     again, which must resume the inversion, killed at its first edit
+     checkpoint; run_pnp, which must resume the edit; the resumed
+     trajectory and frames must equal the uninterrupted ones bit for bit.
+     Then, counters zeroed again, the SDEdit path at 768p
      with the GroupNorm kernel on: preprocess 24 frames, an 8-step SDEdit
      edit with 3 pivots and a 2-step --vanilla run; all four kernels must
      launch (K3 at the 96x96 level). The edit runs once more with the
@@ -65,7 +83,7 @@ Phases (any failure raises, and the script exits non-zero):
      them; K1 (D = 64 only) and K2 must launch, K3 and K4 not; the 40 maps
      must be finite and not constant, and the CLI's raw map of frame 0
      within DPT_REL_L2 of the CPU's fp32 run of the same checkpoint (the
-     card's model run with TF32 on printed beside it, a control); the DPT's
+     card's model run with TF32 on, a control that must read above it); the DPT's
      seconds for the 40 frames. Then the SD-2.1 small-input check's exact
      mode on the SD-2-depth UNet (5 input channels). Each small-input check
      also runs the card's weights in fp32 (fp32 kernels) against the same
@@ -195,6 +213,20 @@ DEPTH_STEPS = 10
 # mantissa) near 1e-3
 DPT_REL_L2 = 1e-4
 DPT_SEED = 21
+# the CLIP towers (ViT-L/14 and the 12 x 768 text tower, fp32, TF32 off) on
+# the card against the CPU port's fp32 run: relative L2 of the image
+# features of CLIP_REF_FRAMES frames and of the text features; the same
+# limit as the DPT's, another 24-layer ViT-L in fp32
+CLIP_REL_L2 = 1e-4
+CLIP_SEED = 23
+CLIP_REF_FRAMES = 8
+# the resume path (SD-2.1, 40 x 512^2, bf16): inversion steps, save grid
+# and segment length; edit steps and segment length
+RESUME_INV_STEPS, RESUME_SAVE_STEPS, RESUME_INV_SEGMENT = 20, 10, 4
+RESUME_EDIT_STEPS, RESUME_EDIT_SEGMENT = 10, 2
+# a CLI subprocess (the resume path, the CLIP phase) ends the run if it
+# takes longer
+CLI_SECONDS = 300
 # the fp32 paths' depth: PnP 512^2 (40 frames) with this many inversion,
 # reconstruction and edit steps; SDEdit 768p with F32_SDEDIT_FRAMES frames,
 # this many inversion and reconstruction steps and a schedule of as many
@@ -1463,6 +1495,7 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         "peak_memory_bytes": peak,
         "peak_memory_preprocess_bytes": peak_pre,
         "reconstruction_psnr": pre["reconstruction_psnr"],
+        "output_dir": os.path.join(root, out_dir),
     }
     if "depth_seconds" in pre:
         report["depth_maps_seconds"] = pre["depth_seconds"]
@@ -1522,6 +1555,7 @@ def run_variant(cli, config: dict, name: str, extra: dict, n_steps: int, want: t
         raise AssertionError(f"{name}: K2 must launch at {k2_streams} streams only, "
                              f"launched {k2}")
     report = {
+        "output_dir": os.path.abspath(out_dir),
         "launches": counts,
         "launches_per_step": {n: c / n_steps for n, c in counts.items()},
         "match_launches_by_streams": streams,
@@ -1672,18 +1706,6 @@ def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
 
 
 @contextlib.contextmanager
-def allow_tf32(on: bool):
-    """TF32 products in PyTorch's matmuls and cuDNN's convolutions on or off
-    inside the block; the flags as they were after it."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-@contextlib.contextmanager
 def record_matches(log: list):
     """Inside the block, every propagation site's matched indices ((2, F, S),
     on the CPU) are appended to ``log`` in call order, whichever of K2, K3
@@ -1798,6 +1820,8 @@ def compare_reference(tag: str, run, card_models, cpu_models) -> dict:
     three runs have printed; the caller raises."""
     import copy
 
+    from tokenflow_torch import utils
+
     mods = kernel_modules()
 
     def launches():
@@ -1824,7 +1848,7 @@ def compare_reference(tag: str, run, card_models, cpu_models) -> dict:
     ):
         before = launches()
         got_log = []
-        with allow_tf32(tf32), record_matches(got_log):
+        with utils.tf32(tf32), record_matches(got_log):
             got = run(models, "cuda", dtype)
         after = launches()
         counts = {k: _dtype_delta(before[k], after[k]) for k in after}
@@ -2232,6 +2256,7 @@ def check_dpt(ckpt: str, data: str, n_frames: int) -> dict:
     constant; and the DPT's seconds for the ``n_frames`` frames (batches of
     8, fp32, after a warm-up batch) and its peak memory above what was
     allocated before them."""
+    from tokenflow_torch import utils
     from tokenflow_torch.io import depth as depth_io
 
     frames = depth_io.dpt_inputs(data, n_frames)
@@ -2242,7 +2267,7 @@ def check_dpt(ckpt: str, data: str, n_frames: int) -> dict:
         want = depth_io.load_dpt_model(ckpt, device="cpu")(torch.as_tensor(frames[:1]))[0]
     want = want.numpy().astype(np.float64)
     card = depth_io.load_dpt_model(ckpt, device="cuda")
-    with allow_tf32(True), torch.inference_mode():
+    with utils.tf32(True), torch.inference_mode():
         control = card(torch.as_tensor(frames[:1], device="cuda"))[0].cpu().numpy()
     depth_io.predict_depth(card, frames[:8])  # warm-up
     torch.cuda.synchronize()
@@ -2268,12 +2293,22 @@ def check_dpt(ckpt: str, data: str, n_frames: int) -> dict:
     }
     for k, v in result.items():
         print(f"[dpt] {k}: {v}", flush=True)
-    if not result["rel_l2_cli_tf32_off"] <= DPT_REL_L2:
-        raise AssertionError(f"[dpt] card (TF32 off) vs CPU: rel L2 "
-                             f"{result['rel_l2_cli_tf32_off']} > {DPT_REL_L2}")
+    check_control("[dpt] card (TF32 off) vs CPU", result["rel_l2_cli_tf32_off"],
+                  result["rel_l2_tf32_control"], DPT_REL_L2)
     if rel_l2(preds[0]) > DPT_REL_L2:
         raise AssertionError(f"[dpt] predict_depth vs CPU: rel L2 {rel_l2(preds[0])}")
     return result
+
+
+def check_control(what: str, sound: float, control: float, limit: float) -> None:
+    """An fp32 model's reading against the CPU and its TF32-on control: the
+    sound run must read within ``limit`` and the control above it, so that
+    the check can tell TF32 products from fp32 ones."""
+    if not sound <= limit:
+        raise AssertionError(f"{what}: rel L2 {sound} > {limit}")
+    if not control > limit:
+        raise AssertionError(f"{what}: the TF32-on control reads {control}, within the "
+                             f"limit {limit}: the check cannot tell TF32 from fp32")
 
 
 def run_depth_path(root: str) -> dict:
@@ -2285,13 +2320,15 @@ def run_depth_path(root: str) -> dict:
     5-channel UNet, bf16, random weights, the CLIs run with TF32 on as a
     caller might leave it; then the same edit with ``prop_approx``. K1 (D =
     64 only) and K2 must launch, K3 and K4 not. Then ``check_dpt``."""
+    from tokenflow_torch import utils
+
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "dpt_large_random", "model.safetensors")
     try:
         t0 = time.perf_counter()
         build_dpt_checkpoint(ckpt)
         t_ckpt = time.perf_counter() - t0
-        with allow_tf32(True):
+        with utils.tf32(True):
             report = run_main_path(
                 root, inv_steps=DEPTH_STEPS, edit_steps=DEPTH_STEPS, sd_version="depth",
                 pre_args=("--depth_model_dir", ckpt),
@@ -2303,6 +2340,388 @@ def run_depth_path(root: str) -> dict:
         if os.path.exists(ckpt):
             os.remove(ckpt)
     return report
+
+
+def build_clip_checkpoint(path: str, seed: int = CLIP_SEED) -> str:
+    """An HF ``CLIPModel`` checkpoint directory at ``path`` with
+    openai/clip-vit-large-patch14's geometry (ViT-L/14: 24 x 1024, 16
+    heads, 224^2, patch 14, 257 tokens; the 12 x 768 text tower; 768-wide
+    projections) and random weights from ``seed`` (the port's init scales;
+    the class embedding normal(0.02), as HF initialises it): one fp32
+    model.safetensors of about 1.71 GB under HF's keys, ``position_ids`` and
+    ``logit_scale`` among them; a config.json written out here; and a
+    vocab.json / merges.txt holding CLIP's 512 byte tokens at their ids, no
+    merges and its two special tokens at 49406 / 49407, so that the CLI
+    tokenizes the prompt. Returns ``path``."""
+    from safetensors.torch import save_file
+
+    from tokenflow_torch.io.tokenizer import _bytes_to_unicode
+    from tokenflow_torch.models import weights
+    from tokenflow_torch.models.clip_text import CLIPTextConfig
+    from tokenflow_torch.models.clip_vision import CLIPScorer, CLIPVisionConfig
+
+    vision, text = CLIPVisionConfig.vit_l_14(), CLIPTextConfig.sd15()
+    bos, eos = 49406, 49407
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.device("cuda"):
+        scorer = CLIPScorer(vision, text, eos_token_id=eos)
+    weights.init_random_(scorer, gen)
+    with torch.no_grad():
+        scorer.vision_model.embeddings.class_embedding.normal_(0.0, 0.02, generator=gen)
+    sd = {k: v.cpu().contiguous() for k, v in scorer.state_dict().items()}
+    del scorer
+    n_patches = (vision.image_size // vision.patch_size) ** 2 + 1
+    sd.update({
+        "text_model.embeddings.position_ids":
+            torch.arange(text.max_position_embeddings)[None],
+        "vision_model.embeddings.position_ids": torch.arange(n_patches)[None],
+        "logit_scale": torch.tensor(2.6592),
+    })
+    os.makedirs(path, exist_ok=True)
+    save_file(sd, os.path.join(path, "model.safetensors"))
+    config = {
+        "architectures": ["CLIPModel"], "model_type": "clip",
+        "projection_dim": vision.projection_dim, "logit_scale_init_value": 2.6592,
+        "text_config": {
+            "hidden_size": text.hidden_size, "intermediate_size": text.intermediate_size,
+            "num_attention_heads": text.num_heads, "num_hidden_layers": text.num_layers,
+            "hidden_act": text.hidden_act, "vocab_size": text.vocab_size,
+            "max_position_embeddings": text.max_position_embeddings,
+            "bos_token_id": bos, "eos_token_id": eos, "pad_token_id": 1,
+            "projection_dim": vision.projection_dim,
+        },
+        "vision_config": {
+            "hidden_size": vision.hidden_size,
+            "intermediate_size": vision.intermediate_size,
+            "num_attention_heads": vision.num_heads, "num_hidden_layers": vision.num_layers,
+            "image_size": vision.image_size, "patch_size": vision.patch_size,
+            "hidden_act": vision.hidden_act, "projection_dim": vision.projection_dim,
+        },
+    }
+    chars = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    vocab.update({"<|startoftext|>": bos, "<|endoftext|>": eos})
+    for name, obj in (("config.json", config), ("vocab.json", vocab)):
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(obj, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n")
+    return path
+
+
+def check_clip(root: str, exact_dir: str, approx_dir: str, prompt: str) -> dict:
+    """``[clip]``: a full-width CLIP checkpoint in HF layout
+    (``build_clip_checkpoint``, under build/, removed after); the port's
+    ``compare_outputs`` CLI on it (a subprocess, ``--device cuda``) scores
+    the PnP 512^2 exact edit's frames against its ``prop_approx`` edit's.
+    In this process, the scorer the CLI builds (``load_scorer``, fp32 on the
+    card): the seconds of the 40 frames' image features (after a warm-up
+    batch) and the peak memory above what was allocated before it; its
+    CLIP metrics must agree with the CLI's report to its rounding; its
+    image features of CLIP_REF_FRAMES frames and its text features against
+    ``load_scorer``'s CPU scorer within CLIP_REL_L2, and once more with TF32
+    on around the card's call, a control that must read above that limit.
+    ``[prop_approx_ab]``: the port's ``prop_approx_ab`` CLI at its defaults
+    (cuda, SD-2.1, 40 x 512^2, random weights) with this checkpoint, in a
+    subprocess; its pinned pivots must hold and its report be finite."""
+    import shutil
+
+    from tokenflow_torch import utils
+    from tokenflow_torch.cli import compare_outputs as co
+    from tokenflow_torch.models.clip_vision import preprocess_images
+
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "clip_vit_l_14_random")
+    t_phase = time.perf_counter()
+    try:
+        build_clip_checkpoint(ckpt)
+        t_ckpt = time.perf_counter() - t_phase
+        out = os.path.join(root, "clip_report.json")
+        cli = run_cli(root, [
+            "tokenflow_torch.cli.compare_outputs", os.path.join(exact_dir, "img_ode"),
+            os.path.join(approx_dir, "img_ode"), "--clip_ckpt", ckpt, "--prompt", prompt,
+            "--device", "cuda", "--out", out,
+        ], os.path.join(root, "compare_outputs.log"), tag="[clip]")
+        with open(out) as f:
+            report = json.load(f)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the held SD stack, among others
+        scorer, tok = co.load_scorer(ckpt, "cuda")
+        frames = np.stack(co.load_dir(os.path.join(exact_dir, "img_ode")))
+        co.image_features(scorer, frames[:16])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        co.image_features(scorer, frames)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        here = co.clip_metrics(frames, prompt, scorer, tok)
+
+        ref = frames[:CLIP_REF_FRAMES]
+        ids = np.asarray([tok(p) for p in (prompt, "a photo of a cat", "ugly, blurry, low res")])
+        cpu, _ = co.load_scorer(ckpt, "cpu")
+        want_img = co.image_features(cpu, ref).double()
+        want_txt = co.text_features(cpu, ids).double()
+        del cpu
+        card_img = co.image_features(scorer, ref).double().cpu()
+        card_txt = co.text_features(scorer, ids).double().cpu()
+        with utils.tf32(True), torch.inference_mode():
+            pixels = preprocess_images(torch.as_tensor(ref, device="cuda"))
+            control_img = scorer.image_features(pixels).double().cpu()
+            control_txt = scorer.text_features(
+                torch.as_tensor(ids, dtype=torch.long, device="cuda")).double().cpu()
+        vision_layers = scorer.vision_config.num_layers
+        text_layers = scorer.text_config.num_layers
+        del scorer
+        torch.cuda.empty_cache()
+
+        ab = run_cli(root, ["tokenflow_torch.cli.prop_approx_ab", os.path.join(root, "ab"),
+                            "--clip_ckpt", ckpt], os.path.join(root, "prop_approx_ab.log"),
+                     tag="[prop_approx_ab]")
+        with open(os.path.join(root, "ab", "approx_ab_report.json")) as f:
+            ab_report = json.load(f)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    def rel_l2(got, want):
+        return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+    result = {
+        "report": report, "compare_outputs_cli_seconds": cli["seconds"],
+        "checkpoint_seconds": t_ckpt,
+        "image_features_seconds_40_frames": seconds, "frames": len(frames),
+        "peak_memory_bytes_above_phase_start": peak,
+        "clip_metrics_in_process": here,
+        "rel_l2_image_tf32_off": rel_l2(card_img, want_img),
+        "rel_l2_image_tf32_control": rel_l2(control_img, want_img),
+        "rel_l2_text_tf32_off": rel_l2(card_txt, want_txt),
+        "rel_l2_text_tf32_control": rel_l2(control_txt, want_txt),
+        "limit": CLIP_REL_L2, "reference_frames": CLIP_REF_FRAMES,
+        "vision_layers": vision_layers, "text_layers": text_layers,
+    }
+    result["phase_seconds"] = time.perf_counter() - t_phase - ab["seconds"]
+    for k, v in result.items():
+        print(f"[clip] {k}: {v}", flush=True)
+    result["prop_approx_ab"] = {"report": ab_report, "seconds": ab["seconds"]}
+    print(f"[prop_approx_ab] report: {ab_report}", flush=True)
+    print(f"[prop_approx_ab] seconds: {ab['seconds']}", flush=True)
+    check_control("[clip] image features, card (TF32 off) vs CPU",
+                  result["rel_l2_image_tf32_off"], result["rel_l2_image_tf32_control"],
+                  CLIP_REL_L2)
+    check_control("[clip] text features, card (TF32 off) vs CPU",
+                  result["rel_l2_text_tf32_off"], result["rel_l2_text_tf32_control"],
+                  CLIP_REL_L2)
+    # the CLI and this process read the same checkpoint: the same metrics
+    # up to the report's rounding (4 and 3 decimals)
+    for key, unit in (("clip_temporal_consistency", 1e-4), ("clip_score_mean", 1e-3),
+                      ("clip_score_min", 1e-3)):
+        for name, rep in (("compare_outputs", report), ("prop_approx_ab", ab_report)):
+            if not np.isfinite(rep[key]):
+                raise AssertionError(f"[clip] {name} {key} is not finite: {rep[key]}")
+        if abs(report[key] - here[key]) > unit * 1.01:
+            raise AssertionError(f"[clip] {key}: the CLI reads {report[key]}, this process "
+                                 f"{here[key]}")
+    for name, rep in (("compare_outputs", report), ("prop_approx_ab", ab_report)):
+        if rep["frames_compared"] != len(frames) or not np.isfinite(rep["psnr_mean"]):
+            raise AssertionError(f"[clip] {name}: PSNR report {rep}")
+    return result
+
+
+def run_cli(root: str, args: list, log: str, kill_when: str | None = None,
+            tag: str = "[resume]") -> dict:
+    """One of the port's CLIs (``python -m <args>``) in a subprocess from
+    ``root``, its output to ``log``. With ``kill_when`` (a glob under
+    ``root``), SIGKILL it as soon as a file matches; a run that ends before
+    that is an error, and so is one that takes more than CLI_SECONDS.
+    Returns its seconds, return code, whether it was killed, and its
+    output; ``tag`` names the phase in its errors."""
+    import glob
+    import signal
+
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+               # random-init stacks tokenize with HashTokenizer, which hashes
+               # words with Python's hash(), salted per process: pinned, every
+               # process gives a prompt the same ids, so a checkpoint's token
+               # ids match and a resumed run may take it up
+               PYTHONHASHSEED="0")
+    t0 = time.perf_counter()
+    killed = False
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", *args], cwd=root, env=env,
+                                stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while proc.poll() is None:
+                if kill_when and glob.glob(os.path.join(root, kill_when), recursive=True):
+                    proc.send_signal(signal.SIGKILL)
+                    proc.wait()
+                    killed = True
+                    break
+                if time.perf_counter() - t0 > CLI_SECONDS:
+                    raise AssertionError(f"{tag} {args[0]} ran past {CLI_SECONDS} s")
+                time.sleep(0.02)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(log) as f:
+        text = f.read()
+    seconds = time.perf_counter() - t0
+    if kill_when and not killed:
+        raise AssertionError(f"{tag} {args[0]} ended (rc {proc.returncode}) before "
+                             f"{kill_when} appeared: the kill landed too late\n{text[-3000:]}")
+    if not kill_when and proc.returncode != 0:
+        raise AssertionError(f"{tag} {args[0]} failed, rc {proc.returncode}\n{text[-3000:]}")
+    return {"seconds": seconds, "rc": proc.returncode, "killed": killed, "output": text}
+
+
+def _frames_of(root: str, results: str) -> np.ndarray:
+    """The img_ode/ frames an edit wrote under ``root/results*``, as uint8."""
+    import glob
+
+    from PIL import Image
+
+    (d,) = glob.glob(os.path.join(root, results + "*", "**", "img_ode"), recursive=True)
+    return np.stack([np.asarray(Image.open(p)) for p in sorted(glob.glob(f"{d}/*.png"))])
+
+
+def _trajectory_of(root: str, save_dir: str) -> dict:
+    import glob
+
+    (path,) = glob.glob(os.path.join(root, save_dir, "**", "trajectory.npz"), recursive=True)
+    with np.load(path) as f:
+        return {k: f[k] for k in ("traj", "final")}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max(float(np.abs(a[k].astype(np.float64) - b[k].astype(np.float64)).max())
+               for k in a)
+
+
+def run_resume_path(root: str) -> dict:
+    """``[resume]``: checkpoint/resume through the port's CLIs, each in a
+    subprocess, at 40 x 512^2, SD-2.1, bf16, random weights from a seed:
+    RESUME_INV_STEPS inversion steps (save RESUME_SAVE_STEPS), segments of
+    RESUME_INV_SEGMENT, and a RESUME_EDIT_STEPS-step PnP edit in segments of
+    RESUME_EDIT_SEGMENT with pinned pivots.
+      (a) the uninterrupted reference: preprocess, then run_pnp;
+      (b) preprocess --checkpoint_inversion --then_edit <YAML with
+          checkpoint_edit: true>, SIGKILLed as soon as
+          inversion_checkpoint.npz appears;
+      (c) the same command: it must print the inversion's resume line, and
+          is SIGKILLed as soon as edit_checkpoint.npz appears;
+      (d) run_pnp on the same YAML: it must print the edit's resume line.
+    (c)'s trajectory and (d)'s frames must equal (a)'s bit for bit, and no
+    checkpoint may remain. If they differ, a second uninterrupted
+    reference measures how far two processes differ, and the resumed run
+    is held to that."""
+    import yaml
+
+    write_frames(root, 40, 512)
+    rng = np.random.default_rng(5)
+    window = 8
+    pivots = (rng.integers(0, window, (RESUME_EDIT_STEPS, 40 // window))
+              + np.arange(0, 40, window)).tolist()
+
+    def pre_args(save_dir):
+        return ["tokenflow_torch.cli.preprocess", "--data_path", "data/clip",
+                "--H", "512", "--W", "512", "--sd_version", "2.1", "--init", "random",
+                "--dtype", "bf16", "--n_frames", "40", "--batch_size", "40",
+                "--steps", str(RESUME_INV_STEPS), "--save_steps", str(RESUME_SAVE_STEPS),
+                "--device", "cuda", "--skip_reconstruction", "--save_dir", save_dir]
+
+    def edit_config(name, save_dir, **kw):
+        cfg = {
+            "seed": 1, "device": "cuda", "output_path": f"results_{name}",
+            "data_path": "data/clip", "latents_path": save_dir,
+            "n_inversion_steps": RESUME_INV_STEPS, "n_frames": 40, "sd_version": "2.1",
+            "init": "random", "dtype": "bf16", "guidance_scale": 7.5,
+            "n_timesteps": RESUME_EDIT_STEPS,
+            "prompt": "a marble sculpture of a woman running",
+            "negative_prompt": "ugly, blurry, low res", "batch_size": window,
+            "pnp_attn_t": 0.5, "pnp_f_t": 0.8, "pivot_indices": pivots, **kw,
+        }
+        path = os.path.join(root, f"config_{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        return os.path.basename(path)
+
+    def log(name):
+        return os.path.join(root, f"{name}.log")
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref_yaml = edit_config("ref", "latents_ref")
+    ck_yaml = edit_config("ck", "latents_ck", checkpoint_edit=True,
+                          steps_per_dispatch=RESUME_EDIT_SEGMENT)
+    ck_pre = pre_args("latents_ck") + [
+        "--checkpoint_inversion", "--steps_per_dispatch", str(RESUME_INV_SEGMENT),
+        "--then_edit", ck_yaml]
+    runs = {
+        "a_preprocess": run_cli(root, pre_args("latents_ref"), log("a_preprocess")),
+        "a_run_pnp": run_cli(root, ["tokenflow_torch.cli.run_pnp", "--config_path", ref_yaml],
+                             log("a_run_pnp")),
+        "b_killed_in_inversion": run_cli(root, ck_pre, log("b"),
+                                         kill_when="latents_ck/**/inversion_checkpoint.npz"),
+        "c_resumed_inversion_killed_in_edit": run_cli(
+            root, ck_pre, log("c"), kill_when="results_ck*/**/edit_checkpoint.npz"),
+        "d_resumed_edit": run_cli(root, ["tokenflow_torch.cli.run_pnp", "--config_path",
+                                         ck_yaml], log("d")),
+    }
+    lines = {name: [line for line in r["output"].splitlines() if "resuming at segment" in line]
+             for name, r in runs.items()}
+    for name, r in runs.items():
+        print(f"[resume] {name}: {r['seconds']:.2f} s, rc {r['rc']}, killed {r['killed']}, "
+              f"resume lines {lines[name]}", flush=True)
+    inv_line = [x for x in lines["c_resumed_inversion_killed_in_edit"]
+                if "inversion_checkpoint.npz" in x]
+    edit_line = [x for x in lines["d_resumed_edit"] if "edit_checkpoint.npz" in x]
+    if not inv_line:
+        raise AssertionError("[resume] (c) did not resume the inversion")
+    if not edit_line:
+        raise AssertionError("[resume] (d) did not resume the edit")
+    if lines["b_killed_in_inversion"] or lines["a_preprocess"] or lines["a_run_pnp"]:
+        raise AssertionError(f"[resume] a run resumed that had nothing to resume: {lines}")
+
+    traj_ref, traj_ck = _trajectory_of(root, "latents_ref"), _trajectory_of(root, "latents_ck")
+    frames_ref, frames_ck = _frames_of(root, "results_ref"), _frames_of(root, "results_ck")
+    result = {
+        "inversion_resume_line": inv_line[0], "edit_resume_line": edit_line[0],
+        "seconds": {name: r["seconds"] for name, r in runs.items()},
+        "trajectory_bitwise_equal": all(np.array_equal(traj_ref[k], traj_ck[k])
+                                        for k in traj_ref),
+        "frames_bitwise_equal": np.array_equal(frames_ref, frames_ck),
+        "trajectory_max_abs_diff": _max_diff(traj_ref, traj_ck),
+        "frames_max_abs_diff": _max_diff({"f": frames_ref}, {"f": frames_ck}),
+        "frames": list(frames_ck.shape),
+    }
+    import glob
+
+    left = glob.glob(os.path.join(root, "**", "*checkpoint*.npz"), recursive=True)
+    if left:
+        raise AssertionError(f"[resume] checkpoints remain: {left}")
+    if not (result["trajectory_bitwise_equal"] and result["frames_bitwise_equal"]):
+        # how far two uninterrupted runs in separate processes differ
+        run_cli(root, pre_args("latents_ref2"), log("a2_preprocess"))
+        run_cli(root, ["tokenflow_torch.cli.run_pnp", "--config_path",
+                       edit_config("ref2", "latents_ref2")], log("a2_run_pnp"))
+        result["reference_repeat_trajectory_max_abs_diff"] = _max_diff(
+            traj_ref, _trajectory_of(root, "latents_ref2"))
+        result["reference_repeat_frames_max_abs_diff"] = _max_diff(
+            {"f": frames_ref}, {"f": _frames_of(root, "results_ref2")})
+    result["phase_seconds"] = time.perf_counter() - t_phase
+    for k, v in result.items():
+        print(f"[resume] {k}: {v}", flush=True)
+    if not (result["trajectory_bitwise_equal"] and result["frames_bitwise_equal"]):
+        if (result["trajectory_max_abs_diff"]
+                > result["reference_repeat_trajectory_max_abs_diff"]
+                or result["frames_max_abs_diff"] > result["reference_repeat_frames_max_abs_diff"]):
+            raise AssertionError("[resume] the resumed run differs from the uninterrupted one "
+                                 "by more than two uninterrupted runs differ")
+    return result
 
 
 def main() -> int:
@@ -2344,6 +2763,11 @@ def main() -> int:
     # just before it and read just after
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         report = run_main_path(root)
+        clip = check_clip(root, report["output_dir"],
+                          report["variants"]["pnp_approx"]["output_dir"],
+                          "a marble sculpture of a woman running")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as root:
+        resume = run_resume_path(root)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sdedit_") as root:
         sdedit = run_sdedit_path(root)
     report["reference"] = check_small_reference()
@@ -2383,7 +2807,8 @@ def main() -> int:
     print(json.dumps({"main_path": report, "sdedit_path": sdedit,
                       "controlnet_path": controlnet, "depth_path": depth,
                       "pnp_f32_path": pnp_f32,
-                      "sdedit_f32_path": sdedit_f32}), flush=True)
+                      "sdedit_f32_path": sdedit_f32, "clip": clip,
+                      "resume": resume}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({

@@ -2,11 +2,17 @@
 synthetic tiny checkpoint of tests/test_pretrained_load.py (diffusers keys,
 a transformers CLIPTextModel state dict, a BPE tokenizer) loads strictly
 into the port's modules, and the port's text encoder matches transformers'
-CLIPTextModel on the same weights.
+CLIPTextModel on the same weights. A copy whose config.json disagrees with
+the preset in a key no weight shape carries is refused before any weight
+loads, with the JAX package's mismatch lines.
 
 Tolerance: fp32 on both sides, atol 1e-5 (same ops, different kernels).
 """
 
+import json
+import shutil
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +21,7 @@ transformers = pytest.importorskip("transformers")
 
 from test_pretrained_load import ckpt_dir  # noqa: E402,F401  (fixture)
 from tokenflow_torch import runtime  # noqa: E402
+from tokenflow_tpu import runtime as jax_runtime  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -48,3 +55,32 @@ def test_pretrained_without_checkpoint_raises(tmp_path):
         runtime.load_stack(
             "tiny", device="cpu", model_dir=str(tmp_path / "none"), init="pretrained"
         )
+
+
+@pytest.mark.parametrize(
+    "component,key,value",
+    [("unet", "cross_attention_dim", 768), ("text_encoder", "hidden_act", "quick_gelu"),
+     ("unet", "attention_head_dim", 8), ("vae", "scaling_factor", 0.5)],
+    ids=["cross_attention_dim", "hidden_act", "attention_head_dim", "scaling_factor"],
+)
+def test_checkpoint_config_mismatch_refused_as_jax(ckpt_dir, tmp_path, component, key,
+                                                   value):  # noqa: F811
+    """C1: a checkpoint whose config.json disagrees with the sd_version
+    preset is refused by the port's ``load_stack`` with the ValueError, and
+    the mismatch lines, of ``tokenflow_tpu.runtime.load_stack`` on the same
+    directory."""
+    root, _ = ckpt_dir
+    bad = tmp_path / "wrong_cfg"
+    shutil.copytree(root, bad)
+    cfg_path = bad / component / "config.json"
+    cfg = json.loads(cfg_path.read_text())
+    cfg[key] = value
+    cfg_path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError) as want:
+        jax_runtime.load_stack("tiny", model_dir=str(bad), init="pretrained",
+                               dtype=jnp.float32, param_dtype=jnp.float32)
+    with pytest.raises(ValueError) as got:
+        runtime.load_stack("tiny", device="cpu", model_dir=str(bad), dtype=torch.float32,
+                           init="pretrained")
+    assert f"{component}: {key}: checkpoint={value!r}" in str(got.value)
+    assert str(got.value) == str(want.value)

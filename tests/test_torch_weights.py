@@ -111,7 +111,7 @@ def test_state_dict_from_flax_accepts_the_variables_dict():
     b = tw.state_dict_from_flax({"params": params}, "vae")
     assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError):
-        tw.state_dict_from_flax(params, "clip_vision")  # not ported yet (ROADMAP A14)
+        tw.state_dict_from_flax(params, "no_such_kind")
 
 
 def test_normalize_state_dict_renames_legacy_vae_attention():

@@ -15,11 +15,21 @@ to every UNet call. ``--sd_version depth`` (and ``tiny-depth``) runs the
 channel: maps from ``{data_path}/depth/%05d.npy``, else the port's DPT on
 ``--depth_model_dir`` (an Intel/dpt-large checkpoint), else MiDaS through
 torch.hub (``tokenflow_torch/io/depth.py``).
+
+``--checkpoint_inversion`` writes the inversion's carry to
+``<save_path>/inversion_checkpoint.npz`` at segment boundaries
+(``--steps_per_dispatch`` steps each, every ``--checkpoint_every``-th) and
+resumes a matching interrupted run from it; the segments compute what one
+loop computes. ``--then_edit <yaml>`` runs the editor that the YAML names
+(PnP, SDEdit or ControlNet, inferred before the inversion starts) in this
+process afterwards, on the same held model stack.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
 from pathlib import Path
 
@@ -27,6 +37,7 @@ import numpy as np
 import torch
 
 from tokenflow_torch import runtime, utils
+from tokenflow_torch.cli import common as cli_common
 from tokenflow_torch.cli import controlnet_utils
 from tokenflow_torch.cli.common import DTYPES
 from tokenflow_torch.diffusion import ddim, inversion
@@ -90,6 +101,58 @@ def load_depth_maps(data_path: str, n_frames: int, latent_hw, *, model_dir=None,
     return torch.as_tensor(maps, device=device)
 
 
+def _inversion_fingerprint(opt, slices: list, identity: dict) -> str:
+    """Identity of an inversion run for checkpoint/resume: the JAX keys
+    (``tokenflow_tpu/cli/preprocess.py::_inversion_fingerprint``) and the
+    segment lengths, plus the port's ``dtype`` and ``group_norm_kernel`` and
+    the stack's ``identity`` (weights and the prompt's token ids,
+    ``cli_common.stack_identity``), so that a checkpoint never seeds a run
+    of another schedule, prompt, geometry, weights or numerics."""
+    ident = {
+        k: getattr(opt, k, None)
+        for k in (
+            "sd_version", "inversion_prompt", "steps", "save_steps",
+            "n_frames", "H", "W", "batch_size", "steps_per_dispatch",
+            "data_path", "dtype", "group_norm_kernel",
+        )
+    }
+    ident["segment_steps"] = [s.stop - s.start for s in slices]
+    ident.update(identity)
+    return hashlib.sha256(json.dumps(ident, sort_keys=True).encode()).hexdigest()
+
+
+def infer_editor_family(cfg: dict, config_path: str) -> str:
+    """The editor a stage-2 config is for: ``pnp_attn_t`` -> PnP, ``start``
+    -> SDEdit, a ControlNet ``sd_version`` -> ControlNet
+    (``tokenflow_tpu/cli/preprocess.py::infer_editor_family``); anything
+    else raises ValueError, so ``--then_edit`` fails before the inversion."""
+    if "pnp_attn_t" in cfg:
+        return "pnp"
+    if "start" in cfg:
+        return "sdedit"
+    if runtime.is_controlnet(cfg.get("sd_version", "")):
+        return "controlnet"
+    raise ValueError(
+        f"--then_edit: cannot infer the editor family from {config_path!r} "
+        "(expected a pnp_attn_t, start, or ControlNet sd_version key)"
+    )
+
+
+def run_then_edit(config_path: str, family: str):
+    """``--then_edit``: the stage-2 editor of ``family`` on ``config_path``,
+    in this process, after preprocess (``runtime.load_stack`` holds the
+    stack, so an editor of the same sd_version, dtype and init reuses its
+    weights). Returns the editor's decoded frames."""
+    if family == "pnp":
+        from tokenflow_torch.cli import run_pnp as editor
+    elif family == "sdedit":
+        from tokenflow_torch.cli import run_sdedit as editor
+    else:
+        from tokenflow_torch.cli import run_controlnet as editor
+    print(f"[tokenflow-torch] --then_edit: running {editor.__name__}")
+    return editor.main(["--config_path", config_path])
+
+
 def run(opt) -> dict:
     utils.seed_everything(1)  # reference seeds 1 (preprocess.py:303)
     device = utils.resolve_device(opt.device)
@@ -127,9 +190,32 @@ def run(opt) -> dict:
     frame_chunk = opt.batch_size if opt.batch_size < opt.n_frames else None
     eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny, depth)
 
+    # segments: checkpoint boundaries only (one segment without a checkpoint)
+    seg_len = utils.plan_seg_len(
+        opt.steps, opt.steps_per_dispatch if opt.checkpoint_inversion else 0
+    )
+    slices = utils.segment_slices(opt.steps, seg_len)
+    if len(slices) > 1:
+        print(f"[tokenflow-torch] inversion in {len(slices)} segments of <= {seg_len} steps")
+    ck = cli_common.SegmentCheckpointer(
+        os.path.join(save_path, "inversion_checkpoint.npz"),
+        _inversion_fingerprint(opt, slices,
+                               cli_common.stack_identity(stack, opt.inversion_prompt)),
+        opt.checkpoint_inversion,
+        every=opt.checkpoint_every,
+    )
     utils.synchronize(device)
     with utils.Timer() as t_inv:
-        x_T, traj, save_ts = inversion.ddim_inversion(eps_fn, lat, sched, opt.save_steps)
+        traj = torch.zeros((opt.save_steps, *lat.shape), dtype=lat.dtype, device=device)
+        start, (x_T, traj) = ck.resume((lat, traj), len(slices))
+        for i, steps in enumerate(slices):
+            if i < start:
+                continue
+            x_T, traj, save_ts = inversion.ddim_inversion(
+                eps_fn, lat, sched, opt.save_steps, steps=steps, carry=(x_T, traj)
+            )
+            ck.save(i, len(slices), (x_T, traj))
+        ck.done()
         utils.synchronize(device)
     print(f"[tokenflow-torch] inversion ({opt.steps} steps): {t_inv.seconds:.1f}s")
 
@@ -198,15 +284,47 @@ def build_parser() -> argparse.ArgumentParser:
         "--group_norm_kernel", action="store_true",
         help="run every UNet and VAE GroupNorm through the GroupNorm kernel",
     )
+    p.add_argument(
+        "--steps_per_dispatch", type=int, default=0,
+        help="with --checkpoint_inversion, the inversion's segment length in "
+        "steps: where a checkpoint can fall (the same maths). 0 = one segment",
+    )
+    p.add_argument(
+        "--checkpoint_inversion", action="store_true",
+        help="write the inversion carry to "
+        "<save_path>/inversion_checkpoint.npz at dispatch boundaries and "
+        "resume a matching interrupted run from it (exact: segments are "
+        "scan splits). Sized by the save grid; forces a host sync per "
+        "dispatch",
+    )
+    p.add_argument(
+        "--checkpoint_every", type=int, default=1,
+        help="with --checkpoint_inversion, persist the carry only every "
+        "Nth dispatch boundary (each write is a host sync + ~0.9 GB npz "
+        "at 120-frame 768p scale); resume restarts from the last saved "
+        "boundary, bitwise",
+    )
+    p.add_argument(
+        "--then_edit", type=str, default=None,
+        help="path to a stage-2 editor YAML (PnP, SDEdit or ControlNet, "
+        "inferred from its keys before the inversion): run that editor in "
+        "this process after preprocess, on the same model stack",
+    )
     return p
 
 
 def main(argv=None) -> dict:
     opt = build_parser().parse_args(argv)
+    family = None
+    if opt.then_edit:  # a wrong stage-2 config fails now, not after the inversion
+        family = infer_editor_family(cli_common.load_config(opt.then_edit), opt.then_edit)
     if opt.data_path.endswith((".mp4", ".mov", ".avi")):
         video_io.video_to_frames(opt.data_path, img_size=(opt.W, opt.H))
         opt.data_path = os.path.join("data", Path(opt.data_path).stem)
-    return run(opt)
+    result = run(opt)
+    if family is not None:
+        run_then_edit(opt.then_edit, family)
+    return result
 
 
 if __name__ == "__main__":

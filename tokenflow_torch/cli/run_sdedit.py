@@ -10,7 +10,8 @@ encoding and output tree as ``tokenflow_tpu/cli/run_sdedit.py``.
 ``--vanilla`` runs the per-frame SDEdit baseline instead (no TokenFlow),
 writing ``img_ode_vanilla_sde/`` and ``vanilla_sde*.mp4``. ``device`` is
 ``cuda`` (default) or ``cpu``; ``group_norm_kernel: true`` runs every
-GroupNorm through K4.
+GroupNorm through K4. ``checkpoint_edit`` checkpoints both loops
+(``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -62,11 +63,17 @@ def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
     out = config["output_path"]
 
     if vanilla:
-        with common.device_phase(metrics, "edit_loop", device), utils.Timer() as t_edit:
-            latents_out = pipeline.vanilla_sample_loop(
-                stack.unet_apply, x_init, data.embeds3[1:], schedule,
+        def step_fn(x, sched_seg, _piv):
+            return pipeline.vanilla_sample_loop(
+                stack.unet_apply, x, data.embeds3[1:], sched_seg,
                 guidance_scale=config["guidance_scale"],
                 frame_chunk=config["batch_size"],
+            )
+
+        with common.device_phase(metrics, "edit_loop", device), utils.Timer() as t_edit:
+            latents_out = common.run_segmented_edit(
+                config, common.schedule_segments(config, schedule), step_fn, x_init,
+                data.identity,
             )
         seconds = t_edit.seconds
         with metrics.phase("decode_and_save"):

@@ -5,7 +5,7 @@ Python loops. The UNet enters as ``eps_fn(x, t) -> eps``.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -34,15 +34,29 @@ def ddim_inversion(
     latents: torch.Tensor,  # (F, h, w, 4)
     sched: ddim.DDIMSchedule,
     save_steps: int,
+    *,
+    steps: Optional[slice] = None,
+    carry: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Invert clean latents to noise, recording the save-grid trajectory
     (reference preprocess.py:198-230, conditional-only embedding).
 
+    ``steps`` (a slice of the inversion's step indices, default all) and
+    ``carry`` ((x, trajectory) after the steps before it, default the clean
+    latents and a zero trajectory) run one segment of the inversion:
+    segments run in order, each on the previous one's carry, compute what
+    one call computes. A save slot that is not on the inversion grid keeps
+    its zero row.
+
     Returns (x_T, trajectory (n_save, F, h, w, 4) ascending, save_ts)."""
     (alpha_t, alpha_prev, t_asc, mask, slot), save_ts = inversion_xs(sched, save_steps)
-    x = latents
-    traj = torch.zeros((save_steps, *latents.shape), dtype=latents.dtype, device=latents.device)
-    for i in range(len(t_asc)):
+    if carry is None:
+        x = latents
+        traj = torch.zeros((save_steps, *latents.shape), dtype=latents.dtype,
+                           device=latents.device)
+    else:
+        x, traj = carry
+    for i in range(len(t_asc))[steps or slice(None)]:
         eps = eps_fn(x, int(t_asc[i]))
         x = ddim.ddim_invert_step(x, eps, alpha_t[i], alpha_prev[i]).to(x.dtype)
         if mask[i]:

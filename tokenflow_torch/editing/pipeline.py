@@ -29,6 +29,7 @@ import torch
 
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.ops import editctx
+from tokenflow_torch.utils import segment_slices
 from tokenflow_torch.ops.propagation import propagation_indices
 
 # unet_apply(sample, t, context, edit, **residuals) -> (eps, cache)
@@ -47,6 +48,22 @@ class EditSchedule:
     src_slot: np.ndarray  # (T,) index into the latent trajectory
     qk_gate: np.ndarray  # (T,) bool
     conv_gate: np.ndarray  # (T,) bool
+
+
+def split_schedule(schedule: EditSchedule, seg_len: int) -> list[EditSchedule]:
+    """The per-step tables cut into contiguous segments of at most
+    ``seg_len`` steps (``tokenflow_tpu/editing/pipeline.py::split_schedule``).
+    Running :func:`tokenflow_sample_loop` per segment, each on the previous
+    segment's latents and its slice of the pivot table, is the same
+    computation as one call: the segments are where a checkpointed edit
+    can stop and resume."""
+    if seg_len <= 0:
+        raise ValueError(f"seg_len must be positive, got {seg_len}")
+    fields = [f.name for f in dataclasses.fields(EditSchedule)]
+    return [
+        EditSchedule(**{k: getattr(schedule, k)[s] for k in fields})
+        for s in segment_slices(len(schedule.timesteps), seg_len)
+    ]
 
 
 def make_edit_schedule(

@@ -19,7 +19,6 @@ frame to [-1, 1], as the reference does (preprocess.py:100-108).
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Optional
 
@@ -27,6 +26,7 @@ import numpy as np
 import torch
 
 from tokenflow_torch.io.video import frame_paths
+from tokenflow_torch.utils import fp32_products
 
 
 def _normalize_resize(pred: np.ndarray, latent_hw) -> np.ndarray:
@@ -87,20 +87,6 @@ def load_dpt_model(ckpt: str, config=None, device: torch.device | str = "cpu"):
         model = DPTDepthModel(config or DPTConfig.dpt_large())
     model.load_state_dict(sd, strict=True, assign=True)
     return model.to(device).eval().requires_grad_(False)
-
-
-@contextlib.contextmanager
-def fp32_products():
-    """TF32 off for PyTorch's matmuls and cuDNN's convolutions inside the
-    block (PyTorch's default lets cuDNN take 10-bit-mantissa products), the
-    flags as they were after it: the DPT runs in full fp32 beside a bf16
-    stack, as the JAX package runs it."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def dpt_inputs(data_path: str, n_frames: int, input_size: int = 384) -> np.ndarray:

@@ -102,6 +102,9 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class CLIPTextTransformer(nn.Module):
+    """HF ``CLIPTextModel.text_model``: the whole tower, ids -> the last
+    hidden state after the final LayerNorm."""
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.embeddings = nn.Module()
@@ -115,6 +118,19 @@ class CLIPTextTransformer(nn.Module):
         )
         self.final_layer_norm = LayerNorm32(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        s = input_ids.shape[1]
+        x = self.embeddings.token_embedding(input_ids)
+        x = x + self.embeddings.position_embedding.weight[None, :s]
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        causal_bias = torch.zeros((s, s), device=x.device).masked_fill(
+            ~mask, float("-inf")
+        )
+        for layer in self.encoder.layers:
+            x = layer(x, causal_bias)
+        # fp32 final norm, then the stack dtype (the JAX model's astype)
+        return self.final_layer_norm(x)
+
 
 class CLIPTextModel(nn.Module):
     def __init__(self, config: CLIPTextConfig):
@@ -124,15 +140,4 @@ class CLIPTextModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """input_ids: (B, S) integer -> last hidden state (B, S, hidden)."""
-        tm = self.text_model
-        s = input_ids.shape[1]
-        x = tm.embeddings.token_embedding(input_ids)
-        x = x + tm.embeddings.position_embedding.weight[None, :s]
-        mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-        causal_bias = torch.zeros((s, s), device=x.device).masked_fill(
-            ~mask, float("-inf")
-        )
-        for layer in tm.encoder.layers:
-            x = layer(x, causal_bias)
-        # fp32 final norm, then the stack dtype (the JAX model's astype)
-        return tm.final_layer_norm(x)
+        return self.text_model(input_ids)

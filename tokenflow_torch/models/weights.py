@@ -6,8 +6,9 @@ The port's module names ARE the diffusers / transformers state-dict keys,
 so a local checkpoint loads with ``load_state_dict`` after two legacy
 renames. ``state_dict_from_flax`` turns a JAX parameter tree (numpy leaves)
 back into that state dict, the inverse of
-``tokenflow_tpu/models/weights.py::convert_{unet,vae,clip_text,controlnet,dpt}_state_dict``:
-Dense (in, out) -> (out, in), Conv HWIO -> OIHW, norm ``scale`` ->
+``tokenflow_tpu/models/weights.py::convert_{unet,vae,clip_text,controlnet,dpt,clip_vision,clip_model}_state_dict``:
+Dense (in, out) -> (out, in), Conv HWIO -> OIHW (the CLIP vision tower's
+bias-free (p, p, 3, hidden) patch kernel too), norm ``scale`` ->
 ``weight``; the DPT's transposed-conv resize kernels (k, k, in, out) ->
 (in, out, k, k).
 """
@@ -70,13 +71,20 @@ def normalize_state_dict(sd: dict[str, torch.Tensor], kind: str) -> dict:
     projection) and rename legacy VAE attention keys; 1x1-conv legacy
     attention weights become linear weights. ``kind`` is ``unet``, ``vae``,
     ``clip_text``, ``controlnet`` (a diffusers ``ControlNetModel``, whose
-    keys are the port's as they are) or ``dpt`` (an HF
+    keys are the port's as they are), ``dpt`` (an HF
     ``DPTForDepthEstimation``: the keys the model never reads,
-    ``models.dpt.UNREAD_KEYS``, are dropped, and only those)."""
+    ``models.dpt.UNREAD_KEYS``, are dropped, and only those) or ``clip`` (an
+    HF ``CLIPModel`` for ``models.clip_vision.CLIPScorer``: the two
+    ``position_ids`` buffers and ``logit_scale`` are dropped, and only
+    those)."""
     out = {}
     for key, w in sd.items():
         if kind == "dpt":
             if not key.startswith(DPT_UNREAD_KEYS):
+                out[key] = w
+            continue
+        if kind == "clip":
+            if not key.endswith("position_ids") and key != "logit_scale":
                 out[key] = w
             continue
         if key.endswith("position_ids") or key.startswith("text_projection"):
@@ -179,6 +187,17 @@ _CLIP_INV = [
     (r"^", r"text_model."),
 ]
 
+_CLIP_VISION_INV = [
+    (r"^patch_embed\.", r"embeddings.patch_embedding."),
+    (r"^class_embedding$", r"embeddings.class_embedding"),
+    (r"^position_embedding$", r"embeddings.position_embedding.weight"),
+    (r"^pre_layernorm\.", r"pre_layrnorm."),  # HF's spelling
+    (r"^layer_(\d+)\.(q_proj|k_proj|v_proj|out_proj)\.", r"encoder.layers.\1.self_attn.\2."),
+    (r"^layer_(\d+)\.(fc1|fc2)\.", r"encoder.layers.\1.mlp.\2."),
+    (r"^layer_(\d+)\.", r"encoder.layers.\1."),
+    (r"^", r"vision_model."),
+]
+
 _CONTROLNET_INV = _UNET_INV + [
     (r"^cond_embedding\.conv_in\.", r"controlnet_cond_embedding.conv_in."),
     (r"^cond_embedding\.block_(\d+)\.", r"controlnet_cond_embedding.blocks.\1."),
@@ -213,7 +232,11 @@ _DPT_INV = [
 ]
 
 _RULES = {"unet": _UNET_INV, "vae": _VAE_INV, "clip_text": _CLIP_INV,
-          "controlnet": _CONTROLNET_INV, "dpt": _DPT_INV}
+          "controlnet": _CONTROLNET_INV, "dpt": _DPT_INV, "clip_vision": _CLIP_VISION_INV}
+# the JAX CLIPScorer tree: each tower's subtree and its rules, and the
+# bias-free projection heads
+_CLIP_PARTS = {"vision": "clip_vision", "text": "clip_text"}
+KINDS = sorted([*_RULES, "clip"])
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
@@ -243,12 +266,21 @@ def _torch_leaf(path: str, w: np.ndarray) -> tuple[str, np.ndarray]:
 
 def state_dict_from_flax(params: dict, kind: str) -> dict[str, torch.Tensor]:
     """JAX parameter tree (``{"params": ...}`` or its inner dict, numpy
-    leaves) of kind ``unet``, ``vae``, ``clip_text``, ``controlnet`` or
-    ``dpt`` -> the port's state dict (contiguous CPU tensors, the leaves'
-    dtype)."""
-    if kind not in _RULES:
-        raise ValueError(f"kind must be one of {sorted(_RULES)}, got {kind!r}")
+    leaves) of kind ``unet``, ``vae``, ``clip_text``, ``controlnet``,
+    ``dpt``, ``clip_vision`` (a ``CLIPVisionModel``) or ``clip`` (a
+    ``CLIPScorer``: both towers and the projection heads) -> the port's
+    state dict (contiguous CPU tensors, the leaves' dtype)."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     tree = params.get("params", params)
+    if kind == "clip":
+        out = {}
+        for part, sub in _CLIP_PARTS.items():
+            out.update(state_dict_from_flax(tree[part], sub))
+        for head in ("visual_projection", "text_projection"):
+            key, val = _torch_leaf(f"{head}.kernel", tree[head]["kernel"])
+            out[key] = torch.tensor(val)
+        return out
     out = {}
     for path, w in _flatten(tree).items():
         key, val = _torch_leaf(path, w)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import os
 from typing import Any, Optional
 
@@ -84,6 +85,105 @@ def resolve_model_dir(sd_version: str, model_dir: Optional[str] = None) -> Optio
     return None
 
 
+def _config_mismatches(ckpt_cfg: dict, expected: dict) -> list[str]:
+    """Compare a checkpoint config.json against preset expectations.
+
+    Keys absent from the checkpoint config are not mismatches (older
+    checkpoints omit some); present keys must agree."""
+    out = []
+    for key, want in expected.items():
+        if key not in ckpt_cfg:
+            continue
+        got = ckpt_cfg[key]
+        if isinstance(want, (list, tuple)):
+            ok = list(got) == list(want)
+        elif isinstance(want, float):
+            ok = abs(float(got) - want) < 1e-9
+        else:
+            ok = got == want
+        if not ok:
+            out.append(f"{key}: checkpoint={got!r} != preset={want!r}")
+    return out
+
+
+def validate_checkpoint_configs(
+    sd_version: str, configs: dict, unet_cfg, vae_cfg, clip_cfg
+) -> None:
+    """Raise, with every mismatch listed, when a checkpoint's own
+    config.json disagrees with the preset chosen for ``sd_version``
+    (``tokenflow_tpu/runtime.py::validate_checkpoint_configs``: the same
+    keys and message). ``configs`` maps ``unet``, ``vae`` and
+    ``text_encoder`` to their parsed config.json; a missing one is skipped.
+    Strict loading catches shapes but not the keys no weight shape carries
+    (``hidden_act``, the head count, ``scaling_factor``)."""
+    mismatches: list[str] = []
+
+    unet_ck = dict(configs.get("unet") or {})
+    heads = list(unet_cfg.num_heads)
+    # diffusers' misnamed ``attention_head_dim`` is the per-level head
+    # count of SD UNets; an int means the same count at every level
+    ahd = unet_ck.pop("attention_head_dim", None)
+    if ahd is not None:
+        ahd_list = [ahd] * len(heads) if isinstance(ahd, int) else list(ahd)
+        if ahd_list != heads:
+            mismatches.append(
+                f"unet: attention_head_dim: checkpoint={ahd!r} "
+                f"!= preset={heads!r}"
+            )
+    mismatches += [
+        f"unet: {m}"
+        for m in _config_mismatches(unet_ck, {
+            "in_channels": unet_cfg.in_channels,
+            "out_channels": unet_cfg.out_channels,
+            "cross_attention_dim": unet_cfg.cross_attention_dim,
+            "block_out_channels": list(unet_cfg.block_out_channels),
+            "layers_per_block": unet_cfg.layers_per_block,
+            "use_linear_projection": unet_cfg.use_linear_projection,
+        })
+    ]
+    mismatches += [
+        f"vae: {m}"
+        for m in _config_mismatches(dict(configs.get("vae") or {}), {
+            "in_channels": vae_cfg.in_channels,
+            "out_channels": vae_cfg.out_channels,
+            "latent_channels": vae_cfg.latent_channels,
+            "block_out_channels": list(vae_cfg.block_out_channels),
+            "layers_per_block": vae_cfg.layers_per_block,
+            "scaling_factor": vae_cfg.scaling_factor,
+        })
+    ]
+    mismatches += [
+        f"text_encoder: {m}"
+        for m in _config_mismatches(dict(configs.get("text_encoder") or {}), {
+            "vocab_size": clip_cfg.vocab_size,
+            "hidden_size": clip_cfg.hidden_size,
+            "num_hidden_layers": clip_cfg.num_layers,
+            "num_attention_heads": clip_cfg.num_heads,
+            "intermediate_size": clip_cfg.intermediate_size,
+            "max_position_embeddings": clip_cfg.max_position_embeddings,
+            "hidden_act": clip_cfg.hidden_act,
+        })
+    ]
+    if mismatches:
+        raise ValueError(
+            f"checkpoint does not match the sd_version={sd_version!r} "
+            "preset:\n  " + "\n  ".join(mismatches)
+            + "\n(pass the matching sd_version, or a matching checkpoint)"
+        )
+
+
+def read_component_configs(found: str) -> dict:
+    """{component: parsed config.json} of a diffusers directory's unet, vae
+    and text_encoder; a component without one is left out."""
+    configs = {}
+    for name in ("unet", "vae", "text_encoder"):
+        path = os.path.join(found, name, "config.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                configs[name] = json.load(f)
+    return configs
+
+
 @dataclasses.dataclass
 class SDStack:
     sd_version: str
@@ -93,6 +193,7 @@ class SDStack:
     tokenizer: Any
     dtype: torch.dtype
     device: torch.device
+    model_dir: Optional[str] = None  # the checkpoint read, None for random weights
 
     # ---- text ---------------------------------------------------------
 
@@ -141,6 +242,10 @@ def _build_stack(sd_version, found, dtype, init, seed, device) -> SDStack:
     holds the most recent stack only."""
     unet_cfg, vae_cfg, clip_cfg = configs_for(sd_version)
     pretrained = found is not None and init != "random"
+    if pretrained:  # before any weight is read
+        validate_checkpoint_configs(
+            sd_version, read_component_configs(found), unet_cfg, vae_cfg, clip_cfg
+        )
     # build in fp32 on the target device, fill, then cast
     with torch.device(device):
         unet = UNet2DConditionModel(unet_cfg)
@@ -158,7 +263,8 @@ def _build_stack(sd_version, found, dtype, init, seed, device) -> SDStack:
         tokenizer = HashTokenizer(vocab_size=clip_cfg.vocab_size)
     for m in (unet, vae, text):
         m.to(dtype).eval().requires_grad_(False)
-    return SDStack(sd_version, unet, vae, text, tokenizer, dtype, device)
+    return SDStack(sd_version, unet, vae, text, tokenizer, dtype, device,
+                   os.path.abspath(found) if pretrained else None)
 
 
 def load_stack(
