@@ -53,7 +53,14 @@ Phases (any failure raises, and the script exits non-zero):
      TF32 on, a control that must read above it; then the port's
      ``prop_approx_ab`` CLI at its defaults (cuda, SD-2.1, 40 x 512^2,
      exact then pinned ``prop_approx`` PnP, the report with that
-     checkpoint) in a subprocess. ``[resume]`` (``run_resume_path``): checkpoint/resume
+     checkpoint) in a subprocess. ``[sharded]`` (``run_sharded_path``): the
+     port's frames sharding on the main path's latents and pivots, two ranks
+     of a gloo group spawned on the one card (host-staged collectives): the
+     sharded K1 and K2 entries bit for bit against the unsharded launches,
+     the bf16 10-step edit with and without shard_pivotal against a
+     single-rank edit of the same batch shapes (without: bit for bit), and
+     in fp32 each of the first steps, with a no-gather control that must
+     fail the limit the sound runs meet. ``[resume]`` (``run_resume_path``): checkpoint/resume
      through the CLIs in subprocesses at 40 x 512^2 (SD-2.1, bf16):
      preprocess + run_pnp uninterrupted; preprocess --checkpoint_inversion
      --then_edit killed at its first inversion checkpoint; the same command
@@ -2300,15 +2307,18 @@ def check_dpt(ckpt: str, data: str, n_frames: int) -> dict:
     return result
 
 
-def check_control(what: str, sound: float, control: float, limit: float) -> None:
-    """An fp32 model's reading against the CPU and its TF32-on control: the
-    sound run must read within ``limit`` and the control above it, so that
-    the check can tell TF32 products from fp32 ones."""
+def check_control(what: str, sound: float, control: float, limit: float,
+                  control_name: str = "the TF32-on control") -> None:
+    """A sound reading and its control's (an fp32 model against the CPU and
+    the same with TF32 on; the sharded edit against one rank and the same
+    with no K/V gather): the sound run must read within ``limit`` and the
+    control above it, so that the check can tell the fault it guards from
+    sound rounding."""
     if not sound <= limit:
         raise AssertionError(f"{what}: rel L2 {sound} > {limit}")
     if not control > limit:
-        raise AssertionError(f"{what}: the TF32-on control reads {control}, within the "
-                             f"limit {limit}: the check cannot tell TF32 from fp32")
+        raise AssertionError(f"{what}: {control_name} reads {control}, within the "
+                             f"limit {limit}: the check cannot tell it from the sound run")
 
 
 def run_depth_path(root: str) -> dict:
@@ -2724,6 +2734,358 @@ def run_resume_path(root: str) -> dict:
     return result
 
 
+# the [sharded] phase (run_sharded_path): two ranks of a gloo group on the
+# one card, PnP 512^2 on the main path's latents (40 frames, window 8, so 5
+# pivots: 3 + 2 keyframes with shard_pivotal), the main path's pivot table
+SHARDED_RANKS = 2
+# a rank's work ends the run if the phase takes longer (a hung collective)
+SHARDED_SECONDS = 420
+# bf16: the 10-step edit with shard_pivotal against the single-rank edit,
+# rel L2 of the latents. Not a test of the K/V gather: bf16 rounding of
+# other batch shapes, amplified by random weights, moves this edit as far as
+# the single rank's own chunking does (up to 0.0498 between propagate
+# chunks of 20 and 40 frames) and as far as a missing gather does (0.045
+# after one step; PERF.md §6, frames sharding). Twice that catches gross faults
+# (frame order, a lost block: rel L2 near 1). Without shard_pivotal every
+# UNet call has the reference's shapes, and the edit must equal it bit for
+# bit.
+SHARDED_BF16_REL_L2 = 0.1
+# fp32 (TF32 off, the fp32 kernels): each of the first SHARDED_F32_STEPS
+# steps from the single-rank edit's latents against that edit's step, rel
+# L2 of the latents; near the geometric mean of the largest sound reading
+# with shard_pivotal (7.1e-5) and the largest of the control that attends
+# over the rank's own keyframes only (4.8e-3), on the H100 (PERF.md §6)
+SHARDED_F32_STEPS = 2
+SHARDED_F32_REL_L2 = 5e-4
+# the fp32 runs of each rank: (name, shard_pivotal, K/V gathered)
+SHARDED_RUNS = (("shard_pivotal", True, True), ("replicated_pivotal", False, True),
+                ("no_gather_control", True, False))
+
+
+def sharded_kernel_rows(group) -> dict:
+    """B3 on the card, on one rank: K1 through ``flash_attention_sharded`` on
+    the rank's query rows of the 512^2 pivotal pass's top level (2 streams,
+    5 keyframes x 4096 tokens, 5 heads of 64; this rank's keyframes of
+    ``split_counts``) against the gathered K/V, and K2 through
+    ``token_match_gather_sharded`` on the rank's frames (F = 40, 4096 x 320,
+    5 pivots, separated inputs), each equal bit for bit to those rows of
+    the unsharded launch on the same seeded inputs."""
+    from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.kernels import token_match as tm
+    from tokenflow_torch.sharding import mesh
+
+    gen = torch.Generator(device="cuda").manual_seed(0)  # the same on every rank
+    kf, s, h, d = 5, 4096, 5, 64
+    q, k, v = (torch.randn((2, kf * s, h, d), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    counts = mesh.split_counts(kf, group.world)
+    rows = slice(sum(counts[: group.rank]) * s, sum(counts[: group.rank + 1]) * s)
+    got = fa.flash_attention_sharded(q[:, rows], k[:, rows], v[:, rows], group=group,
+                                     kv_sizes=[c * s for c in counts], kv_block=1024)
+    want = fa.flash_attention_kernel(q, k, v)[:, rows]
+    k1_equal = torch.equal(got, want)
+    args = _match_inputs(gen, 4096, 320, "separated", 40, 5)
+    local = [group.local(a) for a in (args[0], *args[3:])]
+    got = tm.token_match_gather_sharded(local[0], args[1], args[2], *local[1:])
+    want = tm.token_match_gather_kernel(*args)[:, group.frame_slice(40)]
+    k2_equal = torch.equal(got, want)
+    if not (k1_equal and k2_equal):
+        raise AssertionError(f"[sharded] rank {group.rank}: sharded rows differ from the "
+                             f"unsharded launch (K1 equal {k1_equal}, K2 equal {k2_equal})")
+    return {"k1_rows": [rows.start, rows.stop], "k1_sq_skv": [rows.stop - rows.start, kf * s],
+            "k2_frames": list(group.frame_slice(40).indices(40)[:2]),
+            "k1_bitwise": k1_equal, "k2_bitwise": k2_equal}
+
+
+def _sharded_rank(rank: int, spec: dict) -> None:
+    """One rank of ``run_sharded_path`` (a spawned process): the kernel rows;
+    the bf16 edit with shard_pivotal and without, each with the counts
+    zeroed just before and read just after; then, on the fp32 stack, each
+    of the first steps from the single-rank latents with shard_pivotal,
+    without, and with no K/V gather (the control). Rank 0 gathers the
+    latents. Writes rank<r>.json (and rank 0 the latents) under
+    ``spec["out"]``."""
+    from tokenflow_torch import runtime
+    from tokenflow_torch.cli import common
+    from tokenflow_torch.editing import pipeline
+    from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.kernels import token_match as tm
+    from tokenflow_torch.profiling import PhaseMetrics
+    from tokenflow_torch.sharding import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    dev = torch.device(spec["device"])
+    group = mesh.init_frames_group(rank, spec["world"], dev, backend="gloo",
+                                   init_method=spec["init"])
+    print(group.describe(), flush=True)
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    schedule, pivots = inputs["schedule"], inputs["pivots"]
+    n_steps = len(schedule.timesteps)
+    result = {"rank": rank, "backend": group.backend, "transport": group.transport,
+              "kernel_rows": sharded_kernel_rows(group)}
+    gather = mesh.all_gather_along
+
+    def local_kv(group, t, axis, sizes, kind):
+        """The control: K/V of the rank's own keyframes, no gather."""
+        return t if kind == "kv_all_gather" else gather(group, t, axis, sizes, kind)
+
+    def zero():
+        zero_counts()
+        fa.launches_sharded = tm.launches_sharded = 0
+        fa.launches_sharded_by_shape.clear()
+        tm.launches_sharded_by_shape.clear()
+        group.bytes_sent.clear()
+
+    def counts(n):
+        return {
+            "launches": read_counts(),
+            "k1_launches_sharded": fa.launches_sharded,
+            "k1_sharded_sq_skv": {f"{a}x{b}": c for (a, b), c in
+                                  sorted(fa.launches_sharded_by_shape.items())},
+            "k2_launches_sharded": tm.launches_sharded,
+            "k2_sharded_f_s_d": {"x".join(map(str, k)): c for k, c in
+                                 sorted(tm.launches_sharded_by_shape.items())},
+            "collective_bytes_per_step": {k: v / n for k, v in group.bytes_sent.items()},
+        }
+
+    outs = {}
+    for dtype in ("bf16", "f32"):
+        part = inputs[dtype]
+        stack = runtime.load_stack(spec["sd_version"], device=dev,
+                                   dtype=part["xs"].dtype, init="random")
+        traj = group.local(part["traj"].to(dev), 1)
+        embeds3 = part["embeds3"].to(dev)
+
+        def edit(x, sched, piv, shard, phase=lambda n: contextlib.nullcontext()):
+            return pipeline.tokenflow_sample_loop(
+                stack.unet_apply, group.local(x.to(dev)), traj, embeds3, sched,
+                window_size=spec["window"], guidance_scale=7.5, pnp=True,
+                pivot_indices=piv, phase=phase, group=group, shard_pivotal=shard)
+
+        if dtype == "bf16":  # the edit as it runs: counted and timed
+            for name, shard, _ in SHARDED_RUNS[:2]:
+                metrics = PhaseMetrics()
+                zero()
+                with common.device_phase(metrics, "edit", group.device, group):
+                    out = edit(part["xs"][0], schedule, pivots, shard,
+                               lambda n: common.device_phase(metrics, n, group.device, group))
+                ph = metrics.phases
+                result[name] = {
+                    **counts(n_steps),
+                    "pivotal_seconds_per_step": ph["pivotal"] / n_steps,
+                    "propagate_seconds_per_step": ph["propagate"] / n_steps,
+                    "edit_seconds": ph["edit"],
+                }
+                outs[name] = mesh.gather_to_rank0(group, out)
+            continue
+        # fp32: each step from the single-rank edit's latents there
+        segments = pipeline.split_schedule(schedule, 1)[:SHARDED_F32_STEPS]
+        for name, shard, kv_gather in SHARDED_RUNS:
+            mesh.all_gather_along = gather if kv_gather else local_kv
+            zero()
+            try:
+                steps = [mesh.gather_to_rank0(group, edit(part["xs"][i], seg,
+                                                          pivots[i : i + 1], shard))
+                         for i, seg in enumerate(segments)]
+            finally:
+                mesh.all_gather_along = gather
+            result[f"f32_{name}"] = counts(len(segments))
+            if rank == 0:
+                outs[f"f32_{name}_steps"] = torch.stack(steps)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    if rank == 0:
+        torch.save({k: v.cpu() for k, v in outs.items()}, os.path.join(spec["out"], "latents.pt"))
+    mesh.barrier(group)
+
+
+def check_sharded_launches(ranks: list) -> None:
+    """On every rank, in bf16 and fp32: with shard_pivotal K1 and K2 launched
+    through the sharded entries, without it K2 only (the pivotal pass is
+    whole); no kernel off the PnP 512^2 path or of the other dtype."""
+    for r in ranks:
+        for name, k1_sharded in (("shard_pivotal", True), ("replicated_pivotal", False)):
+            for prefix, want, not_want in (
+                    ("", ("flash_attention", "token_match_gather"), F32_KERNELS),
+                    ("f32_", ("flash_attention_f32", "token_match_f32"), BF16_KERNELS)):
+                run = r[prefix + name]
+                if (run["k1_launches_sharded"] > 0) != k1_sharded or run["k2_launches_sharded"] <= 0:
+                    raise AssertionError(
+                        f"[sharded] rank {r['rank']} {prefix}{name}: K1 and K2 launched "
+                        f"{run['k1_launches_sharded']} and {run['k2_launches_sharded']} times "
+                        f"through the sharded entries")
+                check_launched(run["launches"], f"sharded rank {r['rank']} {prefix}{name}",
+                               want, ("token_match_gather_split", "token_match_split_f32",
+                                      "group_norm") + not_want)
+
+
+def latents_rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def run_sharded_path(root: str, main_out_dir: str) -> dict:
+    """``[sharded]``: the port's frames sharding on the card, on the main
+    path's latents (run from its ``root``) and pivot table. This process
+    runs the PnP edit on one rank (the reference, propagating in chunks of
+    a rank's frames so that each UNet call has a rank's batch), then spawns
+    SHARDED_RANKS ranks of a gloo group (``file://`` init) that share
+    cuda:0 (NCCL refuses two ranks on one GPU) and stage their collectives
+    through host memory. Each rank checks the sharded K1 and K2 entries bit
+    for bit against the unsharded launches (``sharded_kernel_rows``) and
+    runs the bf16 10-step edit with shard_pivotal (3 + 2 keyframes) and
+    without: both must launch through the sharded entries where they shard
+    (K2 on every rank, K1 with shard_pivotal), the edit without
+    shard_pivotal must equal the reference bit for bit, and the one with it
+    must read within SHARDED_BF16_REL_L2 (gross faults only: bf16 cannot
+    hold the K/V gather, see the constant). The gather itself is held in
+    fp32 (TF32 off, the fp32 kernels), where the batch shapes move the edit
+    by fp32 rounding only: each of the first SHARDED_F32_STEPS steps from
+    the single-rank latents, with shard_pivotal, without, and with no K/V
+    gather (the control): the sound runs within SHARDED_F32_REL_L2 of the
+    single-rank step, the control above it (``check_control``). Two ranks on
+    one card prove correctness and the sharded launches, not NCCL scaling."""
+    import yaml
+
+    from tokenflow_torch.cli import common
+    from tokenflow_torch.diffusion import ddim
+    from tokenflow_torch.editing import pipeline
+    from tokenflow_torch.profiling import PhaseMetrics
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(main_out_dir, "config.yaml")) as f:
+        config = yaml.safe_load(f)
+    with open(os.path.join(main_out_dir, "pivots.json")) as f:
+        pivots = np.asarray(json.load(f)["pivot_indices"], np.int32)
+    out = os.path.join(root, "sharded")
+    os.makedirs(out)
+    chunk = config["n_frames"] // SHARDED_RANKS
+    sched = ddim.make_schedule(config["n_timesteps"])
+    inputs, single = {"pivots": pivots}, {}
+    for dtype in ("bf16", "f32"):
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            data = common.setup_editor(dict(config, dtype=dtype,
+                                            output_path=os.path.join(out, dtype)))
+        finally:
+            os.chdir(cwd)
+        schedule = pipeline.make_edit_schedule(sched, data.trajectory.save_ts,
+                                               pnp_attn_t=config["pnp_attn_t"],
+                                               pnp_f_t=config["pnp_f_t"])
+        x_init = ddim.add_noise(data.latents, data.eps,
+                                sched.alphas_cumprod[sched.timesteps[0]]).to(data.stack.dtype)
+        traj = torch.as_tensor(data.trajectory.traj, device=data.stack.device)
+        traj = traj.to(data.stack.dtype)
+        segments = pipeline.split_schedule(schedule, 1)
+        if dtype == "f32":
+            segments = segments[:SHARDED_F32_STEPS]
+
+        def run(x, seg, piv, propagate_chunk, metrics):
+            return pipeline.tokenflow_sample_loop(
+                data.stack.unet_apply, x, traj, data.embeds3, seg,
+                window_size=config["batch_size"], guidance_scale=config["guidance_scale"],
+                pnp=True, pivot_indices=piv, propagate_chunk=propagate_chunk,
+                phase=lambda n: common.device_phase(metrics, n, data.stack.device))
+
+        metrics = PhaseMetrics()
+        if dtype == "bf16":  # the edit whole, and once more in one chunk
+            xs = torch.stack([x_init, run(x_init, schedule, pivots, chunk, metrics)])
+            whole = run(x_init, schedule, pivots, None, PhaseMetrics()).cpu()
+        else:  # each step from the reference's own latents
+            xs = [x_init]
+            for i, seg in enumerate(segments):
+                xs.append(run(xs[-1], seg, pivots[i : i + 1], chunk, metrics))
+            xs = torch.stack(xs)
+        single[dtype] = {f"{n}_seconds_per_step": metrics.phases[n] / len(segments)
+                         for n in ("pivotal", "propagate")}
+        inputs[dtype] = {"xs": xs.cpu(), "traj": traj.cpu(), "embeds3": data.embeds3.cpu()}
+        inputs["schedule"] = schedule
+        device = data.stack.device
+        del data, traj, x_init
+        torch.cuda.empty_cache()
+    torch.save(inputs, os.path.join(out, "inputs.pt"))
+    spec = {"world": SHARDED_RANKS, "window": config["batch_size"], "device": str(device),
+            "sd_version": config["sd_version"],
+            "init": "file://" + os.path.join(out, "group_init"),
+            "inputs": os.path.join(out, "inputs.pt"), "out": out}
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_sharded_rank, args=(spec,), nprocs=SHARDED_RANKS,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + SHARDED_SECONDS
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"[sharded] ranks ran past {SHARDED_SECONDS} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    ranks = []
+    for r in range(SHARDED_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    lat = torch.load(os.path.join(out, "latents.pt"))
+    ref, ref32 = inputs["bf16"]["xs"][-1], inputs["f32"]["xs"]
+    edits = {name: latents_rel_l2(lat[name], ref) for name, _, _ in SHARDED_RUNS[:2]}
+    f32_steps = {name: [latents_rel_l2(y, x) for y, x in zip(lat[f"f32_{name}_steps"],
+                                                               ref32[1:])]
+                 for name, _, _ in SHARDED_RUNS}
+    report = {
+        "card": card_line(), "ranks": SHARDED_RANKS, "backend": ranks[0]["backend"],
+        "transport": ranks[0]["transport"],
+        "bf16_edit_rel_l2_vs_single_rank": edits,
+        "bf16_replicated_bitwise": torch.equal(lat["replicated_pivotal"], ref),
+        "bf16_single_rank_chunk_vs_whole": latents_rel_l2(ref, whole),
+        "bf16_edit_rel_l2_limit": SHARDED_BF16_REL_L2,
+        "f32_step_rel_l2_vs_single_rank": f32_steps, "f32_step_rel_l2_limit": SHARDED_F32_REL_L2,
+        "single_rank_seconds_per_step": single,
+        "finite": all(bool(torch.isfinite(v).all()) for v in lat.values()),
+    }
+    for r in ranks:
+        for name in [n for n, _, _ in SHARDED_RUNS[:2]] + [f"f32_{n}" for n, _, _ in SHARDED_RUNS]:
+            run_ = r[name]
+            steps = (f", s/step pivotal {run_['pivotal_seconds_per_step']:.4f} propagate "
+                     f"{run_['propagate_seconds_per_step']:.4f}"
+                     if "pivotal_seconds_per_step" in run_ else "")
+            print(f"[sharded] rank {r['rank']} {name}: K1 sharded launches "
+                  f"{run_['k1_launches_sharded']} (Sq x Skv {run_['k1_sharded_sq_skv']}), K2 "
+                  f"sharded launches {run_['k2_launches_sharded']} (F x S x D "
+                  f"{run_['k2_sharded_f_s_d']}){steps}, collective bytes/step "
+                  f"{run_['collective_bytes_per_step']}, transport {r['transport']}", flush=True)
+        print(f"[sharded] rank {r['rank']} kernel rows: {r['kernel_rows']}", flush=True)
+    report["per_rank"] = ranks
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"[sharded] {report['card']}: single rank s/step {single}; bf16 10-step edit rel "
+          f"L2 against it {edits} (limit {SHARDED_BF16_REL_L2}; without shard_pivotal bit "
+          f"for bit: {report['bf16_replicated_bitwise']}; the single rank's own chunk of "
+          f"{chunk} against {config['n_frames']} frames "
+          f"{report['bf16_single_rank_chunk_vs_whole']}); fp32, each step "
+          f"from its latents {f32_steps} (limit {SHARDED_F32_REL_L2} on the largest, which "
+          f"the control's must exceed); two ranks share one card and stage through the "
+          f"host: correctness and launches, not NCCL scaling; phase "
+          f"{report['seconds']:.1f} s", flush=True)
+    if not report["finite"]:
+        raise AssertionError("[sharded] non-finite latents")
+    if not report["bf16_replicated_bitwise"]:
+        raise AssertionError("[sharded] bf16 edit without shard_pivotal differs from the "
+                             "single-rank edit of the same batch shapes")
+    if not edits["shard_pivotal"] <= SHARDED_BF16_REL_L2:
+        raise AssertionError(f"[sharded] bf16 edit with shard_pivotal: rel L2 "
+                             f"{edits['shard_pivotal']} > {SHARDED_BF16_REL_L2}")
+    for name in ("shard_pivotal", "replicated_pivotal"):
+        check_control(f"[sharded] fp32 {name}, each step vs single rank",
+                      max(f32_steps[name]), max(f32_steps["no_gather_control"]),
+                      SHARDED_F32_REL_L2, control_name="the no-gather control")
+    check_sharded_launches(ranks)
+    report["launches"] = {n: sum(r["shard_pivotal"]["launches"][n] for r in ranks)
+                          for n in ranks[0]["shard_pivotal"]["launches"]}
+    return report
+
+
 def main() -> int:
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -2766,6 +3128,8 @@ def main() -> int:
         clip = check_clip(root, report["output_dir"],
                           report["variants"]["pnp_approx"]["output_dir"],
                           "a marble sculpture of a woman running")
+        with watchdog(SHARDED_SECONDS + 120, "the [sharded] phase"):
+            sharded = run_sharded_path(root, report["output_dir"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as root:
         resume = run_resume_path(root)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sdedit_") as root:
@@ -2794,7 +3158,8 @@ def main() -> int:
                                      n_timesteps=F32_SDEDIT_STEPS)
     by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"],
                "controlnet_512": controlnet["launches"], "pnp_512_depth": depth["launches"],
-               "pnp_512_f32": pnp_f32["launches"], "sdedit_768_f32": sdedit_f32["launches"]}
+               "pnp_512_f32": pnp_f32["launches"], "sdedit_768_f32": sdedit_f32["launches"],
+               "pnp_512_sharded_2_ranks": sharded["launches"]}
     for path in (report, sdedit, controlnet, depth):  # the approximate edits
         by_path.update({name: v["launches"] for name, v in path["variants"].items()})
     for entry in kernels:
@@ -2808,7 +3173,7 @@ def main() -> int:
                       "controlnet_path": controlnet, "depth_path": depth,
                       "pnp_f32_path": pnp_f32,
                       "sdedit_f32_path": sdedit_f32, "clip": clip,
-                      "resume": resume}), flush=True)
+                      "resume": resume, "sharded": sharded}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({

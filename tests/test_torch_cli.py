@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 from PIL import Image
 
 from tokenflow_torch import utils
@@ -333,15 +334,23 @@ def _controlnet_base(**kw):
      ("data_parallel", 2, "A16"), ("data_parallel", "4", "A16"),
      ("shard_pivotal", False, "A16")],
 )
-def test_config_refuses_unported_features(key, value, item):
-    """A key of a JAX feature the port lacks, set to anything but its
-    default, raises and names the ROADMAP item that ports it. A15's keys
-    (checkpoint/resume) are ported now: ``validate_config`` accepts them."""
+def test_config_refuses_unported_features(key, value, item, monkeypatch):
+    """The keys of JAX features the port lacked were refused until their
+    ROADMAP item landed, and both items have: A15's keys (checkpoint/resume)
+    are accepted, and A16's (frames sharding) follow the launcher:
+    ``data_parallel: 2`` in a process started alone raises and names the
+    launcher, ``data_parallel: "4"`` under a 2-process launcher raises, and
+    ``shard_pivotal: false`` is accepted (its edit equals ``true``'s:
+    ``test_cli_under_launcher_matches_one_process`` and
+    tests/test_torch_sharding.py)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     config = _controlnet_base(**{key: value})
-    if item == "A15":
+    if key != "data_parallel":
         assert common.validate_config(config, "controlnet")[key] == value
         return
-    with pytest.raises(ValueError, match=f"{key}.*ROADMAP {item}"):
+    if value == "4":
+        monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="torchrun" if value == 2 else "WORLD_SIZE=2"):
         common.validate_config(config, "controlnet")
 
 
@@ -381,7 +390,8 @@ def test_f32_cli_turns_tf32_off(run_cli):
     assert result["allow_tf32"] == [False, False]
 
 
-@pytest.mark.parametrize("key", ["prop_approx", "fused_step", "group_norm_kernel"])
+@pytest.mark.parametrize("key", ["prop_approx", "fused_step", "group_norm_kernel",
+                                 "shard_pivotal"])
 def test_config_switches_must_be_booleans(key):
     with pytest.raises(ValueError, match=f"{key} must be true or false"):
         common.validate_config(_controlnet_base(**{key: "yes"}), "controlnet")
@@ -413,3 +423,130 @@ def test_device_rules():
         common.validate_config(dict(base, device="cuda"), "pnp")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         preprocess.main(["--data_path", "data/none", "--device", "cuda", "--sd_version", "tiny"])
+
+
+LAUNCHED = textwrap.dedent(
+    """
+    # runs a module as __main__; on a rank other than 0 it records every
+    # write under the working directory (audit events) and prints them at exit
+    import atexit, json, os, runpy, sys
+
+    root, writes = os.getcwd(), []
+
+    def audit(event, args):
+        if event == "open":
+            path, mode, flags = args
+            writing = (any(c in mode for c in "wax+") if isinstance(mode, str) else
+                       isinstance(flags, int) and bool(flags & (os.O_WRONLY | os.O_RDWR)))
+        elif event in ("os.mkdir", "os.rename", "os.replace", "os.remove", "os.rmdir"):
+            path, writing = args[0], True
+        else:
+            return
+        if writing and isinstance(path, (str, bytes, os.PathLike)):
+            path = os.path.abspath(os.fsdecode(path))
+            if path.startswith(root):
+                writes.append(f"{event} {path}")
+
+    if os.environ["RANK"] != "0":
+        sys.addaudithook(audit)
+        atexit.register(lambda: print("RANK_WRITES " + json.dumps(writes), flush=True))
+    sys.argv = sys.argv[1:]
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+    """
+)
+
+
+def _tree(root: Path, sub: str) -> dict:
+    return {p.relative_to(root / sub).as_posix(): p for p in sorted((root / sub).rglob("*"))
+            if p.is_file()}
+
+
+def test_cli_under_launcher_matches_one_process(tmp_path):
+    """preprocess (``--data_parallel 2``) and run_pnp (``data_parallel: 2``,
+    with ``shard_pivotal`` true and false) under torchrun with 2 CPU ranks,
+    against the same CLIs in one process: the same files in the latents and
+    output trees, the trajectory within 1e-4 and the PNG frames within one
+    8-bit level (per-rank batch sizes change the CPU's summation order), the
+    same pivots and configs but for the sharding keys, and rank 1 writes
+    nothing (an audit hook records every write it makes under the working
+    directory). ``PYTHONHASHSEED`` is pinned: a random-weight stack's
+    tokenizer hashes words per process."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), PYTHONHASHSEED="0", OMP_NUM_THREADS="1",
+               PYTHONDONTWRITEBYTECODE="1")
+    env.pop("WORLD_SIZE", None)
+    pre = ["tokenflow_torch.cli.preprocess", "--data_path", "data/clip", "--H", str(HW),
+           "--W", str(HW), "--sd_version", "tiny", "--init", "random", "--dtype", "f32",
+           "--steps", str(STEPS), "--save_steps", str(SAVE_STEPS), "--n_frames", str(F),
+           "--batch_size", "2", "--inversion_prompt", "a test clip", "--device", "cpu"]
+    config = dict(seed=1, device="cpu", output_path="results", data_path="data/clip",
+                  latents_path="latents", n_inversion_steps=STEPS, n_frames=F,
+                  sd_version="tiny", init="random", dtype="f32", guidance_scale=7.5,
+                  n_timesteps=N_TIMESTEPS, prompt="a stylized test clip",
+                  negative_prompt="ugly", batch_size=2, pnp_attn_t=0.5, pnp_f_t=0.8,
+                  image_size=HW)
+    base = np.random.default_rng(0).integers(40, 210, (HW, HW, 3), dtype=np.uint8)
+    for name in ("one", "two"):
+        (tmp_path / name / "data" / "clip").mkdir(parents=True)
+        for i in range(F):
+            Image.fromarray(np.roll(base, 2 * i, axis=1)).save(
+                tmp_path / name / "data" / "clip" / f"{i:05d}.png")
+    (tmp_path / "launched.py").write_text(LAUNCHED)
+
+    def run(name, args, launched):
+        cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "2", str(tmp_path / "launched.py")] if launched
+               else [sys.executable, "-m"]) + list(args)
+        proc = subprocess.run(cmd, cwd=tmp_path / name, env=env, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+        return proc.stdout
+
+    (tmp_path / "one" / "pnp.yaml").write_text(yaml.safe_dump(config))
+    run("one", pre, False)
+    run("one", ["tokenflow_torch.cli.run_pnp", "--config_path", "pnp.yaml"], False)
+    logs = [run("two", pre + ["--data_parallel", "2"], True)]
+    for cfg_name, extra in (("pnp.yaml", {}),
+                            ("pnp_whole.yaml", dict(shard_pivotal=False,
+                                                    output_path="results_whole"))):
+        (tmp_path / "two" / cfg_name).write_text(
+            yaml.safe_dump(dict(config, data_parallel=2, **extra)))
+        logs.append(run("two", ["tokenflow_torch.cli.run_pnp", "--config_path", cfg_name],
+                        True))
+    for log in logs:
+        writes = [json.loads(l.split("RANK_WRITES ", 1)[1]) for l in log.splitlines()
+                  if "RANK_WRITES " in l]
+        assert writes == [[]], writes  # rank 1 reported, and wrote nothing
+        assert "frames group: rank 1 of 2, backend gloo, transport device" in log
+
+    one, two = tmp_path / "one", tmp_path / "two"
+    lat_one, lat_two = _tree(one, "latents"), _tree(two, "latents")
+    assert lat_one.keys() == lat_two.keys() and any(k.endswith("trajectory.npz") for k in lat_one)
+    for key, path in lat_one.items():
+        if key.endswith(".npz"):
+            with np.load(path) as a, np.load(lat_two[key]) as b:
+                for k in a.files:
+                    np.testing.assert_allclose(b[k], a[k], rtol=1e-4, atol=1e-4)
+        elif key.endswith(".png"):
+            diff = np.abs(np.asarray(Image.open(path), np.int16)
+                          - np.asarray(Image.open(lat_two[key]), np.int16))
+            assert diff.max() <= 1, key
+    want = _tree(one, "results_pnp_SD_tiny")
+    for sub in ("results_pnp_SD_tiny", "results_whole_pnp_SD_tiny"):
+        got = _tree(two, sub)
+        assert got.keys() == want.keys(), sub
+        for key, path in want.items():
+            if key.endswith(".png"):
+                diff = np.abs(np.asarray(Image.open(path), np.int16)
+                              - np.asarray(Image.open(got[key]), np.int16))
+                assert diff.max() <= 1, (sub, key)
+            elif key.endswith("pivots.json"):
+                assert json.loads(path.read_text()) == json.loads(got[key].read_text())
+            elif key.endswith("config.yaml"):
+                a, b = (yaml.safe_load(p.read_text()) for p in (path, got[key]))
+                for k in ("data_parallel", "shard_pivotal", "output_path"):
+                    a.pop(k, None)
+                    b.pop(k, None)
+                assert a == b
+            elif key.endswith("metrics.json"):
+                assert (json.loads(path.read_text()).keys()
+                        == json.loads(got[key].read_text()).keys())

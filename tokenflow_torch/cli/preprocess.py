@@ -23,6 +23,14 @@ resumes a matching interrupted run from it; the segments compute what one
 loop computes. ``--then_edit <yaml>`` runs the editor that the YAML names
 (PnP, SDEdit or ControlNet, inferred before the inversion starts) in this
 process afterwards, on the same held model stack.
+
+``--data_parallel`` (``auto``, ``off`` or N; ``cli/common.py``) shards the
+frames over the processes a launcher started: each rank encodes, inverts
+and reconstructs its block of the frames, and rank 0 gathers and writes
+the trajectory, the frames and the mp4. ``--then_edit`` runs the editor on
+the same ranks.
+
+    torchrun --nproc_per_node 2 -m tokenflow_torch.cli.preprocess --data_parallel 2 ...
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from tokenflow_torch.diffusion import ddim, inversion
 from tokenflow_torch.io import depth as depth_io
 from tokenflow_torch.io import latents as latents_io
 from tokenflow_torch.io import video as video_io
+from tokenflow_torch.sharding import mesh
 
 
 def build_eps_fn(
@@ -154,40 +163,51 @@ def run_then_edit(config_path: str, family: str):
 
 
 def run(opt) -> dict:
+    """Preprocess with the parsed options ``opt``; returns the save path and
+    the phases' seconds (rank 0 adds the reconstruction's PSNR)."""
     utils.seed_everything(1)  # reference seeds 1 (preprocess.py:303)
-    device = utils.resolve_device(opt.device)
+    group = mesh.frames_group_from_env(opt.data_parallel, opt.device)
+    device = group.device if group else utils.resolve_device(opt.device)
+    if group is not None:
+        mesh.check_divisible(opt.n_frames, group.world)
+    writer = mesh.is_writer(group)
 
     video_stem = Path(opt.data_path).stem
     save_path = latents_io.save_path_for(
         opt.save_dir, opt.sd_version, video_stem, opt.steps, opt.n_frames
     )
-    os.makedirs(os.path.join(save_path, "latents"), exist_ok=True)
-    latents_io.write_inversion_prompt(
-        opt.save_dir, save_path, video_stem, opt.inversion_prompt
-    )
+    if writer:
+        os.makedirs(os.path.join(save_path, "latents"), exist_ok=True)
+        latents_io.write_inversion_prompt(
+            opt.save_dir, save_path, video_stem, opt.inversion_prompt
+        )
     stack = runtime.load_stack(
         opt.sd_version, device=device, model_dir=opt.model_dir,
         dtype=DTYPES[opt.dtype], init=opt.init,
         group_norm_kernel=opt.group_norm_kernel,
     )
     frames = video_io.load_frames(opt.data_path, opt.n_frames, resize_square=opt.H)
-    lat = stack.encode_frames(frames)  # (F, h, w, 4) fp32
-    cond = stack.encode_prompt(opt.inversion_prompt, "")[1:2]  # cond only
+    lat = stack.encode_frames(frames, group=group)  # (F, h, w, 4) fp32, the rank's
+    # cond only; rank 0's (HashTokenizer hashes words per process)
+    cond = mesh.broadcast(group, stack.encode_prompt(opt.inversion_prompt, "")[1:2])
     controlnet = canny = depth = None
     if runtime.is_controlnet(opt.sd_version):
         controlnet, canny = controlnet_utils.build_controlnet(
             stack, frames, opt.controlnet_dir, opt.init
         )
+        canny = canny if group is None else group.local(canny)
     t_depth = None
     if runtime.is_depth(opt.sd_version):
         with utils.Timer() as t_depth:
-            depth = load_depth_maps(opt.data_path, opt.n_frames, lat.shape[1:3],
-                                    model_dir=opt.depth_model_dir, device=device)
+            depth = cli_common.rank0_first(group, lambda: load_depth_maps(
+                opt.data_path, opt.n_frames, lat.shape[1:3],
+                model_dir=opt.depth_model_dir, device=device))
+            depth = depth if group is None else group.local(depth)
             utils.synchronize(device)
         print(f"[tokenflow-torch] depth maps: {t_depth.seconds:.1f}s")
 
     sched = ddim.make_schedule(opt.steps)
-    frame_chunk = opt.batch_size if opt.batch_size < opt.n_frames else None
+    frame_chunk = opt.batch_size if opt.batch_size < lat.shape[0] else None
     eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny, depth)
 
     # segments: checkpoint boundaries only (one segment without a checkpoint)
@@ -203,31 +223,30 @@ def run(opt) -> dict:
                                cli_common.stack_identity(stack, opt.inversion_prompt)),
         opt.checkpoint_inversion,
         every=opt.checkpoint_every,
+        group=group,
+        frame_axes=(0, 1),  # x and the trajectory (n_save, F, ...)
     )
     utils.synchronize(device)
+    mesh.barrier(group)
     with utils.Timer() as t_inv:
-        traj = torch.zeros((opt.save_steps, *lat.shape), dtype=lat.dtype, device=device)
-        start, (x_T, traj) = ck.resume((lat, traj), len(slices))
-        for i, steps in enumerate(slices):
-            if i < start:
-                continue
-            x_T, traj, save_ts = inversion.ddim_inversion(
-                eps_fn, lat, sched, opt.save_steps, steps=steps, carry=(x_T, traj)
-            )
-            ck.save(i, len(slices), (x_T, traj))
-        ck.done()
+        x_T, traj, save_ts = mesh.sharded_inversion(
+            eps_fn, lat, sched, opt.save_steps, group, segments=slices, checkpoint=ck)
         utils.synchronize(device)
+        mesh.barrier(group)
     print(f"[tokenflow-torch] inversion ({opt.steps} steps): {t_inv.seconds:.1f}s")
 
-    latents_io.save_trajectory(
-        save_path,
-        traj.float().cpu().numpy(),
-        save_ts,
-        x_T.float().cpu().numpy(),
-        int(sched.timesteps[0]),
-    )
-    if opt.export_pt:
-        latents_io.export_reference_layout(save_path)
+    traj_all = mesh.gather_to_rank0(group, traj, axis=1)
+    x_T_all = mesh.gather_to_rank0(group, x_T)
+    if writer:
+        latents_io.save_trajectory(
+            save_path,
+            traj_all.float().cpu().numpy(),
+            save_ts,
+            x_T_all.float().cpu().numpy(),
+            int(sched.timesteps[0]),
+        )
+        if opt.export_pt:
+            latents_io.export_reference_layout(save_path)
     result = {"save_path": save_path, "inversion_seconds": t_inv.seconds}
     if t_depth is not None:
         result["depth_seconds"] = t_depth.seconds
@@ -237,13 +256,18 @@ def run(opt) -> dict:
     with utils.Timer() as t_rec:
         lat_rec = inversion.ddim_reconstruction(eps_fn, x_T, sched)
         utils.synchronize(device)
+        mesh.barrier(group)
     print(f"[tokenflow-torch] reconstruction: {t_rec.seconds:.1f}s")
-    rgb = stack.decode_latents(lat_rec).cpu().numpy()
+    result["reconstruction_seconds"] = t_rec.seconds
+    rgb = stack.decode_latents(lat_rec, group=group)
+    if rgb is None:  # rank 0 writes
+        return result
+    rgb = rgb.cpu().numpy()
     video_io.save_frames(rgb, os.path.join(save_path, "frames"))
     video_io.save_video(rgb, os.path.join(save_path, "inverted.mp4"), fps=10)
     rec_psnr = utils.psnr(rgb, frames)
     print(f"[tokenflow-torch] reconstruction PSNR vs input: {rec_psnr:.2f} dB")
-    result.update(reconstruction_seconds=t_rec.seconds, reconstruction_psnr=rec_psnr)
+    result["reconstruction_psnr"] = rec_psnr
     return result
 
 
@@ -272,6 +296,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     p.add_argument("--init", choices=["auto", "pretrained", "random"], default="auto")
     p.add_argument("--device", type=str, default="cuda", help="cuda or cpu")
+    p.add_argument(
+        "--data_parallel", type=str, default="auto",
+        help="shard the frames over a launcher's processes (torchrun): 'auto' = "
+        "its world size (1 without one), N = exactly N processes, 'off' = one",
+    )
     p.add_argument(
         "--export_pt", action="store_true",
         help="also write reference-compatible noisy_latents_{t}.pt files",
@@ -319,7 +348,10 @@ def main(argv=None) -> dict:
     if opt.then_edit:  # a wrong stage-2 config fails now, not after the inversion
         family = infer_editor_family(cli_common.load_config(opt.then_edit), opt.then_edit)
     if opt.data_path.endswith((".mp4", ".mov", ".avi")):
-        video_io.video_to_frames(opt.data_path, img_size=(opt.W, opt.H))
+        group = mesh.frames_group_from_env(opt.data_parallel, opt.device)
+        if mesh.is_writer(group):
+            video_io.video_to_frames(opt.data_path, img_size=(opt.W, opt.H))
+        mesh.barrier(group)
         opt.data_path = os.path.join("data", Path(opt.data_path).stem)
     result = run(opt)
     if family is not None:

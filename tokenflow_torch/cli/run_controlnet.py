@@ -10,7 +10,8 @@ config.yaml dump and output tree (mp4s tagged ``ControlNet``) as
 ``preprocess --sd_version ControlNet``. ``controlnet_dir`` names a local
 diffusers-layout ControlNet (else random weights, whose zero projections
 add nothing). ``device`` is ``cuda`` (default) or ``cpu``; phase times go
-to ``metrics.json`` as ``run_pnp`` writes them.
+to ``metrics.json`` as ``run_pnp`` writes them. ``data_parallel`` shards
+the frames over a launcher's processes (``cli/common.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import argparse
 import os
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -29,12 +31,14 @@ from tokenflow_torch.io import video as video_io
 from tokenflow_torch.profiling import PhaseMetrics
 
 
-def edit_video(config: dict) -> np.ndarray:
+def edit_video(config: dict) -> Optional[np.ndarray]:
+    """The ControlNet edit of ``config``; returns the decoded frames (None
+    on the ranks other than 0 of a frames group)."""
     generator = utils.seed_everything(config["seed"])
     data = common.setup_editor(config)
     stack, device = data.stack, data.stack.device
     metrics = PhaseMetrics()
-    with common.device_phase(metrics, "vae_recon", device):
+    with common.device_phase(metrics, "vae_recon", device, data.group):
         common.save_vae_recon(data)
     controlnet, canny = controlnet_utils.build_controlnet(
         stack, data.frames, config.get("controlnet_dir"), config.get("init", "auto")
@@ -45,12 +49,12 @@ def edit_video(config: dict) -> np.ndarray:
     alpha_0 = sched.alphas_cumprod[sched.timesteps[0]]
     x_init = ddim.add_noise(data.latents, data.eps, alpha_0)
     pivots = common.resolve_pivots(
-        config, generator, len(schedule.timesteps), config["n_frames"]
+        config, generator, len(schedule.timesteps), config["n_frames"], data.group
     )
 
     latents_out, seconds = common.run_edit_loop(
         data, schedule, x_init, pivots, metrics, pnp=False,
-        controlnet_fn=controlnet, cond_image=canny,
+        controlnet_fn=controlnet, cond_image=data.local(canny),
     )
     n_steps = len(schedule.timesteps)
     fps = config["n_frames"] / seconds
@@ -66,7 +70,7 @@ def edit_video(config: dict) -> np.ndarray:
     metrics.add("n_steps", n_steps)
     metrics.add("pivot_indices", pivots.tolist())
     metrics.add("video_encoder", video_io.LAST_ENCODER)
-    metrics.dump(os.path.join(config["output_path"], "metrics.json"))
+    common.finish_metrics(data, metrics)
     print("Done!")
     return decoded
 
@@ -83,7 +87,7 @@ def resolve_output_path(config: dict) -> dict:
     return config
 
 
-def main(argv=None) -> np.ndarray:
+def main(argv=None) -> Optional[np.ndarray]:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument(
         "--config_path", type=str, default="configs/config_controlnet.yaml"
@@ -92,10 +96,9 @@ def main(argv=None) -> np.ndarray:
     config = common.load_config(opt.config_path)
     common.validate_config(config, "controlnet")
     config = resolve_output_path(config)
-    os.makedirs(config["output_path"], exist_ok=True)
     if not os.path.exists(config["data_path"]):
         raise FileNotFoundError(f"data path {config['data_path']} does not exist")
-    common.dump_config(config)
+    common.start_output(config)
     print(config)
     return edit_video(config)
 

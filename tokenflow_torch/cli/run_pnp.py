@@ -8,7 +8,10 @@ Same YAML keys, output-path encoding, config.yaml dump and output tree as
 ``tokenflow_tpu/cli/run_pnp.py``. ``device`` is ``cuda`` (default) or
 ``cpu``. A depth model (``sd_version: depth``) edits with each frame's
 depth map as the UNet's fifth channel (``depth_model_dir``: see
-``cli/common.py``).
+``cli/common.py``). Under a launcher, ``data_parallel`` shards the frames
+over its processes (``cli/common.py``):
+
+    torchrun --nproc_per_node 2 -m tokenflow_torch.cli.run_pnp --config_path ...
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import argparse
 import os
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -27,7 +31,9 @@ from tokenflow_torch.io import video as video_io
 from tokenflow_torch.profiling import PhaseMetrics
 
 
-def edit_video(config: dict) -> np.ndarray:
+def edit_video(config: dict) -> Optional[np.ndarray]:
+    """The PnP edit of ``config``; returns the decoded frames (None on the
+    ranks other than 0 of a frames group)."""
     generator = utils.seed_everything(config["seed"])
     data = common.setup_editor(config)
     stack, device = data.stack, data.stack.device
@@ -40,11 +46,11 @@ def edit_video(config: dict) -> np.ndarray:
     alpha_0 = sched.alphas_cumprod[sched.timesteps[0]]
     x_init = ddim.add_noise(data.latents, data.eps, alpha_0)
     pivots = common.resolve_pivots(
-        config, generator, len(schedule.timesteps), config["n_frames"]
+        config, generator, len(schedule.timesteps), config["n_frames"], data.group
     )
 
     metrics = PhaseMetrics()
-    with common.device_phase(metrics, "vae_recon", device):
+    with common.device_phase(metrics, "vae_recon", device, data.group):
         common.save_vae_recon(data)
     latents_out, seconds = common.run_edit_loop(data, schedule, x_init, pivots, metrics,
                                                 pnp=True, depth=common.load_depth(data))
@@ -61,7 +67,7 @@ def edit_video(config: dict) -> np.ndarray:
     metrics.add("n_steps", n_steps)
     metrics.add("pivot_indices", pivots.tolist())
     metrics.add("video_encoder", video_io.LAST_ENCODER)
-    metrics.dump(os.path.join(config["output_path"], "metrics.json"))
+    common.finish_metrics(data, metrics)
     print("Done!")
     return decoded
 
@@ -79,17 +85,16 @@ def resolve_output_path(config: dict) -> dict:
     return config
 
 
-def main(argv=None) -> np.ndarray:
+def main(argv=None) -> Optional[np.ndarray]:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config_path", type=str, default="configs/config_pnp.yaml")
     opt = parser.parse_args(argv)
     config = common.load_config(opt.config_path)
     common.validate_config(config, "pnp")
     config = resolve_output_path(config)
-    os.makedirs(config["output_path"], exist_ok=True)
     if not os.path.exists(config["data_path"]):
         raise FileNotFoundError(f"data path {config['data_path']} does not exist")
-    common.dump_config(config)
+    common.start_output(config)
     print(config)
     return edit_video(config)
 

@@ -10,15 +10,19 @@ encoding and output tree as ``tokenflow_tpu/cli/run_sdedit.py``.
 ``--vanilla`` runs the per-frame SDEdit baseline instead (no TokenFlow),
 writing ``img_ode_vanilla_sde/`` and ``vanilla_sde*.mp4``. ``device`` is
 ``cuda`` (default) or ``cpu``; ``group_norm_kernel: true`` runs every
-GroupNorm through K4. ``checkpoint_edit`` checkpoints both loops
-(``cli/common.py``).
+GroupNorm through K4. ``checkpoint_edit`` checkpoints both loops, and
+``data_parallel`` shards the frames of both over a launcher's processes
+(``cli/common.py``; the vanilla loop is frame-parallel, each rank samples
+its block in chunks of at most ``batch_size`` frames).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,7 +48,10 @@ def start_noise(config: dict, eps: torch.Tensor) -> torch.Tensor:
     return n1.to(eps.device).expand(eps.shape)
 
 
-def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
+def edit_video(config: dict, vanilla: bool = False) -> Optional[np.ndarray]:
+    """The SDEdit edit of ``config`` (``vanilla``: the per-frame baseline);
+    returns the decoded frames (None on the ranks other than 0 of a frames
+    group)."""
     common.refuse_depth_for_sdedit(config["sd_version"])
     generator = utils.seed_everything(config["seed"])
     data = common.setup_editor(config, use_steps_dir=False)
@@ -63,31 +70,37 @@ def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
     out = config["output_path"]
 
     if vanilla:
+        # the rank's frames in chunks of at most batch_size that divide them
+        chunk = math.gcd(config["batch_size"], x_init.shape[0])
+
         def step_fn(x, sched_seg, _piv):
             return pipeline.vanilla_sample_loop(
                 stack.unet_apply, x, data.embeds3[1:], sched_seg,
-                guidance_scale=config["guidance_scale"],
-                frame_chunk=config["batch_size"],
+                guidance_scale=config["guidance_scale"], frame_chunk=chunk,
             )
 
-        with common.device_phase(metrics, "edit_loop", device), utils.Timer() as t_edit:
+        with common.device_phase(metrics, "edit_loop", device, data.group), \
+                utils.Timer() as t_edit:
             latents_out = common.run_segmented_edit(
                 config, common.schedule_segments(config, schedule), step_fn, x_init,
                 data.identity,
             )
         seconds = t_edit.seconds
         with metrics.phase("decode_and_save"):
-            with common.device_phase(metrics, "decode", device):
-                decoded = stack.decode_latents(latents_out, batch=common.VAE_BATCH_SIZE)
-            decoded = decoded.cpu().numpy()
-            video_io.save_frames(decoded, os.path.join(out, "img_ode_vanilla_sde"))
-            for fps, name in (
-                (10, "vanilla_sde.mp4"), (20, "vanilla_sde_fps20.mp4"),
-                (30, "vanilla_sde_fps30.mp4"),
-            ):
-                video_io.save_video(decoded, os.path.join(out, name), fps=fps)
+            with common.device_phase(metrics, "decode", device, data.group):
+                decoded = stack.decode_latents(latents_out, batch=common.VAE_BATCH_SIZE,
+                                               group=data.group)
+            if decoded is not None:
+                decoded = decoded.cpu().numpy()
+                video_io.save_frames(decoded, os.path.join(out, "img_ode_vanilla_sde"))
+                for fps, name in (
+                    (10, "vanilla_sde.mp4"), (20, "vanilla_sde_fps20.mp4"),
+                    (30, "vanilla_sde_fps30.mp4"),
+                ):
+                    video_io.save_video(decoded, os.path.join(out, name), fps=fps)
     else:
-        pivots = common.resolve_pivots(config, generator, n_steps, config["n_frames"])
+        pivots = common.resolve_pivots(config, generator, n_steps, config["n_frames"],
+                                       data.group)
         latents_out, seconds = common.run_edit_loop(data, schedule, x_init, pivots, metrics,
                                                     pnp=False)
         metrics.add("pivot_indices", pivots.tolist())
@@ -104,9 +117,7 @@ def edit_video(config: dict, vanilla: bool = False) -> np.ndarray:
     metrics.add("edited_frames_per_sec", fps)
     metrics.add("n_steps", n_steps)
     metrics.add("video_encoder", video_io.LAST_ENCODER)
-    metrics.dump(
-        os.path.join(out, "metrics_vanilla.json" if vanilla else "metrics.json")
-    )
+    common.finish_metrics(data, metrics, "metrics_vanilla.json" if vanilla else "metrics.json")
     print("Done!")
     return decoded
 
@@ -123,7 +134,7 @@ def resolve_output_path(config: dict) -> dict:
     return config
 
 
-def main(argv=None) -> np.ndarray:
+def main(argv=None) -> Optional[np.ndarray]:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config_path", type=str, default="configs/config_sdedit.yaml")
     parser.add_argument(
@@ -134,10 +145,9 @@ def main(argv=None) -> np.ndarray:
     config = common.load_config(opt.config_path)
     common.validate_config(config, "sdedit")
     config = resolve_output_path(config)
-    os.makedirs(config["output_path"], exist_ok=True)
     if not os.path.exists(config["data_path"]):
         raise FileNotFoundError(f"data path {config['data_path']} does not exist")
-    common.dump_config(config)
+    common.start_output(config)
     print(config)
     return edit_video(config, vanilla=opt.vanilla)
 

@@ -15,7 +15,8 @@ their own batch (the conditioning images of their frames, one per stream).
 ``prop_approx`` (NON-PARITY) makes the propagation pass source-free
 ([uncond|cond]), and the pivotal pass too without PnP. With per-frame
 ``depth`` maps (the 5-channel depth UNet), every stream of both passes
-carries its frame's map as a fifth channel.
+carries its frame's map as a fifth channel. Over a frames group
+(``sharding/mesh.py``) both loops run on the rank's block of the frames.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ import torch
 
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.ops import editctx
-from tokenflow_torch.utils import segment_slices
 from tokenflow_torch.ops.propagation import propagation_indices
+from tokenflow_torch.sharding import mesh
+from tokenflow_torch.utils import segment_slices
 
 # unet_apply(sample, t, context, edit, **residuals) -> (eps, cache)
 UNetApply = Callable[..., tuple]
@@ -153,12 +155,14 @@ def tokenflow_sample_loop(
     guidance_scale: float,
     pnp: bool,
     pivot_indices: np.ndarray,  # (T, n_windows) absolute frame indices
-    propagate_chunk: Optional[int] = None,  # frames, multiple of window_size
+    propagate_chunk: Optional[int] = None,  # frames per propagation call
     phase: Callable[[str], ContextManager] = lambda name: contextlib.nullcontext(),
     controlnet_fn: Optional[ControlNetFn] = None,
     cond_image: Optional[torch.Tensor] = None,  # (F, H, W, 3) for controlnet_fn
     prop_approx: bool = False,
     depth: Optional[torch.Tensor] = None,  # (F, h, w, 1) for the depth UNet
+    group: Optional[mesh.FramesGroup] = None,
+    shard_pivotal: bool = True,
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
     x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
@@ -175,31 +179,55 @@ def tokenflow_sample_loop(
 
     ``depth`` (the 5-channel depth UNet): each stream's sample carries its
     frame's map, ``depth[pivots]`` in the pivotal pass and the chunk's maps
-    in the propagation pass."""
-    f_total = x_init.shape[0]
+    in the propagation pass.
+
+    ``group`` (a ``sharding.mesh.FramesGroup``): every frame-indexed input
+    (``x_init``, ``src_traj`` along its axis 1, ``depth``, ``cond_image``)
+    is this rank's block of the frames, and so is the result; the pivot
+    table stays global. The pivotal pass takes its keyframes' rows from the
+    ranks that own them (``mesh.take_frames``). With ``shard_pivotal`` (the
+    JAX CLI's default) each rank runs it on its block of the keyframes
+    (``mesh.split_counts``), its extended attention over all keyframes'
+    K/V, and the cache is then gathered (``mesh.gather_cache``); without,
+    every rank runs the whole pivotal pass. The propagation pass matches
+    the rank's frames against the replicated cache with global pivot
+    indices, in chunks of ``propagate_chunk`` of the rank's frames.
+
+    ``propagate_chunk`` must divide the (rank's) frames; unlike the JAX
+    loop's, it need not be a multiple of the window, since every frame's
+    pivot indices are global (the CLIs keep the JAX rule on the YAML key)."""
+    world = 1 if group is None else group.world
+    f_local = x_init.shape[0]
+    f_total = f_local * world
     n_windows = f_total // window_size
     if n_windows * window_size != f_total:
         raise ValueError(f"{f_total} frames are not a multiple of {window_size}")
-    chunk = propagate_chunk or f_total
-    if chunk % window_size or f_total % chunk:
-        raise ValueError(
-            f"propagate_chunk {chunk} must be a multiple of the window "
-            f"{window_size} and divide {f_total} frames"
-        )
+    # chunks need not align with windows: pa and pb are global indices
+    chunk = propagate_chunk or f_local
+    if f_local % chunk:
+        raise ValueError(f"propagate_chunk {chunk} must divide {f_local} frames")
     n_steps = len(schedule.timesteps)
     pivots = validate_pivot_indices(pivot_indices, n_steps, n_windows, window_size)
     dev = x_init.device
     # the pivot indices stay on the host: the match wrappers check their range
     # there without a device sync and copy them over asynchronously
-    pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f_total, window_size))
+    lo = 0 if group is None else group.rank * f_local
+    pa, pb, w1 = (torch.as_tensor(a[lo : lo + f_local])
+                  for a in propagation_indices(f_total, window_size))
     w1 = w1.to(dev)
+    # the pivotal pass: this rank's block of the keyframes, or all of them
+    piv_group = group if shard_pivotal else None
+    kf_counts = mesh.split_counts(n_windows, world) if piv_group is not None else None
+    kf_block = (slice(None) if kf_counts is None else
+                slice(sum(kf_counts[: group.rank]), sum(kf_counts[: group.rank + 1])))
+    n_kf = n_windows if kf_counts is None else kf_counts[group.rank]
     # stream counts: the propagation pass drops the source under approx; the
     # pivotal pass too when nothing injects from it (no PnP)
     n_prop = 2 if prop_approx else 3
     src_free_piv = prop_approx and not pnp
     n_piv = 2 if src_free_piv else 3
     # frame-major [inv, uncond, cond] (or [uncond, cond]) per frame
-    embeds_piv = (embeds3[1:] if src_free_piv else embeds3).repeat(n_windows, 1, 1)
+    embeds_piv = (embeds3[1:] if src_free_piv else embeds3).repeat(n_kf, 1, 1)
     embeds_prop = (embeds3[1:] if prop_approx else embeds3).repeat(chunk, 1, 1)
     if (controlnet_fn is None) != (cond_image is None):
         raise ValueError("controlnet_fn and cond_image come together")
@@ -219,35 +247,42 @@ def tokenflow_sample_loop(
     def part(a, sel):
         return None if a is None else a[sel]
 
+    def keyframes(a, piv):
+        """Rows ``piv`` of a frame-indexed input, this rank's block of them."""
+        return None if a is None else mesh.take_frames(group, a, piv)[kf_block]
+
     x = x_init
     for i in range(n_steps):
         t = int(schedule.timesteps[i])
         qk_g, conv_g = bool(schedule.qk_gate[i]), bool(schedule.conv_gate[i])
         src = src_traj[int(schedule.src_slot[i])]
-        piv = torch.as_tensor(pivots[i], dtype=torch.long, device=dev)
+        piv = pivots[i]
 
         with phase("pivotal"):
-            x_piv = x[piv]
             edit_piv = editctx.UNetEdit(
-                mode=editctx.EditMode.PIVOTAL, n_frames=n_windows, pnp=pnp,
+                mode=editctx.EditMode.PIVOTAL, n_frames=n_kf, pnp=pnp,
                 prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
+                group=piv_group, kf_counts=kf_counts,
             )
             # the pivot eps is discarded; only the cache matters (reference
             # run_tokenflow_pnp.py:227)
-            sample = streams(src[piv], x_piv, n_piv, part(depth, piv))
+            sample = streams(keyframes(src, piv) if n_piv == 3 else None,
+                             keyframes(x, piv), n_piv, keyframes(depth, piv))
             _, cache = unet_apply(
                 sample, t, embeds_piv, edit_piv,
-                **residuals(sample, t, embeds_piv, part(cond_image, piv), n_piv),
+                **residuals(sample, t, embeds_piv, keyframes(cond_image, piv), n_piv),
             )
+            cache = mesh.gather_cache(piv_group, cache, kf_counts)
 
         with phase("propagate"):
             eps3 = []
-            for c0 in range(0, f_total, chunk):
+            for c0 in range(0, f_local, chunk):
                 sl = slice(c0, c0 + chunk)
                 edit = editctx.UNetEdit(
                     mode=editctx.EditMode.PROPAGATE, n_frames=chunk, pnp=pnp,
                     prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
                     cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
+                    group=group,
                 )
                 sample = streams(src[sl], x[sl], n_prop, part(depth, sl))
                 eps_c, _ = unet_apply(
@@ -279,7 +314,10 @@ def vanilla_sample_loop(
     """Per-frame SDEdit baseline (no TokenFlow): 2-stream [uncond|cond] CFG
     sampling over chunks of ``frame_chunk`` frames (the JAX ``lax.map``
     over chunks, tokenflow_tpu/editing/pipeline.py:498-542). Returns the
-    denoised latents in x_init's dtype."""
+    denoised latents in x_init's dtype. Every frame is independent, so over
+    a frames group each rank passes its block of the frames (the JAX
+    package's sharded vanilla loop, ``tests/test_sharding.py``) and no rank
+    talks to another."""
     f_total = x_init.shape[0]
     chunk = frame_chunk or f_total
     if f_total % chunk:

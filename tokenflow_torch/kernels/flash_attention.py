@@ -28,6 +28,10 @@ at 3 x its flops on the 495 TFLOP/s TF32 tensor cores (and, read at the
 plain fp32 rate, at 67 TFLOP/s of FFMA). Its operands follow ``tma_operand``'s rule at 4 elements. An fp32
 operand is never cast to bf16. Mixed dtypes, any other dtype (fp16) or
 head dim on CUDA raise.
+
+:func:`flash_attention_sharded` is the entry over a frames group (the JAX
+package's ``_sharded_flash`` partitioning rule): it all-gathers K/V across
+the ranks and runs K1 on the rank's queries, counting its launches apart.
 """
 
 from __future__ import annotations
@@ -153,4 +157,45 @@ def flash_attention_kernel(
     launches_by_head_dim[d] = launches_by_head_dim.get(d, 0) + 1
     name = str(q.dtype).removeprefix("torch.")
     launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
+    return out
+
+
+# launches of K1 made through :func:`flash_attention_sharded` (also counted
+# in ``launches``), and by the per-rank (Sq, Skv) of each
+launches_sharded = 0
+launches_sharded_by_shape: dict[tuple[int, int], int] = {}
+
+
+def flash_attention_sharded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    group,
+    kv_sizes,
+    scale: float | None = None,
+    kv_block: int = 2048,
+) -> torch.Tensor:
+    """K1 over a frames group, the counterpart of ``flash_attention_sharded``
+    (``tokenflow_tpu/kernels/flash_attention.py:300``, partitioning rule
+    ``_sharded_flash`` :210): the queries stay on their rank, K and V are
+    all-gathered along the sequence axis (rank r holds ``kv_sizes[r]``
+    tokens of it, the keyframe axis flattened in: ``sharding/mesh.py``), and
+    each rank attends its queries against the full K/V, which is exact
+    because softmax rows are independent. The attention itself is
+    ``ops/attention.py::flash_attention`` on the gathered K/V: dense when it
+    fits ``kv_block``, else K1 on CUDA tensors and the plain version on CPU
+    ones. q: (B, Sq, H, D); k, v: (B, Skv_rank, H, D); returns (B, Sq, H,
+    D)."""
+    global launches_sharded
+    from tokenflow_torch.ops.attention import flash_attention
+    from tokenflow_torch.sharding.mesh import all_gather_along
+
+    k, v = (all_gather_along(group, t, 1, kv_sizes, "kv_all_gather") for t in (k, v))
+    before = launches
+    out = flash_attention(q, k, v, scale=scale, kv_block=kv_block)
+    if launches > before:  # K1 launched
+        launches_sharded += 1
+        shape = (q.shape[1], k.shape[1])
+        launches_sharded_by_shape[shape] = launches_sharded_by_shape.get(shape, 0) + 1
     return out

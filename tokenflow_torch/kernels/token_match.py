@@ -23,6 +23,11 @@ bound at 3 x its flops on the 495 TFLOP/s TF32 tensor cores, and at 67
 TFLOP/s of FFMA read at the plain fp32 rate), which K3 launches too; an fp32 table is never cast to
 bf16. The pivot indices' range is checked on host values: the main path
 passes them on the host, so no call waits for the device.
+
+:func:`token_match_gather_sharded` is the entry over a frames group (the
+JAX package's ``_sharded_match`` partitioning rule): the rank's frames
+against the replicated tables, K2 or K3 as the unsharded dispatch chooses,
+its launches counted apart.
 """
 
 from __future__ import annotations
@@ -220,3 +225,44 @@ def token_match_gather_kernel(
     launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
     launches_by_streams[ns] = launches_by_streams.get(ns, 0) + 1
     return (out, idx) if return_indices else out
+
+
+# launches of K2 or K3 made through :func:`token_match_gather_sharded` (also
+# counted in their own ``launches``), and by the per-rank (F, S, D) of each
+launches_sharded = 0
+launches_sharded_by_shape: dict[tuple[int, int, int], int] = {}
+
+
+def token_match_gather_sharded(
+    norm_h: torch.Tensor,  # (F_rank, S, D) the rank's frames
+    p_hat: torch.Tensor,  # (K, S, D) every keyframe, replicated
+    kf_attn: torch.Tensor,  # (ns, K, S, D) replicated
+    pa: torch.Tensor,  # (F_rank,) global keyframe indices
+    pb: torch.Tensor,  # (F_rank,)
+    w1: torch.Tensor,  # (F_rank,)
+) -> torch.Tensor:
+    """The match and gather over a frames group, the counterpart of
+    ``token_match_gather_sharded`` (``tokenflow_tpu/kernels/token_match.py:262``,
+    partitioning rule ``_sharded_match`` :189): the rank's frames against
+    the replicated keyframe tables, with global pivot indices, so no
+    exchange is needed. CUDA tensors launch K3 where ``use_split`` holds and
+    K2 elsewhere, as the unsharded dispatch (``ops/propagation.py``)
+    chooses; CPU tensors run the plain version. Returns (ns, F_rank, S, D)."""
+    global launches_sharded
+    from tokenflow_torch.kernels import token_match_split as k3
+
+    if not norm_h.is_cuda:
+        if norm_h.device.type != "cpu":
+            raise ValueError(f"no propagation path for device {norm_h.device}")
+        return token_match_gather_plain(norm_h, p_hat, kf_attn, pa, pb, w1)
+    f_rank, s, d = norm_h.shape
+    before = launches + k3.launches
+    kernel = (k3.token_match_gather_split_kernel if k3.use_split(s, d, kf_attn.shape[0])
+              else token_match_gather_kernel)
+    out = kernel(norm_h, p_hat, kf_attn, pa, pb, w1)
+    if launches + k3.launches == before:  # no frame or token: nothing launched
+        return out
+    launches_sharded += 1
+    shape = (f_rank, s, d)
+    launches_sharded_by_shape[shape] = launches_sharded_by_shape.get(shape, 0) + 1
+    return out

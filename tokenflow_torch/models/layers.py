@@ -23,7 +23,7 @@ from tokenflow_torch.kernels.group_norm import group_norm_kernel, group_norm_pla
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.attention import flash_attention, merge_heads, split_heads
 from tokenflow_torch.ops.extended_attention import extended_attention, inject_source_qk
-from tokenflow_torch.ops.propagation import token_propagation
+from tokenflow_torch.ops.propagation import token_propagation, token_propagation_sharded
 
 
 class FusedGroupNorm(nn.GroupNorm):
@@ -201,11 +201,12 @@ class BasicTransformerBlock(nn.Module):
             # projected stream-major, so the cached (ns, K, S, C) kf_attn is
             # contiguous and its [1:] view reaches the match kernels uncopied
             q, k, v = self.attn1.qkv(h3.transpose(0, 1).reshape(ns * kf, s, dim))
-            q3, k3, v3 = (t.reshape(ns, kf, s, -1) for t in (q, k, v))
+            q3, k3, v3 = (t.reshape(ns, kf, s, t.shape[-1]) for t in (q, k, v))
             if edit.qk_inject_site:
                 q3, k3 = inject_source_qk(q3, k3, edit.qk_gate)
-            o3 = extended_attention(q3, k3, v3, heads=self.heads, kv_block=self.kv_block)
-            kf_attn = self.attn1.out(o3.reshape(ns * kf, s, -1)).reshape(ns, kf, s, dim)
+            o3 = extended_attention(q3, k3, v3, heads=self.heads, kv_block=self.kv_block,
+                                    group=edit.group, kf_counts=edit.kf_counts)
+            kf_attn = self.attn1.out(o3.reshape(ns * kf, s, o3.shape[-1])).reshape(ns, kf, s, dim)
             attn_out = kf_attn.transpose(0, 1).reshape(b, s, dim)
             cache = {
                 # stream 0's normed states drive the NN matching: the source
@@ -219,7 +220,8 @@ class BasicTransformerBlock(nn.Module):
                 cache["pivot_h_uncond"] = h3[:, 1]
         elif mode == editctx.EditMode.PROPAGATE:
             f, ns = edit.n_frames, edit.n_streams
-            o3 = token_propagation(
+            propagate = token_propagation if edit.group is None else token_propagation_sharded
+            o3 = propagate(
                 h_norm.reshape(f, ns, s, dim)[:, 0],
                 edit.pivot_h, edit.kf_attn,
                 edit.prop_pa, edit.prop_pb, edit.prop_w1,
@@ -260,12 +262,12 @@ class Transformer2DModel(nn.Module):
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
         else:
             h = self.proj_in(h)
-            h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, -1)
+            h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, h.shape[1])
         h, cache = self.transformer_blocks[0](h, context, edit)
         if self.linear:
             h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         else:
-            h = self.proj_out(h.reshape(b, hh, ww, -1).permute(0, 3, 1, 2))
+            h = self.proj_out(h.reshape(b, hh, ww, h.shape[-1]).permute(0, 3, 1, 2))
         return h + x, cache
 
 

@@ -10,12 +10,17 @@ items laid out FRAME-MAJOR, item i = (frame i // ns, stream i % ns),
 streams [source, uncond, cond] (tokenflow_tpu/ops/editctx.py:7-16), or
 [uncond, cond] where the pass is source-free. Stream 0 of a batch always
 drives the NN matching.
+
+Over a frames group (``sharding/mesh.py``) a directive carries ``group``:
+a PIVOTAL pass then holds this rank's block of the keyframes (``kf_counts``
+gives every rank's count) and gathers the extended streams' K/V, and a
+PROPAGATE pass holds this rank's frames against the replicated cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -45,6 +50,8 @@ class BlockEdit:
     prop_pa: Optional[torch.Tensor] = None  # (F,) own-window pivot index
     prop_pb: Optional[torch.Tensor] = None  # (F,) previous-window pivot index
     prop_w1: Optional[torch.Tensor] = None  # (F,) blend weight of prop_pa
+    group: Optional[Any] = None  # sharding.mesh.FramesGroup of a sharded pass
+    kf_counts: Optional[tuple] = None  # PIVOTAL: keyframes per rank, rank order
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +98,8 @@ class UNetEdit:
     prop_pa: Optional[torch.Tensor] = None
     prop_pb: Optional[torch.Tensor] = None
     prop_w1: Optional[torch.Tensor] = None
+    group: Optional[Any] = None
+    kf_counts: Optional[tuple] = None
 
     def for_site(self, site: str) -> BlockEdit:
         entry = (self.cache or {}).get(site)
@@ -117,6 +126,8 @@ class UNetEdit:
             prop_pa=self.prop_pa,
             prop_pb=self.prop_pb,
             prop_w1=self.prop_w1,
+            group=self.group,
+            kf_counts=self.kf_counts,
         )
 
     def for_conv(self, site: str) -> Optional[ConvEdit]:

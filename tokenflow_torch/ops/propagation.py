@@ -18,13 +18,15 @@ import torch
 from tokenflow_torch.kernels.token_match import (
     token_match_gather_kernel,
     token_match_gather_plain as match_gather,
+    token_match_gather_sharded,
 )
 from tokenflow_torch.kernels.token_match_split import (
     token_match_gather_split_kernel,
     use_split,
 )
 
-__all__ = ["match_gather", "propagation_indices", "token_propagation"]
+__all__ = ["match_gather", "propagation_indices", "token_propagation",
+           "token_propagation_sharded"]
 
 
 def propagation_indices(
@@ -46,6 +48,15 @@ def propagation_indices(
     return pa.astype(np.int32), pb.astype(np.int32), w1.astype(np.float32)
 
 
+def _pivots_hat(pivot_h_src: torch.Tensor, norm_h_src: torch.Tensor) -> torch.Tensor:
+    """The L2-normalized pivot states, in fp32 and then in the query dtype
+    on CUDA (as the TPU dispatch casts them, tokenflow_tpu/ops/propagation.py:
+    186-209), in fp32 on the CPU."""
+    p = pivot_h_src.float()
+    p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
+    return p_hat.to(norm_h_src.dtype) if norm_h_src.is_cuda else p_hat
+
+
 def token_propagation(
     norm_h_src: torch.Tensor,  # (F, S, D) stream-0 normed states
     pivot_h_src: torch.Tensor,  # (K, S, D) cached pivot states of that stream
@@ -61,15 +72,24 @@ def token_propagation(
     sites) and K2 elsewhere, with the normalized pivots cast to the query
     dtype (as the TPU dispatch does, tokenflow_tpu/ops/propagation.py:
     186-209); CPU tensors run the plain version on fp32 normalized pivots."""
-    p = pivot_h_src.float()
-    p_hat = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-12)
+    p_hat = _pivots_hat(pivot_h_src, norm_h_src)
     if norm_h_src.is_cuda:
         _, s, d = norm_h_src.shape
         kernel = (
             token_match_gather_split_kernel if use_split(s, d, kf_attn.shape[0])
             else token_match_gather_kernel
         )
-        return kernel(norm_h_src, p_hat.to(norm_h_src.dtype), kf_attn, pa, pb, w1)
+        return kernel(norm_h_src, p_hat, kf_attn, pa, pb, w1)
     if norm_h_src.device.type != "cpu":
         raise ValueError(f"no propagation path for device {norm_h_src.device}")
     return match_gather(norm_h_src, p_hat, kf_attn, pa, pb, w1)
+
+
+def token_propagation_sharded(norm_h_src, pivot_h_src, kf_attn, pa, pb, w1) -> torch.Tensor:
+    """:func:`token_propagation` over a frames group: ``norm_h_src`` and the
+    per-frame ``pa``/``pb``/``w1`` are the rank's block of the frames, the
+    cache replicated, and the pivot indices global; the match and gather go
+    through ``token_match_gather_sharded``, which chooses K2 or K3 as
+    :func:`token_propagation` does."""
+    return token_match_gather_sharded(
+        norm_h_src, _pivots_hat(pivot_h_src, norm_h_src), kf_attn, pa, pb, w1)

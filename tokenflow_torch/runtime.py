@@ -25,6 +25,7 @@ from tokenflow_torch.models.layers import FusedGroupNorm
 from tokenflow_torch.models.unet2d import UNet2DConditionModel, UNet2DConfig
 from tokenflow_torch.models.vae import AutoencoderKL, AutoencoderKLConfig
 from tokenflow_torch.io.tokenizer import CLIPTokenizer, HashTokenizer
+from tokenflow_torch.sharding import mesh
 
 MODEL_KEYS = {
     "2.1": "stabilityai/stable-diffusion-2-1-base",
@@ -210,23 +211,32 @@ class SDStack:
     # ---- VAE ----------------------------------------------------------
 
     @torch.inference_mode()
-    def encode_frames(self, frames, *, batch: int = 10) -> torch.Tensor:
+    def encode_frames(self, frames, *, batch: int = 10, group=None) -> torch.Tensor:
         """float (F, H, W, 3) in [0, 1] -> scaled latents (F, h, w, 4) fp32
-        (posterior mean, as every reference call site)."""
-        x = torch.as_tensor(np.asarray(frames), device=self.device) * 2.0 - 1.0
+        (posterior mean, as every reference call site), in batches of
+        ``batch`` frames. Over a frames ``group`` (``sharding/mesh.py``) the
+        rank encodes its block of the frames and returns its latents."""
+        frames = np.asarray(frames)
+        if group is not None:
+            frames = group.local(frames)
+        x = torch.as_tensor(frames, device=self.device) * 2.0 - 1.0
         out = torch.cat([
             self.vae.encode(x[i : i + batch]).float() for i in range(0, len(x), batch)
         ])
         return out * self.vae.config.scaling_factor
 
     @torch.inference_mode()
-    def decode_latents(self, latents: torch.Tensor, *, batch: int = 10) -> torch.Tensor:
-        """scaled latents -> fp32 images (F, H, W, 3) in [0, 1]."""
+    def decode_latents(self, latents: torch.Tensor, *, batch: int = 10,
+                       group=None) -> Optional[torch.Tensor]:
+        """scaled latents -> fp32 images (F, H, W, 3) in [0, 1], in batches of
+        ``batch`` frames. Over a frames ``group`` ``latents`` are the rank's
+        block of the frames: each rank decodes its own, and rank 0 receives
+        all the images in frame order (the other ranks None)."""
         z = latents.to(self.device).float() / self.vae.config.scaling_factor
         img = torch.cat([
             self.vae.decode(z[i : i + batch]).float() for i in range(0, len(z), batch)
         ])
-        return (img / 2.0 + 0.5).clamp(0.0, 1.0)
+        return mesh.gather_to_rank0(group, (img / 2.0 + 0.5).clamp(0.0, 1.0))
 
     # ---- UNet ---------------------------------------------------------
 
