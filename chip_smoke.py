@@ -60,7 +60,19 @@ Phases (any failure raises, and the script exits non-zero):
      the bf16 10-step edit with and without shard_pivotal against a
      single-rank edit of the same batch shapes (without: bit for bit), and
      in fp32 each of the first steps, with a no-gather control that must
-     fail the limit the sound runs meet. ``[resume]`` (``run_resume_path``): checkpoint/resume
+     fail the limit the sound runs meet. ``[fused]`` (``run_fused_path``,
+     right after the main path, under a watchdog): the single-pass fused
+     step on the main path's latents and pinned pivots, one UNet call a
+     step on 15 + 120 items: the 10-step bf16 edit through ``run_pnp`` with
+     ``fused_step: true``, whose K1 and K2 launches must equal the
+     two-pass edit's (K2 at three streams only); fused and two-pass edits
+     of the first steps in turns on a held stack (s/step, peak memory; the
+     fused latents within SHARDED_BF16_REL_L2 of the two-pass ones); a
+     2-step fused edit under ``profiling.trace``, whose trace must name K1's
+     and K2's CUDA functions; and in fp32 each of the first steps, fused,
+     from the two-pass edit's latents, within FUSED_F32_REL_L2 of its step,
+     with a control (the frames propagating from the other step's pivot
+     segment) that must read above it. ``[resume]`` (``run_resume_path``): checkpoint/resume
      through the CLIs in subprocesses at 40 x 512^2 (SD-2.1, bf16):
      preprocess + run_pnp uninterrupted; preprocess --checkpoint_inversion
      --then_edit killed at its first inversion checkpoint; the same command
@@ -1515,12 +1527,12 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
 
 
 def _edit_report(out_dir: str, n_steps: int) -> dict:
-    """An edit's seconds per step by pass (pivotal and propagate) and their
-    sum, from its metrics.json."""
+    """An edit's seconds per step by pass (pivotal and propagate, or the
+    fused step) and their sum, from its metrics.json."""
     with open(os.path.join(out_dir, "metrics.json")) as f:
         ph = json.load(f)["phases_seconds"]
     passes = {f"{name}_seconds_per_step": ph[f"edit_{name}"] / n_steps
-              for name in ("pivotal", "propagate")}
+              for name in ("pivotal", "propagate", "fused") if f"edit_{name}" in ph}
     return {
         **passes,
         "step_seconds": sum(passes.values()),
@@ -2761,6 +2773,29 @@ SHARDED_F32_REL_L2 = 5e-4
 SHARDED_RUNS = (("shard_pivotal", True, True), ("replicated_pivotal", False, True),
                 ("no_gather_control", True, False))
 
+# the [fused] phase (run_fused_path): the single-pass fused step on the main
+# path's latents and pivot table (PnP 512^2, SD-2.1, 40 frames, window 8, so
+# 5 pivots: one UNet call a step on 3 x 5 + 3 x 40 items)
+# fused and two-pass edits in turns, this many each, of the edit's first
+# FUSED_READING_STEPS steps (q/k and conv injection on in all of them)
+FUSED_READINGS = 3
+FUSED_READING_STEPS = 5
+# fp32 (TF32 off, the fp32 kernels): each of the first FUSED_F32_STEPS steps,
+# fused, from the two-pass edit's latents against that edit's step, rel L2
+# of the latents. Sound: the two passes' maths in other batch shapes, so
+# fp32 rounding and near-tie flips only. The control feeds the frames the
+# other step's pivot segment, so that they propagate from a cache of other
+# latents. On the H100 the sound steps read 1.60e-4 and 3.90e-5, the control
+# 0.835 and 0.392 in a dev call (PERF.md §6); the limit is ~3x the larger sound
+# reading, as the sharded pivotal pass's (other batch shapes too), since
+# the readings move between processes with the hash-salted prompt ids
+FUSED_F32_STEPS = 2
+FUSED_F32_REL_L2 = 5e-4
+# fused steps traced under profiling.trace
+FUSED_TRACE_STEPS = 2
+# the phase ends the run if it takes longer (a hung kernel); it took 62.4 s
+FUSED_SECONDS = 240
+
 
 def sharded_kernel_rows(group) -> dict:
     """B3 on the card, on one rank: K1 through ``flash_attention_sharded`` on
@@ -2925,6 +2960,41 @@ def latents_rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def main_edit_of(out_dir: str) -> tuple[dict, np.ndarray]:
+    """The config and pivot table of the PnP edit written to ``out_dir``."""
+    import yaml
+
+    with open(os.path.join(out_dir, "config.yaml")) as f:
+        config = yaml.safe_load(f)
+    with open(os.path.join(out_dir, "pivots.json")) as f:
+        return config, np.asarray(json.load(f)["pivot_indices"], np.int32)
+
+
+def editor_inputs(root: str, config: dict, dtype: str, output_path: str) -> tuple:
+    """The PnP editor's inputs of ``config`` with the stack in ``dtype``, read
+    from the path's ``root``: (EditorData, edit schedule, start latents,
+    trajectory), the latents and trajectory on the card in the stack's
+    dtype."""
+    from tokenflow_torch.cli import common
+    from tokenflow_torch.diffusion import ddim
+    from tokenflow_torch.editing import pipeline
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        data = common.setup_editor(dict(config, dtype=dtype, output_path=output_path))
+    finally:
+        os.chdir(cwd)
+    sched = ddim.make_schedule(config["n_timesteps"])
+    schedule = pipeline.make_edit_schedule(sched, data.trajectory.save_ts,
+                                           pnp_attn_t=config["pnp_attn_t"],
+                                           pnp_f_t=config["pnp_f_t"])
+    x_init = ddim.add_noise(data.latents, data.eps,
+                            sched.alphas_cumprod[sched.timesteps[0]]).to(data.stack.dtype)
+    traj = torch.as_tensor(data.trajectory.traj, device=data.stack.device).to(data.stack.dtype)
+    return data, schedule, x_init, traj
+
+
 def run_sharded_path(root: str, main_out_dir: str) -> dict:
     """``[sharded]``: the port's frames sharding on the card, on the main
     path's latents (run from its ``root``) and pivot table. This process
@@ -2946,38 +3016,19 @@ def run_sharded_path(root: str, main_out_dir: str) -> dict:
     gather (the control): the sound runs within SHARDED_F32_REL_L2 of the
     single-rank step, the control above it (``check_control``). Two ranks on
     one card prove correctness and the sharded launches, not NCCL scaling."""
-    import yaml
-
     from tokenflow_torch.cli import common
-    from tokenflow_torch.diffusion import ddim
     from tokenflow_torch.editing import pipeline
     from tokenflow_torch.profiling import PhaseMetrics
 
     t_phase = time.perf_counter()
-    with open(os.path.join(main_out_dir, "config.yaml")) as f:
-        config = yaml.safe_load(f)
-    with open(os.path.join(main_out_dir, "pivots.json")) as f:
-        pivots = np.asarray(json.load(f)["pivot_indices"], np.int32)
+    config, pivots = main_edit_of(main_out_dir)
     out = os.path.join(root, "sharded")
     os.makedirs(out)
     chunk = config["n_frames"] // SHARDED_RANKS
-    sched = ddim.make_schedule(config["n_timesteps"])
     inputs, single = {"pivots": pivots}, {}
     for dtype in ("bf16", "f32"):
-        cwd = os.getcwd()
-        os.chdir(root)
-        try:
-            data = common.setup_editor(dict(config, dtype=dtype,
-                                            output_path=os.path.join(out, dtype)))
-        finally:
-            os.chdir(cwd)
-        schedule = pipeline.make_edit_schedule(sched, data.trajectory.save_ts,
-                                               pnp_attn_t=config["pnp_attn_t"],
-                                               pnp_f_t=config["pnp_f_t"])
-        x_init = ddim.add_noise(data.latents, data.eps,
-                                sched.alphas_cumprod[sched.timesteps[0]]).to(data.stack.dtype)
-        traj = torch.as_tensor(data.trajectory.traj, device=data.stack.device)
-        traj = traj.to(data.stack.dtype)
+        data, schedule, x_init, traj = editor_inputs(root, config, dtype,
+                                                     os.path.join(out, dtype))
         segments = pipeline.split_schedule(schedule, 1)
         if dtype == "f32":
             segments = segments[:SHARDED_F32_STEPS]
@@ -3086,6 +3137,168 @@ def run_sharded_path(root: str, main_out_dir: str) -> dict:
     return report
 
 
+def trace_kernels(trace_dir: str) -> dict:
+    """The one ``*.pt.trace.json`` that ``profiling.trace`` wrote to
+    ``trace_dir``: its size and the count of its device kernel events by
+    kernel family (K1: ``flash_fwd``, the match core: ``match_core``,
+    others)."""
+    import glob
+
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"[fused] the trace dir holds {files}, not one trace")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    counts = {"flash_fwd": 0, "match_core": 0, "other": 0}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "")
+            family = next((k for k in ("flash_fwd", "match_core") if k in name), "other")
+            counts[family] += 1
+    return {"file": os.path.basename(files[0]), "bytes": os.path.getsize(files[0]),
+            "kernel_events": counts}
+
+
+def run_fused_path(root: str, main_out_dir: str, two_pass: dict) -> dict:
+    """``[fused]``: the single-pass fused step (``fused_step: true``,
+    ``EditMode.FUSED``) on the main path's latents (run from its ``root``)
+    and pivot table. The 10-step bf16 edit through ``run_pnp`` (counts
+    zeroed just before, read just after): its K1 and K2 launches must equal
+    those of ``two_pass``, the main path's second two-pass edit through the
+    same CLI (K2 at three streams only; no K3, K4 or fp32 kernel). Then, on
+    a held bf16 stack, fused and two-pass edits of the first
+    FUSED_READING_STEPS steps in turns, FUSED_READINGS each (host clock
+    after a synchronize; peak ``max_memory_allocated`` of each kind), the
+    fused latents within SHARDED_BF16_REL_L2 of the two-pass ones (bf16 on
+    random weights tells only gross faults from a change of batch shape,
+    see that constant); FUSED_TRACE_STEPS fused steps under
+    ``profiling.trace``, whose trace must hold K1's (``flash_fwd``) and
+    the match core's (``match_core``) kernels; and, on the fp32 stack
+    (TF32 off), each of the first FUSED_F32_STEPS steps fused from the
+    two-pass edit's latents against that edit's step, within
+    FUSED_F32_REL_L2, with a control that feeds the frames the other step's
+    pivot segment and must read above it (``check_control``)."""
+    from tokenflow_torch import profiling
+    from tokenflow_torch.cli import run_pnp
+    from tokenflow_torch.editing import pipeline
+
+    t_phase = time.perf_counter()
+    config, pivots = main_edit_of(main_out_dir)
+    n_steps, kf = config["n_timesteps"], config["n_frames"] // config["batch_size"]
+    out = os.path.join(root, "fused")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        cli = run_variant(run_pnp, dict(config, pivot_indices=pivots.tolist()), "pnp_fused",
+                          {"fused_step": True}, n_steps,
+                          ("flash_attention", "token_match_gather"),
+                          ("token_match_gather_split", "group_norm") + F32_KERNELS, 3)
+    finally:
+        os.chdir(cwd)
+    for name in ("flash_attention", "token_match_gather"):
+        if cli["launches"][name] != two_pass["launches"][name]:
+            raise AssertionError(f"[fused] {name} launched {cli['launches'][name]} times, the "
+                                 f"two-pass edit {two_pass['launches'][name]}")
+
+    def loop(stack, traj, embeds3, x, schedule, piv, fused, unet=None):
+        return pipeline.tokenflow_sample_loop(
+            unet or stack.unet_apply, x, traj, embeds3, schedule,
+            window_size=config["batch_size"], guidance_scale=config["guidance_scale"],
+            pnp=True, pivot_indices=piv, fused=fused)
+
+    data, schedule, x_init, traj = editor_inputs(root, config, "bf16", os.path.join(out, "bf16"))
+    first = pipeline.split_schedule(schedule, FUSED_READING_STEPS)[0]
+    seconds, peaks, lat = {"fused": [], "two_pass": []}, {}, {}
+    for _ in range(FUSED_READINGS):
+        for name in ("fused", "two_pass"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            y = loop(data.stack, traj, data.embeds3, x_init, first,
+                     pivots[:FUSED_READING_STEPS], name == "fused")
+            torch.cuda.synchronize()
+            seconds[name].append((time.perf_counter() - t0) / FUSED_READING_STEPS)
+            peaks[name] = max(peaks.get(name, 0), torch.cuda.max_memory_allocated())
+            lat.setdefault(name, y)
+    trace_dir = os.path.join(out, "trace")
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        loop(data.stack, traj, data.embeds3, x_init,
+             pipeline.split_schedule(schedule, FUSED_TRACE_STEPS)[0],
+             pivots[:FUSED_TRACE_STEPS], True)
+    traced = trace_kernels(trace_dir) | {"seconds": time.perf_counter() - t0}
+    bf16_rel_l2 = latents_rel_l2(lat["fused"], lat["two_pass"])
+    finite = all(bool(torch.isfinite(v).all()) for v in lat.values())
+    del data, traj, x_init, lat, y
+    torch.cuda.empty_cache()
+
+    # fp32: each step fused from the two-pass edit's latents of that step
+    data, schedule, x_init, traj = editor_inputs(root, config, "f32", os.path.join(out, "f32"))
+    segments = pipeline.split_schedule(schedule, 1)[:FUSED_F32_STEPS]
+    xs = [x_init]
+    for i, seg in enumerate(segments):
+        xs.append(loop(data.stack, traj, data.embeds3, xs[-1], seg, pivots[i : i + 1], False))
+    pivot_segments = []
+
+    def recording(sample, *args, **kw):
+        pivot_segments.append(sample[: 3 * kf].clone())
+        return data.stack.unet_apply(sample, *args, **kw)
+
+    def other_step(i):
+        def unet(sample, *args, **kw):
+            sample = torch.cat([pivot_segments[1 - i], sample[3 * kf :]])
+            return data.stack.unet_apply(sample, *args, **kw)
+        return unet
+
+    f32 = {"sound": [], "control": []}
+    for i, seg in enumerate(segments):
+        y = loop(data.stack, traj, data.embeds3, xs[i], seg, pivots[i : i + 1], True, recording)
+        f32["sound"].append(latents_rel_l2(y, xs[i + 1]))
+    for i, seg in enumerate(segments):
+        y = loop(data.stack, traj, data.embeds3, xs[i], seg, pivots[i : i + 1], True,
+                 other_step(i))
+        f32["control"].append(latents_rel_l2(y, xs[i + 1]))
+    finite = finite and bool(torch.isfinite(y).all())
+    del data, traj, x_init, xs, y, pivot_segments
+    torch.cuda.empty_cache()
+
+    report = {
+        "card": card_line(),
+        "cli": cli,
+        "cli_vs_two_pass_cli_seconds_per_step": {
+            "fused": cli["fused_seconds_per_step"],
+            "two_pass": two_pass["step_seconds"],
+        },
+        "reading_steps": FUSED_READING_STEPS,
+        "seconds_per_step_readings": seconds,
+        "seconds_per_step_median": {k: float(np.median(v)) for k, v in seconds.items()},
+        "peak_memory_bytes": peaks,
+        "bf16_rel_l2_vs_two_pass": bf16_rel_l2,
+        "bf16_rel_l2_limit": SHARDED_BF16_REL_L2,
+        "trace": traced,
+        "f32_step_rel_l2_vs_two_pass": f32,
+        "f32_step_rel_l2_limit": FUSED_F32_REL_L2,
+        "finite": finite,
+        "launches": cli["launches"],
+    }
+    report["seconds"] = time.perf_counter() - t_phase
+    for k, v in report.items():
+        if k != "cli":
+            print(f"[fused] {k}: {v}", flush=True)
+    if not finite:
+        raise AssertionError("[fused] non-finite latents")
+    if not bf16_rel_l2 <= SHARDED_BF16_REL_L2:
+        raise AssertionError(f"[fused] bf16 fused edit: rel L2 {bf16_rel_l2} against the "
+                             f"two-pass edit > {SHARDED_BF16_REL_L2}")
+    kernels = traced["kernel_events"]
+    if not (kernels["flash_fwd"] > 0 and kernels["match_core"] > 0):
+        raise AssertionError(f"[fused] the trace names no K1 or no K2 kernel: {kernels}")
+    check_control("[fused] fp32, each fused step vs the two-pass step", max(f32["sound"]),
+                  min(f32["control"]), FUSED_F32_REL_L2,
+                  control_name="the other-step pivot control")
+    return report
+
+
 def main() -> int:
     # phase 0: the card
     if not torch.cuda.is_available():
@@ -3125,6 +3338,9 @@ def main() -> int:
     # just before it and read just after
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         report = run_main_path(root)
+        with watchdog(FUSED_SECONDS, "the [fused] phase"):
+            fused = run_fused_path(root, report["output_dir"],
+                                   report["variants"]["pnp_exact_again"])
         clip = check_clip(root, report["output_dir"],
                           report["variants"]["pnp_approx"]["output_dir"],
                           "a marble sculpture of a woman running")
@@ -3159,7 +3375,8 @@ def main() -> int:
     by_path = {"pnp_512": report["launches"], "sdedit_768": sdedit["launches"],
                "controlnet_512": controlnet["launches"], "pnp_512_depth": depth["launches"],
                "pnp_512_f32": pnp_f32["launches"], "sdedit_768_f32": sdedit_f32["launches"],
-               "pnp_512_sharded_2_ranks": sharded["launches"]}
+               "pnp_512_sharded_2_ranks": sharded["launches"],
+               "pnp_512_fused": fused["launches"]}
     for path in (report, sdedit, controlnet, depth):  # the approximate edits
         by_path.update({name: v["launches"] for name, v in path["variants"].items()})
     for entry in kernels:
@@ -3173,7 +3390,7 @@ def main() -> int:
                       "controlnet_path": controlnet, "depth_path": depth,
                       "pnp_f32_path": pnp_f32,
                       "sdedit_f32_path": sdedit_f32, "clip": clip,
-                      "resume": resume, "sharded": sharded}), flush=True)
+                      "resume": resume, "sharded": sharded, "fused": fused}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({

@@ -8,8 +8,8 @@ tiny stack on the CPU (fp32):
   saved boundary and equals the uninterrupted run; the checkpoint is gone
   after completion;
 - a stale checkpoint (another prompt, source video, start-latent geometry,
-  ``prop_approx``, ``dtype``, ``group_norm_kernel``, weights or token ids)
-  is ignored, by the edit and by the inversion;
+  ``prop_approx``, ``dtype``, ``group_norm_kernel``, ``fused_step``, weights
+  or token ids) is ignored, by the edit and by the inversion;
 - an unreadable file is ignored, and saves leave no temporary file;
 - the ``checkpoint_every`` cadence;
 - a killed and resumed inversion gives the uninterrupted trajectory bit for
@@ -134,16 +134,17 @@ def test_run_segmented_edit_checkpoint_resume(tmp_path, capsys):
 @pytest.mark.parametrize(
     "change",
     [dict(prompt="different"), dict(data_path="data/video_b"), dict(prop_approx=True),
-     dict(dtype="bf16"), dict(group_norm_kernel=True), "x_init",
+     dict(dtype="bf16"), dict(group_norm_kernel=True), dict(fused_step=True), "x_init",
      dict(init="pretrained", model_dir="/ckpt/sd21"), dict(model_dir="/ckpt/other"),
      dict(token_ids="ids-b")],
-    ids=["prompt", "data_path", "prop_approx", "dtype", "group_norm_kernel", "x_init",
-         "init", "model_dir", "token_ids"],
+    ids=["prompt", "data_path", "prop_approx", "dtype", "group_norm_kernel", "fused_step",
+         "x_init", "init", "model_dir", "token_ids"],
 )
 def test_stale_checkpoint_is_ignored(tmp_path, change):
     """A checkpoint never seeds a run whose config, numerics, input or stack
-    differ; the port's own ``dtype`` and ``group_norm_kernel`` are part of
-    the run's identity (K4 and ``F.group_norm`` differ in their last bits),
+    differ; the port's own ``dtype``, ``group_norm_kernel`` and
+    ``fused_step`` are part of the run's identity (K4 and ``F.group_norm``,
+    one UNet call a step or two, differ in their last bits),
     and so are the resolved weights (``init`` and ``model_dir``: with
     ``init: auto`` one YAML runs on either) and the prompts' token ids."""
     config = dict(_edit_config(), output_path=str(tmp_path), checkpoint_edit=True)

@@ -4,7 +4,8 @@ groups of 2 and 3 CPU processes, one case for each case of
 tests/test_sharding.py: the edit loop (pivotal pass whole on every rank),
 the vanilla loop, windows that straddle the ranks, the sharded pivotal pass
 at even and uneven pivot counts (and with fewer pivots than ranks),
-``prop_approx`` over a sharded pivotal pass, inversion, VAE encode/decode,
+``prop_approx`` over a sharded pivotal pass, the single-pass fused step
+(every rank runs all the pivots), inversion, VAE encode/decode,
 a checkpointed edit killed between segments and resumed, and
 ``check_divisible``'s errors; and B3's entries on their plain paths.
 
@@ -107,9 +108,9 @@ def ranks(setup):
     return out
 
 
-def _jax_edit(setup, window, prop_approx):
+def _jax_edit(setup, window, prop_approx, fused=False):
     """The JAX single-device edit loop, cached by geometry."""
-    key = ("edit", window, prop_approx)
+    key = ("edit", window, prop_approx, fused)
     if key not in setup["jax"]:
         inputs, model = setup["inputs"], setup["model"]
         sched = jddim.make_schedule(W.STEPS)
@@ -122,6 +123,7 @@ def _jax_edit(setup, window, prop_approx):
             window_size=window, guidance_scale=7.5, pnp=True,
             rng=jax.random.PRNGKey(0),  # unused: pivots pinned
             pivot_indices=setup["inputs"]["pivots"][window], prop_approx=prop_approx,
+            fused=fused,
         ))
     return setup["jax"][key]
 
@@ -138,18 +140,18 @@ def test_sharded_edit_loop_matches_single_device(setup, ranks, world, case):
     """Each edit case on ``world`` ranks against the JAX single-device loop
     and the port's one-process loop (``torch_sharding_workers.edit_case``
     gives each case's window and switches)."""
-    window, shard, approx = W.edit_case(case, world)
+    window, switches = W.edit_case(case, world)
     counts = mesh.split_counts(W.F // window, world)
     if case == "pivotal_uneven":
         assert len(set(counts)) == 2 and min(counts) > 0, counts
     if case == "fewer_pivots_than_ranks":
         assert 0 in counts, counts
-    if case in ("straddle", "pivotal_uneven"):
+    if case in ("straddle", "pivotal_uneven", "fused"):
         assert mesh.check_divisible(W.F, world, window) is False  # straddles
     with torch.inference_mode():
-        port = W.edit(setup["unet"], setup["inputs"], window, shard_pivotal=shard,
-                      prop_approx=approx)
-    _check(ranks[world][0][case], _jax_edit(setup, window, approx), port)
+        port = W.edit(setup["unet"], setup["inputs"], window, **switches)
+    _check(ranks[world][0][case],
+           _jax_edit(setup, window, switches["prop_approx"], switches["fused"]), port)
     assert all(r[case] is None for r in ranks[world][1:])  # gathered on rank 0 only
 
 

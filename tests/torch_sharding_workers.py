@@ -15,27 +15,31 @@ import torch
 HW, STEPS, F = 8, 2, 12  # latent size, edit steps, frames (divide over 2 and 3 ranks)
 INV_STEPS = 4
 EDIT_CASES = ("edit_loop", "pivotal_even", "pivotal_uneven", "straddle",
-              "fewer_pivots_than_ranks", "prop_approx")
+              "fewer_pivots_than_ranks", "prop_approx", "fused")
 
 
-def edit_case(case: str, world: int) -> tuple[int, bool, bool]:
-    """(window, shard_pivotal, prop_approx) of an edit case on ``world``
-    ranks of 12 frames: ``edit_loop`` runs the pivotal pass whole on every
-    rank (the JAX test's ``sharded_edit_loop`` default), ``pivotal_even``
-    splits 6 pivots evenly, ``pivotal_uneven`` 3 over 2 (2 + 1) or 4 over 3
-    (2 + 1 + 1) with windows that straddle the ranks, ``straddle`` the same
-    windows with the pivotal pass whole, ``fewer_pivots_than_ranks`` 1 over
-    2 or 2 over 3 (a rank holds no keyframe), ``prop_approx`` the
-    approximate pass over split pivots."""
+def edit_case(case: str, world: int) -> tuple[int, dict]:
+    """(window, the loop's shard_pivotal, prop_approx and fused switches) of
+    an edit case on ``world`` ranks of 12 frames: ``edit_loop`` runs the
+    pivotal pass whole on every rank (the JAX test's ``sharded_edit_loop``
+    default), ``pivotal_even`` splits 6 pivots evenly, ``pivotal_uneven`` 3
+    over 2 (2 + 1) or 4 over 3 (2 + 1 + 1) with windows that straddle the
+    ranks, ``straddle`` the same windows with the pivotal pass whole,
+    ``fewer_pivots_than_ranks`` 1 over 2 or 2 over 3 (a rank holds no
+    keyframe), ``prop_approx`` the approximate pass over split pivots,
+    ``fused`` the single-pass step (every rank runs all the pivots beside
+    its frames) on the straddling windows."""
     uneven = {2: 4, 3: 3}[world]
-    return {
-        "edit_loop": (2, False, False),
-        "pivotal_even": (2, True, False),
-        "pivotal_uneven": (uneven, True, False),
-        "straddle": (uneven, False, False),
-        "fewer_pivots_than_ranks": ({2: 12, 3: 6}[world], True, False),
-        "prop_approx": (2, True, True),
+    window, shard, approx, fused = {
+        "edit_loop": (2, False, False, False),
+        "pivotal_even": (2, True, False, False),
+        "pivotal_uneven": (uneven, True, False, False),
+        "straddle": (uneven, False, False, False),
+        "fewer_pivots_than_ranks": ({2: 12, 3: 6}[world], True, False, False),
+        "prop_approx": (2, True, True, False),
+        "fused": (uneven, True, False, True),
     }[case]
+    return window, dict(shard_pivotal=shard, prop_approx=approx, fused=fused)
 
 
 def edit_schedule():
@@ -116,8 +120,8 @@ def run_rank(rank: int, spec: dict) -> None:
 
     with torch.inference_mode():
         for case in EDIT_CASES:
-            window, shard, approx = edit_case(case, world)
-            out = edit(unet, inputs, window, group, shard_pivotal=shard, prop_approx=approx)
+            window, switches = edit_case(case, world)
+            out = edit(unet, inputs, window, group, **switches)
             res[case] = mesh.gather_to_rank0(group, out)
         res["vanilla"] = mesh.gather_to_rank0(group, vanilla(unet, inputs, group))
 

@@ -5,9 +5,11 @@ output tree, plus ``group_norm_kernel`` (bool, default false): run every
 UNet and VAE GroupNorm through K4. ``prop_approx`` (approximate,
 source-free propagation; NON-PARITY) is read from the config only: the JAX
 package's ``TOKENFLOW_PROP_APPROX`` environment fallback has no counterpart
-here. ``fused_step`` is accepted, and the loop runs its two passes all the
-same: the JAX package's single-pass step computes the same maths in one
-UNet call, and the port takes it up once it measures faster on the card.
+here. ``fused_step: true`` runs each edit step as one UNet call over the
+keyframes and the frames (``EditMode.FUSED``), or as two passes where the
+JAX loop falls back (a chunked propagation, a ControlNet, ``prop_approx``):
+one printed line says which. ``trace_dir`` (PnP editor only) writes a
+``torch.profiler`` trace of the edit loop there (``profiling.trace``).
 ``depth_model_dir`` (an Intel/dpt-large checkpoint) is where a depth model
 (``sd_version: depth``) computes its frames' depth maps when the data has
 none precomputed; the JAX package reads ``TOKENFLOW_MIDAS_CKPT`` instead.
@@ -90,7 +92,8 @@ def refuse_depth_for_sdedit(sd_version) -> None:
 def validate_config(config: dict, mode: str) -> dict:
     """Fail fast on missing keys, a bad propagate_chunk, device, dtype,
     switch (``BOOL_KEYS``) or ``data_parallel`` (``mesh.resolve_world``:
-    held to the launcher's world size), and a depth model under SDEdit."""
+    held to the launcher's world size), a depth model under SDEdit, and
+    ``trace_dir`` outside the PnP editor."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
@@ -112,6 +115,9 @@ def validate_config(config: dict, mode: str) -> dict:
     for key in BOOL_KEYS:
         if not isinstance(config.get(key, False), bool):
             raise ValueError(f"{key} must be true or false")
+    if config.get("trace_dir") and mode != "pnp":
+        # the JAX package traces the PnP edit loop only (TOKENFLOW_TRACE_DIR)
+        raise ValueError(f"trace_dir is taken by the PnP editor only, not by {mode}")
     return config
 
 
@@ -145,10 +151,11 @@ def device_phase(metrics, name: str, device: torch.device,
                  group: Optional[mesh.FramesGroup] = None):
     """``metrics.phase(name)`` around work that is synchronized on entry
     and exit, on the device and across the frames ``group``, so the host
-    clock measures the device work (of the slowest rank)."""
+    clock measures the device work (of the slowest rank); a profiler trace
+    (``profiling.trace``) shows the phase as a span of that name."""
     utils.synchronize(device)
     mesh.barrier(group)
-    with metrics.phase(name):
+    with metrics.phase(name), torch.profiler.record_function(name):
         yield
         utils.synchronize(device)
         mesh.barrier(group)
@@ -341,8 +348,9 @@ def _edit_fingerprint(config: dict, segments: list, x_init: torch.Tensor,
     """Identity of an edit run for checkpoint/resume: the JAX keys
     (``tokenflow_tpu/cli/common.py::_edit_fingerprint``), ``prop_approx``,
     the segment lengths, the pivots' digest and the start latents' shape and
-    dtype, plus the port's ``dtype`` and ``group_norm_kernel`` (K4 and
-    ``F.group_norm`` differ in their last bits) and the stack's
+    dtype, plus the port's ``dtype``, ``group_norm_kernel`` and
+    ``fused_step`` (K4 and ``F.group_norm``, one UNet call or two, differ
+    in their last bits) and the stack's
     ``identity`` (:func:`stack_identity`), so that a checkpoint never seeds
     a run that would compute anything else."""
     ident = {
@@ -355,6 +363,7 @@ def _edit_fingerprint(config: dict, segments: list, x_init: torch.Tensor,
         )
     }
     ident["prop_approx"] = bool(config.get("prop_approx", False))
+    ident["fused_step"] = bool(config.get("fused_step", False))
     ident["dtype"] = config.get("dtype", "bf16")
     ident["group_norm_kernel"] = bool(config.get("group_norm_kernel", False))
     ident["segment_steps"] = [len(s.timesteps) for s, _ in segments]
@@ -511,8 +520,9 @@ def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.n
                   metrics, *, pnp: bool, **loop_kw) -> tuple[torch.Tensor, float]:
     """The TokenFlow edit loop on the editor's data (window ``batch_size``,
     the config's guidance, ``propagate_chunk``, ``prop_approx`` and
-    ``shard_pivotal``; its frames group), timed as the ``edit_loop`` phase
-    with its passes as ``edit_pivotal`` and ``edit_propagate``, in the
+    ``shard_pivotal``, ``fused_step``; its frames group), timed as the
+    ``edit_loop`` phase with its passes as ``edit_pivotal`` and
+    ``edit_propagate``, or its fused steps as ``edit_fused``, in the
     config's segments (:func:`schedule_segments`,
     :func:`run_segmented_edit`); ``loop_kw`` goes to
     ``tokenflow_sample_loop`` (per-frame inputs as the rank's block).
@@ -523,9 +533,16 @@ def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.n
     if approx:
         print("[tokenflow-torch] prop_approx ON: source-free propagation pass "
               "(NON-PARITY: the output deviates from the exact loop's)")
-    if config.get("fused_step", False):
-        print("[tokenflow-torch] fused_step: two passes a step (the same maths; "
-              "the port has no single-pass step)")
+    fused = config.get("fused_step", False)
+    if fused:
+        why = pipeline.fused_fallback(
+            x_init.shape[0], config.get("propagate_chunk"),
+            loop_kw.get("controlnet_fn") is not None, approx)
+        print("[tokenflow-torch] fused_step: " + (
+            "fused, one UNet call a step" + (
+                " (shard_pivotal does not apply: every rank runs all the keyframes)"
+                if group is not None else "")
+            if why is None else f"two passes (fallback: {why})"))
     traj = torch.as_tensor(data.trajectory.traj, device=device).to(stack.dtype)
 
     def step_fn(x, sched_seg, piv_seg):
@@ -544,6 +561,7 @@ def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.n
             prop_approx=approx,
             group=group,
             shard_pivotal=config.get("shard_pivotal", True),
+            fused=fused,
             **loop_kw,
         )
 

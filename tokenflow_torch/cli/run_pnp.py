@@ -8,8 +8,12 @@ Same YAML keys, output-path encoding, config.yaml dump and output tree as
 ``tokenflow_tpu/cli/run_pnp.py``. ``device`` is ``cuda`` (default) or
 ``cpu``. A depth model (``sd_version: depth``) edits with each frame's
 depth map as the UNet's fifth channel (``depth_model_dir``: see
-``cli/common.py``). Under a launcher, ``data_parallel`` shards the frames
-over its processes (``cli/common.py``):
+``cli/common.py``). ``fused_step: true`` runs one UNet call a step
+(``cli/common.py``). ``trace_dir`` writes a ``torch.profiler`` trace of
+the edit loop there (``profiling.trace``, TensorBoard's layout; the JAX
+editor reads ``TOKENFLOW_TRACE_DIR``), on rank 0 of a frames group only.
+Under a launcher, ``data_parallel`` shards the frames over its processes
+(``cli/common.py``):
 
     torchrun --nproc_per_node 2 -m tokenflow_torch.cli.run_pnp --config_path ...
 """
@@ -23,12 +27,12 @@ from typing import Optional
 
 import numpy as np
 
-from tokenflow_torch import utils
+from tokenflow_torch import profiling, utils
 from tokenflow_torch.cli import common
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.editing import pipeline
 from tokenflow_torch.io import video as video_io
-from tokenflow_torch.profiling import PhaseMetrics
+from tokenflow_torch.sharding import mesh
 
 
 def edit_video(config: dict) -> Optional[np.ndarray]:
@@ -49,11 +53,15 @@ def edit_video(config: dict) -> Optional[np.ndarray]:
         config, generator, len(schedule.timesteps), config["n_frames"], data.group
     )
 
-    metrics = PhaseMetrics()
+    metrics = profiling.PhaseMetrics()
     with common.device_phase(metrics, "vae_recon", device, data.group):
         common.save_vae_recon(data)
-    latents_out, seconds = common.run_edit_loop(data, schedule, x_init, pivots, metrics,
-                                                pnp=True, depth=common.load_depth(data))
+    depth = common.load_depth(data)
+    # rank 0 alone traces, as it alone writes
+    trace_dir = config.get("trace_dir") if mesh.is_writer(data.group) else None
+    with profiling.trace(trace_dir):
+        latents_out, seconds = common.run_edit_loop(data, schedule, x_init, pivots, metrics,
+                                                    pnp=True, depth=depth)
     n_steps = len(schedule.timesteps)
     fps = config["n_frames"] / seconds
     print(

@@ -13,7 +13,9 @@ Per denoising step:
 With a ``controlnet_fn``, both passes add ControlNet residuals computed on
 their own batch (the conditioning images of their frames, one per stream).
 ``prop_approx`` (NON-PARITY) makes the propagation pass source-free
-([uncond|cond]), and the pivotal pass too without PnP. With per-frame
+([uncond|cond]), and the pivotal pass too without PnP. ``fused`` runs
+both passes as one UNet call a step (``EditMode.FUSED``), save where the
+JAX loop falls back to two (:func:`fused_fallback`). With per-frame
 ``depth`` maps (the 5-channel depth UNet), every stream of both passes
 carries its frame's map as a fifth channel. Over a frames group
 (``sharding/mesh.py``) both loops run on the rank's block of the frames.
@@ -143,6 +145,20 @@ def _with_depth(x: torch.Tensor, depth: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([x, depth.to(x.dtype)], dim=-1)
 
 
+def fused_fallback(n_frames: int, propagate_chunk: Optional[int], controlnet: bool,
+                   prop_approx: bool) -> Optional[str]:
+    """Why a ``fused`` loop over ``n_frames`` (a rank's) runs its two passes
+    all the same, as the JAX loop's three conditions say
+    (tokenflow_tpu/editing/pipeline.py:279-283): more than one propagate
+    chunk, a ControlNet, or ``prop_approx``; None when it runs fused."""
+    reasons = [name for name, on in (
+        ("chunked", (propagate_chunk or n_frames) != n_frames),
+        ("ControlNet", controlnet),
+        ("prop_approx", prop_approx),
+    ) if on]
+    return " | ".join(reasons) or None
+
+
 @torch.inference_mode()
 def tokenflow_sample_loop(
     unet_apply: UNetApply,
@@ -163,13 +179,15 @@ def tokenflow_sample_loop(
     depth: Optional[torch.Tensor] = None,  # (F, h, w, 1) for the depth UNet
     group: Optional[mesh.FramesGroup] = None,
     shard_pivotal: bool = True,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
     x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
-    pass (a timing hook). ``controlnet_fn`` adds its residuals to every UNet
-    call: the pivotal pass on ``cond_image[pivots]``, the propagation pass
-    on its chunk's frames, each image repeated for the pass's streams
-    frame-major (``jnp.repeat(cond, ns, axis=0)`` in the JAX loop).
+    pass, or each "fused" step (a timing hook). ``controlnet_fn`` adds its
+    residuals to every UNet call: the pivotal pass on
+    ``cond_image[pivots]``, the propagation pass on its chunk's frames,
+    each image repeated for the pass's streams frame-major
+    (``jnp.repeat(cond, ns, axis=0)`` in the JAX loop).
 
     ``prop_approx`` (NON-PARITY, held to the JAX package's approximate
     loop, not to the exact one): the propagation pass runs [uncond|cond]
@@ -192,6 +210,16 @@ def tokenflow_sample_loop(
     every rank runs the whole pivotal pass. The propagation pass matches
     the rank's frames against the replicated cache with global pivot
     indices, in chunks of ``propagate_chunk`` of the rank's frames.
+
+    ``fused`` (``tokenflow_tpu/editing/pipeline.py:328-366``): each step is
+    one UNet call on ``[streams(src[piv], x[piv]) | streams(src, x)]``
+    (``EditMode.FUSED``): at each site the pivots' extended attention
+    makes the cache that the frames propagate from in the same call, and
+    the frames' eps go to CFG. The same maths as the two passes, with
+    other batch shapes. Under :func:`fused_fallback`'s conditions the loop
+    runs the two passes. Over a frames group every rank runs the whole
+    pivot segment (``mesh.take_frames``) beside its frames, so no K/V or
+    cache is gathered and ``shard_pivotal`` does not apply.
 
     ``propagate_chunk`` must divide the (rank's) frames; unlike the JAX
     loop's, it need not be a multiple of the window, since every frame's
@@ -231,6 +259,11 @@ def tokenflow_sample_loop(
     embeds_prop = (embeds3[1:] if prop_approx else embeds3).repeat(chunk, 1, 1)
     if (controlnet_fn is None) != (cond_image is None):
         raise ValueError("controlnet_fn and cond_image come together")
+    fused = fused and fused_fallback(f_local, propagate_chunk, controlnet_fn is not None,
+                                     prop_approx) is None
+    # the fused batch: frame-major [inv, uncond, cond] for the K pivots, then
+    # for the rank's frames
+    embeds_fused = embeds3.repeat(n_windows + f_local, 1, 1) if fused else None
 
     def residuals(sample, t, embeds, cond, ns):
         """ControlNet residuals of an ns-stream pass (the reference's 3x
@@ -257,6 +290,26 @@ def tokenflow_sample_loop(
         qk_g, conv_g = bool(schedule.qk_gate[i]), bool(schedule.conv_gate[i])
         src = src_traj[int(schedule.src_slot[i])]
         piv = pivots[i]
+
+        if fused:
+            with phase("fused"):
+                def take(a):
+                    return None if a is None else mesh.take_frames(group, a, piv)
+
+                sample = torch.cat([streams(take(src), take(x), 3, take(depth)),
+                                    streams(src, x, 3, depth)])
+                edit = editctx.UNetEdit(
+                    mode=editctx.EditMode.FUSED, n_frames=f_local, n_pivots=n_windows,
+                    pnp=pnp, qk_gate=qk_g, conv_gate=conv_g,
+                    prop_pa=pa, prop_pb=pb, prop_w1=w1, group=group,
+                )
+                eps_all, _ = unet_apply(sample, t, embeds_fused, edit)
+                eps3 = eps_all[3 * n_windows :].reshape(f_local, 3, *eps_all.shape[1:])
+                eps = ddim.classifier_free_guidance(eps3[:, 1], eps3[:, 2], guidance_scale)
+                x = ddim.ddim_step(
+                    x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
+                ).to(x.dtype)
+            continue
 
         with phase("pivotal"):
             edit_piv = editctx.UNetEdit(

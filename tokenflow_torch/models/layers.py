@@ -171,9 +171,13 @@ class BasicTransformerBlock(nn.Module):
       PIVOTAL   keyframe extended attention (+ PnP q/k injection); returns
                 the site cache {pivot_h (K,S,C), kf_attn (ns,K,S,C)}, and
                 pivot_h_uncond (K,S,C) when the directive asks for it;
-      PROPAGATE self-attention replaced by the NN gather from the cache.
+      PROPAGATE self-attention replaced by the NN gather from the cache;
+      FUSED     both in one batch [3K pivots | 3F frames]: the pivots run
+                PIVOTAL's extended attention into this site's cache, and
+                the frames propagate from it at once; returns no cache.
     The stream count of PIVOTAL and PROPAGATE comes from the directive: 3
-    ([source|uncond|cond]) or 2 ([uncond|cond], a source-free pass).
+    ([source|uncond|cond]) or 2 ([uncond|cond], a source-free pass); FUSED
+    is three-stream.
     """
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
@@ -188,6 +192,21 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm32(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
+    def _keyframe_attention(self, hp, edit: editctx.BlockEdit, group=None,
+                            kf_counts=None) -> torch.Tensor:
+        """Extended attention of the keyframes' normed states ``hp`` (ns, K,
+        S, C), with the PnP q/k injection, through the output projection:
+        kf_attn (ns, K, S, C). Projected stream-major, so kf_attn is
+        contiguous and its [1:] view reaches the match kernels uncopied."""
+        ns, kf, s, dim = hp.shape
+        q, k, v = self.attn1.qkv(hp.reshape(ns * kf, s, dim))
+        q3, k3, v3 = (t.reshape(ns, kf, s, t.shape[-1]) for t in (q, k, v))
+        if edit.qk_inject_site:
+            q3, k3 = inject_source_qk(q3, k3, edit.qk_gate)
+        o3 = extended_attention(q3, k3, v3, heads=self.heads, kv_block=self.kv_block,
+                                group=group, kf_counts=kf_counts)
+        return self.attn1.out(o3.reshape(ns * kf, s, o3.shape[-1])).reshape(ns, kf, s, dim)
+
     def forward(self, x, context, edit: Optional[editctx.BlockEdit] = None):
         b, s, dim = x.shape
         cache = None
@@ -196,17 +215,9 @@ class BasicTransformerBlock(nn.Module):
         if mode == editctx.EditMode.NONE:
             attn_out = self.attn1(h_norm)
         elif mode == editctx.EditMode.PIVOTAL:
-            kf, ns = edit.n_frames, edit.n_streams
-            h3 = h_norm.reshape(kf, ns, s, dim)
-            # projected stream-major, so the cached (ns, K, S, C) kf_attn is
-            # contiguous and its [1:] view reaches the match kernels uncopied
-            q, k, v = self.attn1.qkv(h3.transpose(0, 1).reshape(ns * kf, s, dim))
-            q3, k3, v3 = (t.reshape(ns, kf, s, t.shape[-1]) for t in (q, k, v))
-            if edit.qk_inject_site:
-                q3, k3 = inject_source_qk(q3, k3, edit.qk_gate)
-            o3 = extended_attention(q3, k3, v3, heads=self.heads, kv_block=self.kv_block,
-                                    group=edit.group, kf_counts=edit.kf_counts)
-            kf_attn = self.attn1.out(o3.reshape(ns * kf, s, o3.shape[-1])).reshape(ns, kf, s, dim)
+            h3 = h_norm.reshape(edit.n_frames, edit.n_streams, s, dim)
+            kf_attn = self._keyframe_attention(h3.transpose(0, 1), edit, edit.group,
+                                               edit.kf_counts)
             attn_out = kf_attn.transpose(0, 1).reshape(b, s, dim)
             cache = {
                 # stream 0's normed states drive the NN matching: the source
@@ -227,6 +238,20 @@ class BasicTransformerBlock(nn.Module):
                 edit.prop_pa, edit.prop_pb, edit.prop_w1,
             )
             attn_out = o3.transpose(0, 1).reshape(b, s, dim).to(x.dtype)
+        elif mode == editctx.EditMode.FUSED:
+            # tokenflow_tpu/models/layers.py:313-341; each segment frame-major
+            kf, f = edit.n_pivots, edit.n_frames
+            h3 = h_norm.reshape(kf + f, 3, s, dim)
+            hp = h3[:kf].transpose(0, 1)  # (3, K, S, C) view
+            # every rank of a group holds all the keyframes: no K/V gather
+            kf_attn = self._keyframe_attention(hp, edit)
+            propagate = token_propagation if edit.group is None else token_propagation_sharded
+            oq = propagate(h3[kf:, 0], hp[0], kf_attn,
+                           edit.prop_pa, edit.prop_pb, edit.prop_w1)
+            attn_out = torch.cat([
+                kf_attn.transpose(0, 1).reshape(3 * kf, s, dim),
+                oq.transpose(0, 1).reshape(3 * f, s, dim).to(x.dtype),
+            ])
         else:
             raise ValueError(f"unknown edit mode {mode!r}")
         x = x + attn_out

@@ -1,8 +1,9 @@
 """Edit-context types: explicit per-call editing state for the UNet.
 
 PyTorch counterpart of ``tokenflow_tpu/ops/editctx.py``: the two-pass
-modes (NONE, PIVOTAL, PROPAGATE) and the approximate (source-free)
-propagation of ``UNetEdit.prop_approx``. The directives are plain dataclasses passed as UNet arguments; the UNet returns
+modes (NONE, PIVOTAL, PROPAGATE), the single-pass FUSED mode and the
+approximate (source-free) propagation of ``UNetEdit.prop_approx``. The
+directives are plain dataclasses passed as UNet arguments; the UNet returns
 the PIVOTAL cache instead of stashing it on modules.
 
 Batch layout: editing passes run the UNet on ``n_streams * n_frames``
@@ -14,7 +15,8 @@ drives the NN matching.
 Over a frames group (``sharding/mesh.py``) a directive carries ``group``:
 a PIVOTAL pass then holds this rank's block of the keyframes (``kf_counts``
 gives every rank's count) and gathers the extended streams' K/V, and a
-PROPAGATE pass holds this rank's frames against the replicated cache.
+PROPAGATE pass holds this rank's frames against the replicated cache. A
+FUSED pass holds all the keyframes and this rank's frames.
 """
 
 from __future__ import annotations
@@ -29,6 +31,11 @@ class EditMode:
     NONE = "none"  # plain UNet (preprocess / vanilla sampling)
     PIVOTAL = "pivotal"  # keyframe pass: extended attention, fills the cache
     PROPAGATE = "propagate"  # propagation pass: NN-gather from the cache
+    # one pass for both: the batch is [3*K pivots | 3*F frames], each segment
+    # frame-major; at every site the pivots run extended attention into the
+    # site's cache and the frames propagate from it at once (the same maths
+    # as PIVOTAL then PROPAGATE, tokenflow_tpu/ops/editctx.py:31-37)
+    FUSED = "fused"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +44,7 @@ class BlockEdit:
 
     mode: str = EditMode.NONE
     n_frames: int = 1
+    n_pivots: int = 0  # FUSED: the keyframes ahead of the frames in the batch
     qk_inject_site: bool = False
     # streams in this pass's frame-major batch: 3 ([source|uncond|cond]),
     # or 2 ([uncond|cond]) in a source-free pass
@@ -86,10 +94,14 @@ class UNetEdit:
     the pivots' uncond states and, under PnP, injects the blend of the
     pivots' cached source conv features. Without PnP no stream consumes
     the source, so the pivotal pass is source-free too and its cache is
-    born two-stream, led by uncond."""
+    born two-stream, led by uncond.
+
+    FUSED: ``n_pivots`` keyframes lead the batch, ``n_frames`` frames
+    follow; no cache comes in or goes out, and ``for_conv`` spans both."""
 
     mode: str = EditMode.NONE
     n_frames: int = 1
+    n_pivots: int = 0
     pnp: bool = False
     prop_approx: bool = False
     qk_gate: bool = False
@@ -117,6 +129,7 @@ class UNetEdit:
         return BlockEdit(
             mode=self.mode,
             n_frames=self.n_frames,
+            n_pivots=self.n_pivots,
             qk_inject_site=self.pnp and site in QK_INJECT_SITES,
             n_streams=2 if (approx_prop or src_free_piv) else 3,
             cache_uncond=self.prop_approx and self.pnp and self.mode == EditMode.PIVOTAL,
@@ -135,9 +148,10 @@ class UNetEdit:
             return None
         entry = (self.cache or {}).get(site)
         approx_prop = self.prop_approx and self.mode == EditMode.PROPAGATE
+        # a FUSED batch is [K pivots | F frames], three streams each
         return ConvEdit(
             mode=self.mode,
-            n_frames=self.n_frames,
+            n_frames=self.n_frames + self.n_pivots,
             n_streams=2 if approx_prop else 3,
             approx=self.prop_approx,
             gate=self.conv_gate,
