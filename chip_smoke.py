@@ -217,12 +217,20 @@ K1_SD15_SHAPES = [
     (2, 20480, 20480, 8, 40),  # pivotal extended attention, 64x64 level
     (2, 5120, 5120, 8, 80),  # pivotal extended attention, 32x32 level
     (2, 1280, 1280, 8, 160),  # pivotal extended attention, 16x16 level
+    (2, 1024, 1024, 8, 160),  # the same at 32 frames (4 keyframes): D = 160's 128-row plan
     (40, 4096, 4096, 8, 40),  # inversion and ControlNet self-attention, 40 frames
+    (5, 4096, 4096, 8, 40),  # pivotal pass: the source stream's per-frame attention
+    (15, 4096, 4096, 8, 40),  # pivotal pass: the ControlNet's, 3 streams x 5 pivots
+    (120, 4096, 4096, 8, 40),  # propagation pass: the ControlNet's, 3 streams x 40 frames
     # ragged Q and KV tails against each head dim's tiles
     (2, 1000, 3000, 5, 40), (2, 1000, 3000, 5, 80), (2, 1000, 3000, 5, 160),
 ]
 # K1's checks end the run if they take longer (a hung kernel)
 K1_PHASE_SECONDS = 420
+# the plain version's reference runs over batch slices whose fp32 logits of
+# one 1024-token KV block stay under this many bytes (its temporaries take
+# a few times that)
+K1_PLAIN_BYTES = 6 << 30
 # the depth path (SD-2-depth, DPT-Large): this many inversion,
 # reconstruction and edit steps
 DEPTH_STEPS = 10
@@ -416,6 +424,20 @@ def device_ms(fn, runs: int = 7) -> float:
     return float(np.median(times))
 
 
+def host_ms(fn, runs: int = 7) -> float:
+    """Median host time (perf_counter) to enqueue ``fn``'s work while the
+    stream sleeps, so that the host never waits on the device."""
+    fn()  # warm up
+    times = []
+    for _ in range(runs):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
 def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in bf16 representable steps between a and b."""
 
@@ -490,17 +512,33 @@ def k1_f32_mismatch(out: torch.Tensor, ref: torch.Tensor) -> dict:
     }
 
 
+def _k1_plain(fa, q, k, v) -> torch.Tensor:
+    """K1's plain version on (q, k, v), over slices of the batch where the
+    fp32 logits of one 1024-token KV block would pass K1_PLAIN_BYTES (the
+    batch's items are independent, so the slices give the same output)."""
+    b, sq, h, _ = q.shape
+    step = max(1, min(b, K1_PLAIN_BYTES // (4 * sq * h * 1024)))
+    return torch.cat([fa.flash_attention_plain(q[i:i + step], k[i:i + step],
+                                               v[i:i + step], kv_block=1024)
+                      for i in range(0, b, step)])
+
+
 def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
     """K1 on (q, k, v) against its plain version (bf16: ``k1_mismatch``;
     fp32: ``k1_f32_mismatch``), with its time, SDPA's on the same tensors
     (as (B, H, S, D) views: the port never calls it) and the bound at the
-    dtype's peak (``PEAKS``)."""
+    dtype's peak (``PEAKS``). Each time three ways: the wrapper's call
+    (``median_ms``, host work included), one call's device time
+    (``device_ms``, host work hidden) and the host's time to enqueue it
+    (``host_ms``); the share of the bound by device time; bf16 rows also
+    K1's tile plan for the row (``k1_plan``) and its waves of one block per
+    SM."""
     import torch.nn.functional as F
 
     b, sq, h, d = q.shape
     skv = k.shape[1]
     out = fa.flash_attention_kernel(q, k, v)
-    ref = fa.flash_attention_plain(q, k, v, kv_block=1024)
+    ref = _k1_plain(fa, q, k, v)
     torch.cuda.synchronize()
     m = (k1_f32_mismatch if q.dtype == torch.float32 else k1_mismatch)(out, ref)
     del out, ref
@@ -510,10 +548,18 @@ def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
             f"K1 {q.dtype} at {label}: max|err| {err} (limit {m['max_abs_limit']}), "
             f"rel L2 {m['rel_l2']} (limit {m['rel_l2_limit']})"
         )
-    ms = median_ms(lambda: fa.flash_attention_kernel(q, k, v))
-    plain_ms = median_ms(lambda: fa.flash_attention_plain(q, k, v, kv_block=1024), runs=5)
+
+    def call():
+        return fa.flash_attention_kernel(q, k, v)
+
+    ms, kernel_device_ms, kernel_host_ms = median_ms(call), device_ms(call), host_ms(call)
+    plain_ms = median_ms(lambda: _k1_plain(fa, q, k, v), runs=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    library_ms, library_device_ms, library_host_ms = median_ms(sdpa), device_ms(sdpa), host_ms(sdpa)
     flops = 4.0 * b * h * sq * skv * d
     peak, peak_name = PEAKS[q.dtype]
     nbytes = q.element_size() * d * b * h * (2 * sq + 2 * skv)
@@ -523,18 +569,47 @@ def _k1_row(fa, q, k, v, label: str, strided: bool = False) -> dict:
     split = {}
     if q.dtype == torch.float32:
         split = {"bound_ffma_ms": ffma_bound_ms(nbytes, flops)}
+    else:
+        plan, waves = k1_plan(b, sq, h, d)
+        split = {"plan": plan, "waves": waves}
     print(
         f"{tag} {label}: max|err|={err:.3e} (limit {m['max_abs_limit']:.3e}) "
-        f"rel L2 {m['rel_l2']:.3e}, kernel {ms:.3f} ms ({tflops:.1f} TFLOP/s), "
-        f"SDPA {library_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_by}; {peak_name})"
-        + (f", bound {split['bound_ffma_ms']:.3f} ms ({FFMA[1]})" if split else ""),
+        f"rel L2 {m['rel_l2']:.3e}, kernel {ms:.4f} ms wrapper / {kernel_device_ms:.4f} "
+        f"ms device / {kernel_host_ms:.4f} ms host ({tflops:.1f} TFLOP/s by the wrapper, "
+        f"{bound_ms / kernel_device_ms:.1%} of the bound by device time), SDPA "
+        f"{library_ms:.4f} / {library_device_ms:.4f} / {library_host_ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {peak_name})"
+        + (f", bound {split['bound_ffma_ms']:.3f} ms ({FFMA[1]})"
+           if "bound_ffma_ms" in split else
+           f", {split['plan']['consumers']} consumers x {split['plan']['kv_tokens']}-token "
+           f"tiles, {split['waves']:.2f} waves"),
         flush=True,
     )
     return {"shape": [b, sq, skv, h], "head_dim": d, "strided": strided, **m,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "device_ms": kernel_device_ms, "host_ms": kernel_host_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_device_ms": library_device_ms, "library_host_ms": library_host_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak_name,
+            "bound_share_device": bound_ms / kernel_device_ms,
             **split, "tflops": tflops}
+
+
+def k1_plan(b: int, sq: int, h: int, d: int) -> tuple[dict, float]:
+    """The bf16 tile plan K1 takes for q (b, sq, h, d) on this card, as the
+    library reports it (``tf_flash_attention_plan``), and its grid's waves
+    of one block per SM."""
+    import ctypes
+
+    from tokenflow_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    got = (ctypes.c_int * 5)()
+    lib = _build.load_library()
+    _build.check(lib, lib.tf_flash_attention_plan(d, b, h, sq, sms, got),
+                 "tf_flash_attention_plan")
+    plan = dict(zip(("block_rows", "kv_tokens", "stages", "consumers", "smem_bytes"), got))
+    return plan, -(-sq // plan["block_rows"]) * h * b / sms
 
 
 def check_flash(gen: torch.Generator) -> dict:
@@ -589,8 +664,9 @@ def check_flash(gen: torch.Generator) -> dict:
            ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops")},
         "by_head_dim": {
             str(d): {key: r[key] for key in
-                     ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                      "tflops", "max_abs_err", "rel_l2")}
+                     ("shape", "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+                      "library_device_ms", "library_host_ms", "bound_ms", "bound_by",
+                      "bound_share_device", "tflops", "max_abs_err", "rel_l2")}
             for d, r in sorted(by_d.items())
         },
         "shapes": rows,
@@ -728,23 +804,54 @@ def _match_inputs(gen, s, d, mode, f, k, ns=K2_NS, device="cuda", dtype=torch.bf
     return x.to(dtype), p_hat.to(dtype), kf.to(dtype), pa, pb, w1
 
 
-def _match_verdict(tag, mode, idx, ref_idx, out, ref, kf_max=None):
+def flip_gaps(x, p_hat, pa, pb, got, want) -> torch.Tensor:
+    """The similarity gap over |x|, in fp64, between the pivot rows that
+    ``got`` and ``want`` ((2, F, S) indices into the tables of ``pa`` and
+    ``pb``) pick for each token where they differ, one entry per such token
+    (p_hat is unit norm, so a gap near 0 is a near tie)."""
+    xd, pd = x.double(), p_hat.double()
+    norm = xd.norm(dim=-1)
+    gaps = []
+    for j, piv in enumerate((pa, pb)):
+        table = pd[piv.long()]
+
+        def sim(i):
+            return (xd * torch.gather(table, 1, i.long()[..., None].expand_as(xd))).sum(-1)
+
+        flipped = got[j] != want[j]
+        gaps.append(((sim(want[j]) - sim(got[j])).abs() / norm)[flipped])
+    return torch.cat(gaps)
+
+
+def _match_verdict(tag, mode, idx, ref_idx, out, ref, kf_max=None, inputs=None):
     """(line, flipped share, max|err|) of a token-match kernel against its
     plain version; raises past the tolerances of ``mode``: identical
     indices on separated or duplicated-row inputs (ties to the earlier row:
     an even row of the first half), at most K2_MAX_FLIP_SHARE (bf16) or
     K2_F32_MAX_FLIP_SHARE (fp32) flipped on random and all-negative ones;
     where the indices agree, bf16 rows within 1 ulp and fp32 rows within
-    K2_F32_VALUE_TOL * ``kf_max`` (max|kf|)."""
-    flipped = float((idx.long() != ref_idx).float().mean().item())
+    K2_F32_VALUE_TOL * ``kf_max`` (max|kf|). Given the match's ``inputs``
+    (x, p_hat, pa, pb), an fp32 flip on random and all-negative inputs
+    whose similarity gap (``flip_gaps``) is within REF_TIE_TOL * |x| is a
+    near tie and does not count against the share, as in the small-input
+    references (``check_ties``)."""
+    flips = idx.long() != ref_idx
+    flipped = float(flips.float().mean().item())
     err = float((out.float() - ref.float()).abs().max().item())
     same = (idx.long() == ref_idx).all(dim=0)  # (F, S) tokens matched alike
+    counted = flipped
     if out.dtype == torch.float32:
         max_flips = K2_F32_MAX_FLIP_SHARE
         same_err = float((out[:, same] - ref[:, same]).abs().max()) if same.any() else 0.0
         value_ok = same_err <= K2_F32_VALUE_TOL * kf_max
         line = (f"{tag} {mode}: flipped={flipped:.3e} max|err|={err:.3e} "
                 f"max|err|(same idx)={same_err:.3e} (limit {K2_F32_VALUE_TOL * kf_max:.3e})")
+        if inputs is not None and mode in ("random", "negative") and flips.any():
+            gaps = flip_gaps(*inputs, idx, ref_idx)
+            ties = int((gaps <= REF_TIE_TOL).sum())
+            counted = (int(flips.sum()) - ties) / flips.numel()
+            line += (f", near ties {ties} of {int(flips.sum())} flips (largest gap "
+                     f"{float(gaps.max()):.3e} |x|, tie limit {REF_TIE_TOL} |x|)")
     else:
         max_flips = K2_MAX_FLIP_SHARE
         ulps = bf16_ulp_diff(out[:, same], ref[:, same]) if same.any() else 0
@@ -755,8 +862,9 @@ def _match_verdict(tag, mode, idx, ref_idx, out, ref, kf_max=None):
             raise AssertionError(f"{line}: indices must agree, values within the limit")
         if mode == "ties" and bool(((idx % 2) | (idx >= idx.shape[-1] // 2)).any()):
             raise AssertionError(f"{line}: a tie resolved to a later row")
-    elif flipped > max_flips or not value_ok:
-        raise AssertionError(f"{line}: above {max_flips} flipped or values off")
+    elif counted > max_flips or not value_ok:
+        raise AssertionError(f"{line}: above {max_flips} flipped (near ties aside) "
+                             "or values off")
     return line, flipped, err
 
 
@@ -794,7 +902,7 @@ def _match_row(tag, kernel, plain, launch, args, mode, f, s, d, k, extra=None):
     dtype, ns = args[2].dtype, args[2].shape[0]
     line, flipped, err = _match_verdict(
         f"{tag} F={f} K={k} ns={ns} S={s} D={d}", mode, idx, ref_idx.long(), out, ref,
-        kf_max=float(args[2].abs().max()),
+        kf_max=float(args[2].abs().max()), inputs=(args[0], args[1], args[3], args[4]),
     )
     if extra is not None:
         line += extra(out, idx)
@@ -1347,6 +1455,7 @@ def zero_counts() -> None:
         m.launches = 0
         m.launches_by_dtype.clear()
     mods["flash_attention"].launches_by_head_dim.clear()
+    mods["flash_attention"].launches_by_shape.clear()
     for name in MATCH_KERNELS:
         mods[name].launches_by_streams.clear()
 
@@ -1387,6 +1496,11 @@ def read_match_streams() -> dict:
 def read_k1_head_dims() -> dict:
     """K1's launches by head dim since the counts were zeroed."""
     return dict(sorted(kernel_modules()["flash_attention"].launches_by_head_dim.items()))
+
+
+def read_k1_shapes() -> dict:
+    """K1's launches by (B, Sq, Skv, H, D) since the counts were zeroed."""
+    return dict(sorted(kernel_modules()["flash_attention"].launches_by_shape.items()))
 
 
 def per_step(pre: dict, after_edit: dict, steps: dict) -> dict:
@@ -1778,17 +1892,7 @@ def replay_matches(card_log: list, ties: list):
         flipped = card != own
         gap = 0.0
         if flipped.any():
-            xd, pd = x.double(), p_hat.double()
-            norm = xd.norm(dim=-1)
-            for j, piv in enumerate((pa, pb)):
-                table = pd[piv.long()]
-
-                def sim(i):
-                    return (xd * torch.gather(table, 1, i[..., None].expand_as(xd))).sum(-1)
-
-                g = ((sim(own[j]) - sim(card[j])).abs() / norm)[flipped[j]]
-                if g.numel():
-                    gap = max(gap, float(g.max()))
+            gap = float(flip_gaps(x, p_hat, pa, pb, card, own).max())
         ties.append((int(flipped.sum()), gap))
         return gather_blend(kf, card, pa, pb, w1)
 
@@ -2093,6 +2197,7 @@ def run_controlnet_path(root: str) -> dict:
         ])
         t_pre = time.perf_counter() - t0
         pre_counts, pre_dims = read_counts(), read_k1_head_dims()
+        pre_shapes = read_k1_shapes()
         config = {
             "seed": 1, "device": "cuda", "output_path": "results",
             "data_path": "data/clip", "latents_path": "latents",
@@ -2111,6 +2216,7 @@ def run_controlnet_path(root: str) -> dict:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         counts, dims = read_counts(), read_k1_head_dims()
+        shapes = read_k1_shapes()
         out_dir = run_controlnet.resolve_output_path(dict(config))["output_path"]
         for name in (
             "img_ode/00000.png", "tokenflow_ControlNet_fps_10.mp4", "vae_recon_10.mp4",
@@ -2134,6 +2240,10 @@ def run_controlnet_path(root: str) -> dict:
     for d in (40, 80, 160):
         if edit_dims.get(d, 0) <= 0:
             raise AssertionError(f"K1 was not launched at head dim {d} on the ControlNet edit")
+    # every K1 launch shape of the path is a row check_flash holds and times
+    missing = sorted(set(shapes) - {tuple(r) for r in K1_SD15_SHAPES})
+    if missing:
+        raise AssertionError(f"ControlNet K1 shapes missing from K1_SD15_SHAPES: {missing}")
     if counts["token_match_gather"] <= 0:
         raise AssertionError("K2 was not launched on the ControlNet path")
     for name in ("token_match_gather_split", "group_norm"):
@@ -2148,6 +2258,11 @@ def run_controlnet_path(root: str) -> dict:
         "k1_launches_by_head_dim": {
             "inversion+reconstruction": {str(d): n for d, n in pre_dims.items()},
             "edit": {str(d): n for d, n in edit_dims.items()},
+        },
+        "k1_launches_by_shape": {
+            "inversion+reconstruction": {str(s): n for s, n in pre_shapes.items()},
+            "edit": {str(s): n - pre_shapes.get(s, 0) for s, n in shapes.items()
+                     if n > pre_shapes.get(s, 0)},
         },
         "residuals": residuals,
         "preprocess_seconds": t_pre,

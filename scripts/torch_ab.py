@@ -9,10 +9,12 @@ parent, change, change, parent, one process per run, with that tree's
 ``tokenflow_torch`` first on the path and this checkout's ``chip_smoke.py``
 helpers (so both trees are measured alike):
 
-  - k1: K1 at ``chip_smoke.K1_SHAPES`` (head dim 64) through the tree's
-    ``flash_attention_kernel``, held to its plain version by
-    ``chip_smoke.k1_within_limits``: the wrapper's time (``median_ms``) and
-    one call's device time with host work hidden (``device_ms``);
+  - k1: K1 at ``chip_smoke.K1_SHAPES`` (head dim 64) and
+    ``chip_smoke.K1_SD15_SHAPES`` (with their head dims) through the
+    tree's ``flash_attention_kernel``, held to its plain version by
+    ``chip_smoke.k1_within_limits``: the wrapper's time (``median_ms``),
+    one call's device time with host work hidden (``device_ms``) and the
+    host's time to enqueue it (``host_ms``);
   - k1f32: K1 in fp32 at ``chip_smoke.K1_F32_SHAPES`` through the tree's
     ``flash_attention_kernel``, held to its plain version by
     ``chip_smoke.k1_f32_mismatch``: the wrapper's time, one call's device
@@ -99,18 +101,19 @@ def run_k1(smoke) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, sq, skv, h in smoke.K1_SHAPES:
-        q, k, v = (torch.randn((b, n, h, 64), generator=gen, device="cuda").bfloat16()
+    for b, sq, skv, h, d in [(*r, 64) for r in smoke.K1_SHAPES] + smoke.K1_SD15_SHAPES:
+        q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda").bfloat16()
                    for n in (sq, skv, skv))
 
         def call():
             return fa.flash_attention_kernel(q, k, v)
 
-        m = smoke.k1_mismatch(call(), fa.flash_attention_plain(q, k, v, kv_block=1024))
+        m = smoke.k1_mismatch(call(), smoke._k1_plain(fa, q, k, v))
         if not smoke.k1_within_limits(m):
-            raise AssertionError(f"K1 at {(b, sq, skv, h)}: {m}")
-        rows.append({"shape": [b, sq, skv, h], **m, "wrapper_ms": smoke.median_ms(call),
-                     "device_ms": smoke.device_ms(call)})
+            raise AssertionError(f"K1 at {(b, sq, skv, h, d)}: {m}")
+        rows.append({"shape": [b, sq, skv, h], "head_dim": d, **m,
+                     "wrapper_ms": smoke.median_ms(call), "device_ms": smoke.device_ms(call),
+                     "host_ms": smoke.host_ms(call)})
         del q, k, v
         torch.cuda.empty_cache()
     return rows

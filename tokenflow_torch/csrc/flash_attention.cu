@@ -20,8 +20,9 @@
 //   - a 128-byte swizzle row holds 64 bf16, so every tile is cut along D
 //     into boxes of 64 columns (one TMA load each, box b at column 64 b).
 //     The tensor map's extent along D is the true head dim: TMA zero-fills
-//     a box's columns past it (D = 40: columns 40-63; D = 80: 80-127;
-//     D = 160: 160-191), so they never read the next head's data;
+//     a box's columns past it in shared memory (D = 40: columns 40-63;
+//     D = 80: 80-127; D = 160: 160-191) and reads only the head's own D
+//     columns from device memory;
 //   - S = Q K^T runs as ceil(D / 16) wgmma.mma_async k-steps per tile, both
 //     operands from shared memory (K is K-major as it lies in memory); the
 //     descriptor steps 32 bytes inside a box and moves to the next box every
@@ -31,11 +32,14 @@
 //     m64nNk16 accumulator layout is the register A-operand layout of the
 //     next wgmma, so P is packed to bf16 in registers and never touches
 //     shared memory;
-//   - O += P V runs per box as kBN / 16 wgmma m64n64k16 with A = P from
-//     registers and B = the box of V in its natural (token, dim) layout,
-//     which is MN-major for this product (wgmma's transpose bit). Every
-//     product covers one whole swizzle atom along N; the columns past D are
-//     zeros and are not stored;
+//   - O += P V runs as kBN / 16 wgmma m64nDk16, N = the head dim, with A =
+//     P from registers and B = the V tile in its natural (token, dim)
+//     layout, MN-major for this product (wgmma's transpose bit). The V
+//     boxes are its swizzle atoms along N, a leading offset of one box
+//     apart, and the product reads only the first D columns: the last atom
+//     in part (D = 40: 40 of one atom's 64; 80: one and 16 of the next;
+//     160: two and 32 of the third). O is D columns wide, D / 2 fp32
+//     registers a thread, and no zero column is ever multiplied into it;
 //   - schedule: the consumers take turns (named barriers) to start Q K^T of
 //     tile j and P V of tile j - 1, so the tensor cores work through one
 //     warpgroup's products while the others run their softmax; and each
@@ -44,37 +48,56 @@
 //   - ragged tiles: TMA zero-fills rows past the tensor's end; the last KV
 //     tile masks its columns >= Skv to -inf, and Q rows >= Sq are not
 //     stored.
-// Per head dim (Cfg below): D <= 64 has three consumers (192 query rows),
-// 128-token KV tiles in four stages and 160 registers a consumer thread.
-// D = 80 has two consumers (128 rows) with 240 registers, since O takes 64
-// fp32 registers a thread beside S's 64, and three stages of two-box tiles
-// (225 KB of shared memory). D = 160 keeps two consumers and takes 64-token
-// KV tiles: O's 96 registers and S's 64 would crowd 240, and a stage of
-// 128-token three-box K and V tiles is 96 KB; three stages of 64 tokens fit.
+// Plans (Cfg<D, kCons>): D = 40 and 64 have three consumers (192 query
+// rows), 128-token KV tiles in four stages and 160 registers a consumer
+// thread (O takes 20 or 32 of them, S 64 and P 32). D = 80 has two (128
+// rows) with 240 registers and three stages of 128-token two-box tiles
+// (225 KB of shared memory): three consumers fit only with 64- or 96-token
+// tiles or two stages, and were 2-77% slower at 2 x 5120 rows. D = 160
+// takes 64-token tiles in three stages of three-box K and V and has two
+// plans, three consumers (217 KB) and two (193 KB); the launcher takes the
+// one whose grid ends first counting waves of one block per SM times a
+// block's rows (d160_two_consumers, the one place the choice is made).
+// SD-1.5's 16 x 16 level at 512^2 over 5 keyframes (2 x 1280 rows, 8
+// heads) takes three: 112 blocks, one wave, where two make 160 in two (39%
+// slower). Over 4 keyframes (2 x 1024 rows), and on the per-rank queries
+// of a 2-rank frames group (2 x 768 and 2 x 512 rows against 1280 keys),
+// the grid is one wave either way and two consumers' 128-row blocks end
+// it sooner (PERF.md times both plans at these rows: two 15-18% faster).
 // Bound: per (batch, head) the two products do 4 Sq Skv D flops against
 // (Sq + 2 Skv) 2 D bytes read and Sq 2 D written, thousands of flops per
 // byte at the path's lengths, so the kernel is compute bound (989 TFLOP/s
-// bf16). The tensor cores do more than that: Q K^T runs 16 ceil(D / 16)
-// deep and P V 64 ceil(D / 64) wide, so at D = 40 they multiply (48 + 64)
-// / 80 = 1.4 times the bound's products, at D = 80 (80 + 128) / 160 = 1.3
-// and at D = 160 (160 + 192) / 320 = 1.1. At head dim 64 the exponentials
-// weigh as much as the products: a score costs the SM 1/16 cycle in the
-// tensor cores and 1/16 cycle in MUFU ex2, so the two have to overlap; at
-// D = 40 the exponentials per product grow by 64 / 40. Measured (PERF.md):
-// about half the bf16 peak at D = 64 on the path's long rows. Which part of
-// the work sets the time is not measured yet; known limits are the grid's
-// partial last wave (no persistent scheduler yet) and, at 4096 tokens, a
-// block that lives for only 32 KV tiles.
+// bf16). The tensor cores multiply Q K^T 16 ceil(D / 16) deep and P V D
+// wide: 88 / 80 of the bound's products at D = 40, exactly them at 80 and
+// 160. Measured on an H100 80GB HBM3 at 700 W, by device time: about half
+// the bound at D = 64 on the path's long rows, 38% at D = 40 (2 x 20480
+// rows, 8 heads; 35% at 40 x 4096), 45% at D = 80 (2 x 5120), 39% at
+// D = 160 (2 x 1280).
+// What holds D = 40 back is not MUFU: per KV tile and SM the time is
+// close to the tensor cores' work plus the consumers' instruction issue
+// (about 7.5 instructions a score: max, FFMA, ex2, sum, half a pack, and
+// the tile's share of barriers and descriptors), as if the two overlapped
+// little. Computing a share of the exponentials on the FMA pipe with a
+// degree-3 polynomial (FlashAttention-4's split) made the kernel slower in
+// proportion to the instructions it added (an eighth of them 3-10%, a
+// quarter 10-16%, half 24-30%); computing each operand's descriptor once
+// per tile instead of per k-step, fewer instructions, moved D = 40 by -4%
+// to +5% over two runs (D = 160 4% faster); two consumers with 128-, 192-
+// or 256-token tiles were 24-38% slower than three with 128
+// (scripts/k1_variants.py builds and times each of these).
 //
 // Layout: tensors are (B, S, H, D) with arbitrary batch/sequence/head
 // strides (in elements; positive multiples of 8, which TMA needs as byte
 // strides that are multiples of 16) and unit stride along the head dim.
 // The launcher builds the TMA tensor maps on every call, reaching
 // cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
-// needs no -lcuda. The TMA, mbarrier and wgmma helpers live in hopper.cuh,
-// shared with the token-match core.
+// needs no -lcuda; it raises a kernel's shared-memory limit and reads the
+// SM count once per device. The TMA, mbarrier and wgmma helpers live in
+// hopper.cuh, shared with the token-match core.
 #include <cuda.h>
 #include <stdio.h>
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -82,12 +105,13 @@ namespace {
 
 using namespace tf;
 
-// the tile plan of head dim D (see the header comment)
-template <int D>
+// the tile plan of head dim D with kCons consumer warpgroups (see the
+// header comment)
+template <int D, int kCons>
 struct Cfg {
   static constexpr int kBoxes = (D + 63) / 64;   // 64-column boxes along D
   static constexpr int kKSteps = (D + 15) / 16;  // k16 steps of Q K^T
-  static constexpr int kConsumers = D <= 64 ? 3 : 2;  // 64 query rows each
+  static constexpr int kConsumers = kCons;       // 64 query rows each
   static constexpr int kBM = 64 * kConsumers;    // query rows per block
   static constexpr int kBN = D <= 128 ? 128 : 64;  // KV tokens per tile
   static constexpr int kStages = D <= 64 ? 4 : 3;
@@ -109,6 +133,7 @@ struct Cfg {
   static constexpr uint32_t kSmemBytes = kOffBar + 8 * (1 + 3 * kStages) + 1024;
   static constexpr int kConsumerWarps = 4 * kConsumers;
   static_assert(D % 8 == 0 && D <= 256, "head dim");
+  static_assert(kConsumers == 2 || kConsumers == 3, "consumer warpgroups");
   static_assert(128 * (kProducerRegs + kConsumers * kConsumerRegs) <= 65536,
                 "register budget");
   static_assert(kSmemBytes <= 232448, "shared memory");
@@ -172,24 +197,22 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBN / 2], float (&m)[2]
   }
 }
 
-// acc *= c (row g: c[0], row g + 8: c[1]) over every box of O, and P packed
-// to bf16 straight into the A fragments of the P V product: k-slice kk
-// covers S columns 16kk .. 16kk + 15, the accumulator's 8-column groups 2kk
-// and 2kk + 1
-template <int kBoxes, int kBN>
+// acc *= c (row g: c[0], row g + 8: c[1]) over O's D / 8 column groups,
+// and P packed to bf16 straight into the A fragments of the P V product:
+// k-slice kk covers S columns 16kk .. 16kk + 15, the accumulator's 8-column
+// groups 2kk and 2kk + 1
+template <int D, int kBN>
 __device__ __forceinline__ void rescale_and_pack(const float (&sc)[kBN / 2],
-                                                 float (&acc)[kBoxes][32],
+                                                 float (&acc)[D / 2],
                                                  uint32_t (&pf)[kBN / 16][4],
                                                  const float (&c)[2]) {
 #pragma unroll
-  for (int nb = 0; nb < kBoxes; ++nb)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[nb][4 * n] *= c[0];
-      acc[nb][4 * n + 1] *= c[0];
-      acc[nb][4 * n + 2] *= c[1];
-      acc[nb][4 * n + 3] *= c[1];
-    }
+  for (int n = 0; n < D / 8; ++n) {
+    acc[4 * n] *= c[0];
+    acc[4 * n + 1] *= c[0];
+    acc[4 * n + 2] *= c[1];
+    acc[4 * n + 3] *= c[1];
+  }
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
     pf[kk][0] = tf::pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
@@ -199,14 +222,14 @@ __device__ __forceinline__ void rescale_and_pack(const float (&sc)[kBN / 2],
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
+template <int D, int kCons>
+__global__ void __launch_bounds__(Cfg<D, kCons>::kThreads, 1)
 flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv,
           __nv_bfloat16* __restrict__ o, int sq, int skv, long long osb,
           long long oss, long long osh, float scale_log2) {
-  using C = Cfg<D>;
+  using C = Cfg<D, kCons>;
   constexpr int kBoxes = C::kBoxes, kBN = C::kBN, kStages = C::kStages;
   constexpr int kConsumers = C::kConsumers;
   constexpr uint32_t kRowBytes = C::kRowBytes, kBoxBytes = C::kBoxBytes;
@@ -263,11 +286,9 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
     const uint32_t q_s = base + wg * 64 * kRowBytes;  // in box 0
 
-    float acc[kBoxes][32];
+    float acc[D / 2];  // O: 64 rows x D columns, fp32
 #pragma unroll
-    for (int nb = 0; nb < kBoxes; ++nb)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float sc[kBN / 2];
     uint32_t pf[kBN / 16][4];
     float m[2] = {tf::neg_inf(), tf::neg_inf()};  // running max, log2 domain
@@ -302,15 +323,16 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
           wgmma_m64n64k16_ss(sc, da, db, kk);
       }
     };
-    // O += P V over tile j's kBN tokens, 16 per wgmma, one box of O at a time
+    // O += P V over tile j's kBN tokens, 16 per wgmma, all D columns of O
+    // in one product: the V boxes are the swizzle atoms along N (at D <= 64
+    // the product stays within one atom and never reads the leading offset,
+    // which then keeps its one-atom value and D = 64 its instructions)
+    constexpr uint32_t kAtomBytes = kBoxes > 1 ? kBoxBytes : 8 * kRowBytes;
     auto mma_pv = [&](int j) {
       const uint32_t v_s = base + C::kOffV + (j % kStages) * kTileBytes;
 #pragma unroll
-      for (int nb = 0; nb < kBoxes; ++nb)
-#pragma unroll
-        for (int kk = 0; kk < kBN / 16; ++kk)
-          wgmma_m64n64k16_rs(acc[nb], pf[kk],
-                             mnmajor_desc(v_s + nb * kBoxBytes + kk * 16 * kRowBytes));
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<D>(acc, pf[kk], mnmajor_desc(v_s + kk * 16 * kRowBytes, kAtomBytes));
     };
     auto release = [&](int j) {  // this warp is done with tile j's stage
       __syncwarp();
@@ -328,7 +350,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile<kBN>(sc, m, l, c, 0, skv, t, scale_log2);
-    rescale_and_pack<kBoxes, kBN>(sc, acc, pf, c);
+    rescale_and_pack<D, kBN>(sc, acc, pf, c);
     for (int j = 1; j < nkv; ++j) {
       // Q K^T of this tile, then P V of the previous one, in one turn; the
       // softmax of this tile runs while P V is still on the tensor cores
@@ -349,7 +371,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(acc);
       release(j - 1);
-      rescale_and_pack<kBoxes, kBN>(sc, acc, pf, c);
+      rescale_and_pack<D, kBN>(sc, acc, pf, c);
     }
     mbar_wait(full_v((nkv - 1) % kStages), parity(nkv - 1));
     take_turn();
@@ -370,32 +392,67 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     }
     const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
 
-    // columns >= D are the zero-filled ones, and in the (B, S, H, D) layout
-    // they belong to the next head: never stored
+    // O holds exactly D columns: the zero-filled ones past D were never
+    // multiplied into it
     const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
     __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
-    for (int nb = 0; nb < kBoxes; ++nb)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int col = nb * 64 + n * 8 + 2 * t;
-        if (D % 64 != 0 && col >= D) continue;
-        if (r0 < sq)
-          *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
-              tf::pack_bf16(acc[nb][4 * n] * inv0, acc[nb][4 * n + 1] * inv0);
-        if (r1 < sq)
-          *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
-              tf::pack_bf16(acc[nb][4 * n + 2] * inv1, acc[nb][4 * n + 3] * inv1);
-      }
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (r0 < sq)
+        *reinterpret_cast<uint32_t*>(ob + r0 * oss + col) =
+            tf::pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      if (r1 < sq)
+        *reinterpret_cast<uint32_t*>(ob + r1 * oss + col) =
+            tf::pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-           int sq, int skv, long long qsb, long long qss, long long qsh, long long ksb,
-           long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-           long long osb, long long oss, long long osh, float scale, void* stream) {
-  using C = Cfg<D>;
+// raises flash_fwd<D, kCons>'s dynamic shared memory limit on device dev
+// on its first launch there, not on every call (a bit per device)
+template <int D, int kCons>
+cudaError_t allow_smem(int dev) {
+  static std::atomic<unsigned long long> done{0};
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd<D, kCons>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           Cfg<D, kCons>::kSmemBytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// the SMs of device dev, read once per device
+inline int sm_count(int dev) {
+  static std::atomic<int> counts[64];
+  int n = counts[dev & 63].load(std::memory_order_relaxed);
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    counts[dev & 63].store(n, std::memory_order_relaxed);
+  return n > 0 ? n : 1;
+}
+
+// Whether D = 160 takes its two-consumer plan (128 query rows a block)
+// over its three-consumer one (192): it does when that grid ends first if
+// a block's time grows with its rows, counting waves of one block per SM
+// times the rows of a block. At 2 x 1280 rows and 8 heads (5 keyframes)
+// three consumers make 112 blocks in one wave against 160 in two; at 2 x
+// 1024 rows (4 keyframes) two make 128 blocks in one wave against 96.
+inline bool d160_two_consumers(int batch, int heads, int sq, int sms) {
+  auto span = [&](long long rows) {
+    const long long blocks = (sq + rows - 1) / rows * heads * batch;
+    return (blocks + sms - 1) / sms * rows;
+  };
+  return span(128) < span(192);
+}
+
+template <int D, int kCons>
+int launch(int dev, const void* q, const void* k, const void* v, void* o, int batch,
+           int heads, int sq, int skv, long long qsb, long long qss, long long qsh,
+           long long ksb, long long kss, long long ksh, long long vsb, long long vss,
+           long long vsh, long long osb, long long oss, long long osh, float scale,
+           void* stream) {
+  using C = Cfg<D, kCons>;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return kErrNoEncoder;
   CUtensorMap tq, tk, tv;
@@ -403,14 +460,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   if (rc == 0) rc = make_map(&tk, encode, k, D, skv, heads, batch, ksb, kss, ksh, C::kBN);
   if (rc == 0) rc = make_map(&tv, encode, v, D, skv, heads, batch, vsb, vss, vsh, C::kBN);
   if (rc != 0) return rc;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
+  const cudaError_t attr = allow_smem<D, kCons>(dev);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((sq + C::kBM - 1) / C::kBM, heads, batch);
   const float scale_log2 = scale * 1.4426950408889634f;
-  flash_fwd<D><<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, skv, osb, oss, osh, scale_log2);
+  flash_fwd<D, kCons>
+      <<<grid, C::kThreads, C::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+          tq, tk, tv, static_cast<__nv_bfloat16*>(o), sq, skv, osb, oss, osh, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int kCons>
+int write_plan(int* plan) {
+  using C = Cfg<D, kCons>;
+  const int p[5] = {C::kBM, C::kBN, C::kStages, C::kConsumers,
+                    static_cast<int>(C::kSmemBytes)};
+  for (int i = 0; i < 5; ++i) plan[i] = p[i];
+  return 0;
 }
 
 }  // namespace
@@ -424,17 +490,41 @@ extern "C" int tf_flash_attention(
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
     long long vsh, long long osb, long long oss, long long osh, float scale,
     void* stream) {
-#define TF_FLASH_ARGS                                                                  \
-  q, k, v, o, batch, heads, sq, skv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, \
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define TF_FLASH_ARGS                                                                       \
+  dev, q, k, v, o, batch, heads, sq, skv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, \
       oss, osh, scale, stream
   switch (head_dim) {
-    case 40: return launch<40>(TF_FLASH_ARGS);
-    case 64: return launch<64>(TF_FLASH_ARGS);
-    case 80: return launch<80>(TF_FLASH_ARGS);
-    case 160: return launch<160>(TF_FLASH_ARGS);
+    case 40: return launch<40, 3>(TF_FLASH_ARGS);
+    case 64: return launch<64, 3>(TF_FLASH_ARGS);
+    case 80: return launch<80, 2>(TF_FLASH_ARGS);
+    case 160:
+      return d160_two_consumers(batch, heads, sq, sm_count(dev))
+                 ? launch<160, 2>(TF_FLASH_ARGS)
+                 : launch<160, 3>(TF_FLASH_ARGS);
     default: return tf::kErrHeadDim;
   }
 #undef TF_FLASH_ARGS
+}
+
+// The tile plan a launch at head dim 40, 64, 80 or 160 over (batch, heads,
+// sq) query rows takes on a card of `sms` SMs, into plan[5]: query rows per
+// block, KV tokens per tile, ring stages, consumer warpgroups and the
+// dynamic shared memory bytes (chip_smoke.py prints it beside each row);
+// returns 0, or kErrHeadDim
+extern "C" int tf_flash_attention_plan(int head_dim, int batch, int heads, int sq, int sms,
+                                       int* plan) {
+  switch (head_dim) {
+    case 40: return write_plan<40, 3>(plan);
+    case 64: return write_plan<64, 3>(plan);
+    case 80: return write_plan<80, 2>(plan);
+    case 160:
+      return d160_two_consumers(batch, heads, sq, sms) ? write_plan<160, 2>(plan)
+                                                       : write_plan<160, 3>(plan);
+    default: return tf::kErrHeadDim;
+  }
 }
 
 extern "C" const char* tf_error_string(int code) {

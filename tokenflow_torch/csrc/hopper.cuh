@@ -11,8 +11,8 @@
 //     -lcuda) with make_map, its one map shape;
 //   - wgmma shared-memory descriptors for the 128-byte swizzle, fences,
 //     commit / wait, and the mma_async products K1 and the match core use
-//     (m64n128k16 and m64n64k16 from shared memory, m64n64k16 with A from
-//     registers);
+//     (m64n128k16 and m64n64k16 from shared memory; with A from registers
+//     and B MN-major, m64nNk16 at N = 40, 64, 80 and 160, K1's head dims);
 //   - setmaxnreg and the named barriers of K1's consumer turns.
 // Every tile row these helpers describe is 64 bf16 = 128 bytes, one row of
 // the 128-byte swizzle; tiles are 1024-byte aligned.
@@ -150,10 +150,14 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 16, 8 * kSwizzleRowBytes);
 }
 
-// MN-major operand (V as (token, dim) for P V: N = dim contiguous, one
-// 128-byte swizzle atom wide): groups of 8 tokens 1024 bytes apart
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
-  return sw128_desc(addr, 8 * kSwizzleRowBytes, 8 * kSwizzleRowBytes);
+// MN-major operand (V as (token, dim) for P V: N = dim contiguous):
+// groups of 8 tokens 1024 bytes apart along K; along N, 64-column swizzle
+// atoms `atom_bytes` apart (the leading offset). A product N columns wide
+// reads ceil(N / 64) atoms, the last one only as far as it needs: N = 40
+// reads columns 0-39 of one atom, N = 80 one atom and 16 columns of the
+// next
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t atom_bytes) {
+  return sw128_desc(addr, atom_bytes, 8 * kSwizzleRowBytes);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -252,6 +256,56 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
         "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 40, fp32) += A (64 x 16 bf16, registers) . B (16 x 40, MN-major
+// smem)
+__device__ __forceinline__ void wgmma_m64n40k16_rs(float (&d)[20],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 80, fp32) += A (64 x 16 bf16, registers) . B (16 x 80, MN-major
+// smem)
+__device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 160, fp32) += A (64 x 16 bf16, registers) . B (16 x 160, MN-major
+// smem)
+__device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V at N = the head dim: one m64nNk16 product per 16 tokens
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  static_assert(N == 40 || N == 64 || N == 80 || N == 160, "bf16 wgmma width (rs)");
+  if constexpr (N == 40) wgmma_m64n40k16_rs(d, a, db);
+  if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, db);
+  if constexpr (N == 80) wgmma_m64n80k16_rs(d, a, db);
+  if constexpr (N == 160) wgmma_m64n160k16_rs(d, a, db);
 }
 
 // named barrier `id` between two consumer warpgroups (256 threads): the one

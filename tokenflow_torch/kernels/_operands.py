@@ -20,10 +20,12 @@ def tma_operand(t: torch.Tensor, *, contiguous: bool = False) -> torch.Tensor:
     contiguous clone. A clone, not ``.contiguous()``, which returns a
     contiguous view at a misaligned base as it is."""
     step = 16 // t.element_size()  # elements per 16 bytes
+    *outer, last = t.stride()
     ok = (
-        t.stride(-1) == 1
-        and all(s > 0 and s % step == 0 for s in t.stride()[:-1])
+        last == 1
+        and min(outer, default=1) > 0
+        and not any(s % step for s in outer)
         and t.data_ptr() % 16 == 0
-        and (t.is_contiguous() or not contiguous)
+        and (not contiguous or t.is_contiguous())
     )
     return t if ok else t.clone(memory_format=torch.contiguous_format)

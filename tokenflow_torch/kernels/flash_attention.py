@@ -5,9 +5,25 @@ Replaces the Pallas TPU kernel ``tokenflow_tpu/kernels/flash_attention.py``
 with an online softmax that keeps (acc, m, l) in fp32 on chip across KV
 tiles. The CUDA source is ``tokenflow_torch/csrc/flash_attention.cu``; its
 header comment gives the design (TMA loads into an mbarrier ring, wgmma
-products, a producer warpgroup and two or three consumer warpgroups, tiles
-cut along D into 64-column boxes). Bound on the H100: compute (4 Sq Skv D
-flops against (Sq + 2 Skv) D bf16 bytes per head).
+products, a producer warpgroup and two or three consumer warpgroups). Each
+head dim has its own tile plan (``Cfg<D, kCons>`` there; the library
+reports a launch's plan through ``tf_flash_attention_plan``): Q K^T runs
+ceil(D / 16) k-steps deep and P V exactly D columns wide, so D = 40, 80
+and 160 multiply no zero-padded columns into O; D = 40 and 64 take 192
+query rows a block, D = 80 128, and D = 160 whichever of 192 and 128 ends
+its grid first on the card's SMs (128 on one-wave grids such as 4
+keyframes at 512^2, 192 at 5). Bound on the H100: compute (4 Sq Skv D
+flops against (Sq + 2 Skv) D bf16 bytes per head). Measured by device
+time on an H100 80GB HBM3 at 700 W: about half the bound at D = 64 on the
+path's long rows, 33-39% at D = 40, 46% at D = 80, 39% at D = 160
+(PERF.md; the header comment says what holds D = 40 back).
+
+Per call the wrapper does only what a launch needs (its enqueue read
+21-32 us on the short rows, against 28-56 before): the checks,
+``tma_operand`` on each operand, the output (``new_empty``), the device's
+current stream as a raw handle, and the device context only when the
+operands lie on another device than the current one; the library sets
+each kernel's shared-memory limit once per device.
 
 The wrapper takes the framework's (B, S, H, D) layout and passes strides
 to the kernel (no (B, H, S, D) copy), from which the kernel's TMA tensor
@@ -47,10 +63,13 @@ launches = 0
 launches_by_head_dim: dict[int, int] = {}
 # launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
 launches_by_dtype: dict[str, int] = {}
+# launches by (B, Sq, Skv, H, D), the same launches as ``launches``
+launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 # the head dims the CUDA kernels are instantiated for, in both dtypes
 HEAD_DIMS = (40, 64, 80, 160)
 # the C entry point of each dtype's kernel
 ENTRY_POINTS = {torch.bfloat16: "tf_flash_attention", torch.float32: "tf_flash_attention_f32"}
+DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
 def flash_attention_plain(
@@ -111,27 +130,27 @@ def flash_attention_kernel(
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
     b, sq, h, d = q.shape
-    if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
+    kb, skv, kh, kd = k.shape
+    if kb != b or kh != h or kd != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if d not in HEAD_DIMS or q.dtype not in ENTRY_POINTS or not (
-        q.dtype == k.dtype == v.dtype
-    ):
+    dtype = q.dtype
+    if d not in HEAD_DIMS or dtype not in ENTRY_POINTS or k.dtype != dtype or v.dtype != dtype:
         raise NotImplementedError(
             "the CUDA flash-attention kernels are instantiated for bf16 and fp32 "
             f"(q, k, v alike) with head dims {HEAD_DIMS}; got {q.dtype}, "
             f"{k.dtype}, {v.dtype}, head dim {d}"
         )
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    device = q.device
+    if device.type != "cuda" or k.device != device or v.device != device:
         raise ValueError(
             "flash_attention_kernel needs q, k, v on one CUDA device, got "
             f"{q.device}, {k.device}, {v.device}"
         )
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} exceed the grid limit")
-    skv = k.shape[1]
     scale = d**-0.5 if scale is None else scale
-    q, k, v = (tma_operand(t) for t in (q, k, v))
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    q, k, v = tma_operand(q), tma_operand(k), tma_operand(v)
+    out = q.new_empty((b, sq, h, d))
     if b == 0 or sq == 0 or h == 0:
         return out
     if skv == 0:
@@ -139,24 +158,31 @@ def flash_attention_kernel(
     lib = _build.load_library()
     # the fp32 kernel's split tables (hi and lo parts of Q, K and V^T)
     workspace = (
-        [torch.empty(lib.tf_flash_attention_f32_workspace(d, b, h, sq, skv),
-                     dtype=torch.uint8, device=q.device)]
-        if q.dtype == torch.float32 else []
+        [q.new_empty(lib.tf_flash_attention_f32_workspace(d, b, h, sq, skv),
+                     dtype=torch.uint8)]
+        if dtype == torch.float32 else []
     )
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, ENTRY_POINTS[q.dtype])(
-            d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, sq, skv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3],
-            float(scale), *(w.data_ptr() for w in workspace), stream,
-        )
+    # the device's current stream as a raw handle, without building a
+    # torch.cuda.Stream (a few microseconds a call on short rows)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    args = (
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, skv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        float(scale), *(w.data_ptr() for w in workspace), stream,
+    )
+    entry = getattr(lib, ENTRY_POINTS[dtype])
+    if device.index == torch.cuda.current_device():
+        rc = entry(*args)
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args)
     _build.check(lib, rc, "flash_attention_kernel launch")
     launches += 1
     launches_by_head_dim[d] = launches_by_head_dim.get(d, 0) + 1
-    name = str(q.dtype).removeprefix("torch.")
+    name = DTYPE_NAMES[dtype]
     launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
+    shape = (b, sq, skv, h, d)
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return out
 
 
