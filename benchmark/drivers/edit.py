@@ -1,0 +1,117 @@
+"""Stage ``edit``: the TokenFlow edit loop, ``editing/pipeline.py::
+tokenflow_sample_loop``, one denoising step a call (the schedule cut by
+``split_schedule(schedule, 1)``, the same computation as one call), with
+the arguments the editor CLIs give it (``cli/common.run_edit_loop``):
+the traffic's editor ("pnp": PnP injection under its gates; "sdedit": the
+schedule truncated at ``start``, no injection; "controlnet": the
+ControlNet's residuals on every UNet call, canny images at 100/200), its
+window, guidance and the program's defaults (two passes a step, exact
+propagation, GroupNorm kernel off). Steps run from the schedule's first;
+after its last the loop starts again from the same start latents.
+
+The inputs are the harness's: the start latents and a 50-slot source
+trajectory made from seeded clean latents with DDIM's forward formula (the
+edit costs the same whatever made its trajectory), the embeddings, the
+pivot frames and the conditioning images. The program's own schedule
+tables come from its ``ddim`` and ``pipeline`` functions; the reference
+works them out again."""
+
+from __future__ import annotations
+
+import torch
+
+import checks
+import inputs
+import program
+from reference import schedule, steps as ref_steps
+
+
+class Stage:
+    def __init__(self, run):
+        from tokenflow_torch.diffusion import ddim
+        from tokenflow_torch.editing import pipeline
+
+        self.run, tr = run, run.traffic
+        dev, dt = run.device, run.dtype
+        self.unet = program.unet(run.unet_spec, run.state["unet"])
+        self.controlnet = (None if run.controlnet_spec is None else
+                           program.controlnet(run.controlnet_spec, run.state["controlnet"]))
+        frames = inputs.video(tr, run.seed, dev)
+        x0 = inputs.latents(frames, run.seed)
+        eps = inputs.noise(x0.shape, run.seed, dev)
+        self.cond = None if self.controlnet is None else inputs.canny(frames).to(dt)
+        del frames
+
+        # the program's schedule, as its editors build it
+        sched = ddim.make_schedule(tr["timesteps"])
+        if tr.get("start") is not None:
+            sched = ddim.truncate_schedule(sched, tr["start"])
+        save_ts = ddim.save_grid(tr["inversion_steps"], tr["save_steps"])[0]
+        pnp = tr["editor"] == "pnp"
+        gates = dict(pnp_attn_t=tr["pnp_attn_t"], pnp_f_t=tr["pnp_f_t"]) if pnp else {}
+        self.steps = pipeline.split_schedule(
+            pipeline.make_edit_schedule(sched, save_ts, **gates), 1)
+
+        # the harness's inputs, handed to both sides
+        self.tables = schedule.edit_tables(run.sched_config, tr)
+        ac0 = float(schedule.alphas_cumprod(run.sched_config)[self.tables["t"][0]])
+        self.x_init = (ac0**0.5 * x0 + (1 - ac0) ** 0.5 * eps).to(dt)
+        self.traj = inputs.source_trajectory(x0, eps, run.sched_config, tr["save_steps"]).to(dt)
+        del x0, eps
+        ctx = run.unet_spec.cross_attention_dim
+        self.embeds3 = inputs.embeddings(3, ctx, run.seed, dev).to(dt)
+        self.pivots = inputs.pivots(len(self.steps), tr["frames"], tr["window"], run.seed)
+        self.sample = checks.Sample(run.seed, tr["compared_later_steps"])
+        self.x = self.x_init
+
+    def _call(self, x, pos: int):
+        from tokenflow_torch.editing import pipeline
+
+        tr = self.run.traffic
+        return pipeline.tokenflow_sample_loop(
+            self.unet, x, self.traj, self.embeds3, self.steps[pos],
+            window_size=tr["window"], guidance_scale=tr["guidance_scale"],
+            pnp=tr["editor"] == "pnp", pivot_indices=self.pivots[pos : pos + 1],
+            phase=self.run.phase, controlnet_fn=self.controlnet, cond_image=self.cond,
+        )
+
+    def warm(self) -> None:
+        """The first step and the last, whose gates are off: every shape
+        and path the window drives."""
+        for pos in (0, len(self.steps) - 1):
+            self._call(self.x_init, pos)
+
+    def step(self, k: int, check: bool = True) -> None:
+        """Step ``k`` of a window; ``check`` offers it to the comparison."""
+        pos = k % len(self.steps)
+        x_in = self.x_init if pos == 0 else self.x
+        self.x = self._call(x_in, pos)
+        if check:
+            self.sample.offer((k, pos, x_in, self.x))
+
+    def release(self) -> None:
+        """Drop the program's models; the compared states stay."""
+        self.unet = self.controlnet = None
+
+    def compare(self, P, ref_unet, ref_controlnet, control=None) -> list:
+        """The compared steps' numbers: the program's state after each
+        against the reference's (precision ``P``) from the state before it;
+        with ``control`` (a precision), that precision's reference step
+        stands in for the program's."""
+        tr = self.run.traffic
+        pa, pb, w1 = (torch.as_tensor(a, device=self.run.device)
+                      for a in schedule.propagation_indices(tr["frames"], tr["window"]))
+
+        def ref(prec, x_in, pos):
+            return ref_steps.edit_step(
+                prec, ref_unet, ref_controlnet, x_in, self.traj[int(self.tables["slot"][pos])],
+                self.embeds3, self.tables, pos, self.pivots[pos], tr, cond=self.cond,
+                pa=pa, pb=pb, w1=w1)
+
+        out = []
+        for k, pos, x_in, x_out in self.sample.items():
+            if control is not None:
+                x_out = ref(control, x_in, pos).to(x_in.dtype)
+            out.append({"step": k, "position": pos,
+                        "numbers": checks.step_numbers(x_out, ref(P, x_in, pos))})
+        return out

@@ -1,0 +1,83 @@
+"""``BENCHMARK.json`` and the files it names. A cell pairs a configuration
+(``configs/<name>.json``) with a traffic mix (``traffic/<name>.json``),
+whose ``stage`` names its driver (``drivers/<stage>.py``); each metric is
+read by ``metrics/<name>.py`` and each cell's output limits are in
+``limits/<cell>.json``. Everything is found by name, so a new cell, mix,
+stage or metric is a new file."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+from types import ModuleType
+
+HERE = Path(__file__).resolve().parent
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    limits: dict
+    end_to_end: list  # the BENCHMARK.json entries this cell reports
+    per_layer: list
+
+    @property
+    def stage(self) -> str:
+        return self.traffic["stage"]
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def benchmark(root: Path = HERE) -> dict:
+    """``BENCHMARK.json`` at the root of the checkout that holds ``root``."""
+    return load_json(root.parent / "BENCHMARK.json")
+
+
+def reports(metric: dict, cell: str) -> bool:
+    return cell in metric.get("workloads", [cell])
+
+
+def cell(name: str, root: Path = HERE) -> Cell:
+    bench = benchmark(root)
+    match = [w for w in bench["workloads"] if w["name"] == name]
+    if len(match) != 1:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+    w = match[0]
+    e2e = [m for m in bench["end_to_end"] if reports(m, name)]
+    moved = {m["name"] for m in e2e}
+    per_layer = [m for m in bench["per_layer"]
+                 if (name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
+    limits_path = root / "limits" / f"{name}.json"
+    return Cell(
+        name=name, chips=w["chips"],
+        config=load_json(root / "configs" / f"{w['config']}.json"),
+        traffic=load_json(root / "traffic" / f"{w['traffic']}.json"),
+        limits=load_json(limits_path)["limits"] if limits_path.exists() else {},
+        end_to_end=e2e, per_layer=per_layer,
+    )
+
+
+def _module(path: Path) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(f"bench_{path.parent.name}_{path.stem}", path)
+    if spec is None or not path.exists():
+        raise FileNotFoundError(path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def driver(stage: str, root: Path = HERE) -> ModuleType:
+    return _module(root / "drivers" / f"{stage}.py")
+
+
+def reader(metric: str, root: Path = HERE) -> ModuleType:
+    """The module whose ``read(measures)`` gives ``metric``."""
+    return _module(root / "metrics" / f"{metric}.py")
