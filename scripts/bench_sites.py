@@ -1,0 +1,112 @@
+"""A benchmark cell's time by program site, with the program's spans on.
+
+    python scripts/bench_sites.py --workload <cell> --seed <n> --seconds <s>
+
+The cell's set-up as ``benchmark/run.py`` makes it (weights, models, inputs,
+warm-up), then three windows of ``--seconds`` each: the measured window
+with the spans off (as every benchmark window runs), (a) the same steps
+with the program's spans on (``profiling.spans``), unprofiled: the span
+record gives the host ms a step and the spans' cost against the measured
+window; (b) with the spans on under ``torch.profiler``: ``benchmark/
+sites.py`` charges every kernel, copy and set to the span that launched it
+and counts the blocking calls. Standard error gets the ``[bench] sites:``
+table; the last line of standard output is a JSON object with the
+windows' steps and step seconds, the spans' cost and the readings of
+``sites.readings``. On a machine without a card window (b) is left out and
+the device numbers are null. No reference runs: ``benchmark/run.py``
+decides ``correct``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import sys
+import time
+from pathlib import Path
+
+T0 = time.monotonic()
+ROOT = Path(__file__).resolve().parents[1]
+BENCH = ROOT / "benchmark"
+sys.path[:0] = [str(BENCH), str(ROOT)]
+
+import guard  # noqa: E402
+import harness  # noqa: E402
+import manifest  # noqa: E402
+import program  # noqa: E402
+import sites  # noqa: E402
+import tracing  # noqa: E402
+import weights  # noqa: E402
+from reference import model as ref_model  # noqa: E402
+
+
+def stage_for(cell: manifest.Cell, seed: int, root: Path, device):
+    """The cell's stage driver, set up and warmed as a benchmark run's."""
+    cfg = cell.config
+    dtype = program.DTYPES[cfg["dtype"]]
+    unet_spec = ref_model.UNetSpec.from_config(cfg["unet"])
+    cn_spec = (ref_model.UNetSpec.from_config(cfg["controlnet"])
+               if "controlnet" in cfg else None)
+    if device.type == "cuda":
+        program.build_kernels()
+    state = {"unet": weights.random_state_dict(ref_model.build("unet", cfg["unet"]),
+                                               weights.sub_seed(seed, 1), device, dtype)}
+    state["controlnet"] = None if cn_spec is None else weights.random_state_dict(
+        ref_model.build("controlnet", cfg["controlnet"]), weights.sub_seed(seed, 2),
+        device, dtype)
+    run = harness.Run(cell, seed, device, dtype, unet_spec, cn_spec, state,
+                      lambda name: contextlib.nullcontext())
+    stage = manifest.driver(cell.stage, root).Stage(run)
+    stage.warm()
+    return stage
+
+
+def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) -> dict:
+    from tokenflow_torch import profiling
+
+    cuda = device.type == "cuda"
+    stage = stage_for(cell, seed, root, device)
+    setup_s = time.monotonic() - T0
+    steps, window_s = harness.window(stage, seconds, False, cuda)
+    with profiling.spans() as record:
+        steps_a, window_a = harness.window(stage, seconds, False, cuda)
+    reduced, steps_b = None, 0
+    if cuda:
+        with profiling.spans(), tracing.profiled(True) as prof:
+            steps_b, _ = harness.window(stage, seconds, True, cuda)
+        reduced = sites.reduce(sites.from_kineto(prof))
+        print(reduced.table(), file=sys.stderr, flush=True)
+    off, on = window_s / steps, window_a / steps_a
+    out = {
+        "workload": cell.name, "seed": seed, "setup_s": setup_s,
+        "steps": {"off": steps, "spans_on": steps_a, "profiled": steps_b},
+        "step_s": {"off": off, "spans_on": on},
+        "spans_on_cost_pct": 100.0 * (on / off - 1.0),
+        "readings": sites.readings(cell.stage, record, reduced),
+    }
+    if reduced is not None:
+        out.update(coverage_pct=reduced.coverage, linked_pct=reduced.linked_share,
+                   device_ms_per_step={k: dict(v) for k, v in reduced.by_kind().items()})
+    return out
+
+
+def main(argv, root: Path = BENCH, device=None) -> int:
+    args = harness.parse(argv)
+    guard.check("at start")
+    cell = manifest.cell(args.workload, root)
+    harness.cache_dirs(root.parent)
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            print(f"[bench] {cell.name} needs a CUDA device", file=sys.stderr)
+            return 2
+        device = torch.device("cuda", 0)
+    out = measure(cell, args.seed, args.seconds, root, device)
+    out["card"] = harness.card_line() if device.type == "cuda" else "cpu"
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

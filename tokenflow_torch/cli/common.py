@@ -50,7 +50,7 @@ import numpy as np
 import torch
 import yaml
 
-from tokenflow_torch import runtime, utils
+from tokenflow_torch import profiling, runtime, utils
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.editing import pipeline
 from tokenflow_torch.io import latents as latents_io
@@ -151,11 +151,11 @@ def device_phase(metrics, name: str, device: torch.device,
                  group: Optional[mesh.FramesGroup] = None):
     """``metrics.phase(name)`` around work that is synchronized on entry
     and exit, on the device and across the frames ``group``, so the host
-    clock measures the device work (of the slowest rank); a profiler trace
-    (``profiling.trace``) shows the phase as a span of that name."""
+    clock measures the device work (of the slowest rank); while spans are on
+    (``profiling.trace``) the phase is a span of that name."""
     utils.synchronize(device)
     mesh.barrier(group)
-    with metrics.phase(name), torch.profiler.record_function(name):
+    with metrics.phase(name), profiling.span(name):
         yield
         utils.synchronize(device)
         mesh.barrier(group)

@@ -1,6 +1,7 @@
 """DDIM inversion and reconstruction with an in-memory latent trajectory,
 the counterpart of ``tokenflow_tpu/diffusion/inversion.py`` written as
-Python loops. The UNet enters as ``eps_fn(x, t) -> eps``.
+Python loops. The UNet enters as ``eps_fn(x, t) -> eps``. Each step is a
+``tf.step`` span, its update a ``tf.ddim`` span (``profiling.span``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from tokenflow_torch.diffusion import ddim
+from tokenflow_torch.profiling import span
 
 EpsFn = Callable[[torch.Tensor, int], torch.Tensor]
 
@@ -57,10 +59,12 @@ def ddim_inversion(
     else:
         x, traj = carry
     for i in range(len(t_asc))[steps or slice(None)]:
-        eps = eps_fn(x, int(t_asc[i]))
-        x = ddim.ddim_invert_step(x, eps, alpha_t[i], alpha_prev[i]).to(x.dtype)
-        if mask[i]:
-            traj[int(slot[i])] = x
+        with span("tf.step"):
+            eps = eps_fn(x, int(t_asc[i]))
+            with span("tf.ddim"):
+                x = ddim.ddim_invert_step(x, eps, alpha_t[i], alpha_prev[i]).to(x.dtype)
+            if mask[i]:
+                traj[int(slot[i])] = x
     return x, traj, save_ts
 
 
@@ -73,6 +77,8 @@ def ddim_reconstruction(
     alpha_t, alpha_prev = sched.recon_alphas()
     x = x_T
     for i, t in enumerate(sched.timesteps):
-        eps = eps_fn(x, int(t))
-        x = ddim.ddim_step(x, eps, alpha_t[i], alpha_prev[i]).to(x.dtype)
+        with span("tf.step"):
+            eps = eps_fn(x, int(t))
+            with span("tf.ddim"):
+                x = ddim.ddim_step(x, eps, alpha_t[i], alpha_prev[i]).to(x.dtype)
     return x

@@ -19,6 +19,10 @@ JAX loop falls back to two (:func:`fused_fallback`). With per-frame
 ``depth`` maps (the 5-channel depth UNet), every stream of both passes
 carries its frame's map as a fifth channel. Over a frames group
 (``sharding/mesh.py``) both loops run on the rank's block of the frames.
+
+Spans (``profiling.span``): ``tf.step`` per denoising step; inside it
+``tf.pivotal`` and ``tf.propagate`` (or ``tf.fused``) within the
+``phase`` hook's passes, and ``tf.ddim`` over CFG and the DDIM update.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.propagation import propagation_indices
+from tokenflow_torch.profiling import span
 from tokenflow_torch.sharding import mesh
 from tokenflow_torch.utils import segment_slices
 
@@ -286,71 +291,75 @@ def tokenflow_sample_loop(
 
     x = x_init
     for i in range(n_steps):
-        t = int(schedule.timesteps[i])
-        qk_g, conv_g = bool(schedule.qk_gate[i]), bool(schedule.conv_gate[i])
-        src = src_traj[int(schedule.src_slot[i])]
-        piv = pivots[i]
+        with span("tf.step"):
+            t = int(schedule.timesteps[i])
+            qk_g, conv_g = bool(schedule.qk_gate[i]), bool(schedule.conv_gate[i])
+            src = src_traj[int(schedule.src_slot[i])]
+            piv = pivots[i]
 
-        if fused:
-            with phase("fused"):
-                def take(a):
-                    return None if a is None else mesh.take_frames(group, a, piv)
+            if fused:
+                with phase("fused"), span("tf.fused"):
+                    def take(a):
+                        return None if a is None else mesh.take_frames(group, a, piv)
 
-                sample = torch.cat([streams(take(src), take(x), 3, take(depth)),
-                                    streams(src, x, 3, depth)])
-                edit = editctx.UNetEdit(
-                    mode=editctx.EditMode.FUSED, n_frames=f_local, n_pivots=n_windows,
-                    pnp=pnp, qk_gate=qk_g, conv_gate=conv_g,
-                    prop_pa=pa, prop_pb=pb, prop_w1=w1, group=group,
-                )
-                eps_all, _ = unet_apply(sample, t, embeds_fused, edit)
-                eps3 = eps_all[3 * n_windows :].reshape(f_local, 3, *eps_all.shape[1:])
-                eps = ddim.classifier_free_guidance(eps3[:, 1], eps3[:, 2], guidance_scale)
-                x = ddim.ddim_step(
-                    x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
-                ).to(x.dtype)
-            continue
+                    sample = torch.cat([streams(take(src), take(x), 3, take(depth)),
+                                        streams(src, x, 3, depth)])
+                    edit = editctx.UNetEdit(
+                        mode=editctx.EditMode.FUSED, n_frames=f_local, n_pivots=n_windows,
+                        pnp=pnp, qk_gate=qk_g, conv_gate=conv_g,
+                        prop_pa=pa, prop_pb=pb, prop_w1=w1, group=group,
+                    )
+                    eps_all, _ = unet_apply(sample, t, embeds_fused, edit)
+                    with span("tf.ddim"):
+                        eps3 = eps_all[3 * n_windows :].reshape(f_local, 3, *eps_all.shape[1:])
+                        eps = ddim.classifier_free_guidance(eps3[:, 1], eps3[:, 2],
+                                                            guidance_scale)
+                        x = ddim.ddim_step(
+                            x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
+                        ).to(x.dtype)
+                continue
 
-        with phase("pivotal"):
-            edit_piv = editctx.UNetEdit(
-                mode=editctx.EditMode.PIVOTAL, n_frames=n_kf, pnp=pnp,
-                prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
-                group=piv_group, kf_counts=kf_counts,
-            )
-            # the pivot eps is discarded; only the cache matters (reference
-            # run_tokenflow_pnp.py:227)
-            sample = streams(keyframes(src, piv) if n_piv == 3 else None,
-                             keyframes(x, piv), n_piv, keyframes(depth, piv))
-            _, cache = unet_apply(
-                sample, t, embeds_piv, edit_piv,
-                **residuals(sample, t, embeds_piv, keyframes(cond_image, piv), n_piv),
-            )
-            cache = mesh.gather_cache(piv_group, cache, kf_counts)
-
-        with phase("propagate"):
-            eps3 = []
-            for c0 in range(0, f_local, chunk):
-                sl = slice(c0, c0 + chunk)
-                edit = editctx.UNetEdit(
-                    mode=editctx.EditMode.PROPAGATE, n_frames=chunk, pnp=pnp,
+            with phase("pivotal"), span("tf.pivotal"):
+                edit_piv = editctx.UNetEdit(
+                    mode=editctx.EditMode.PIVOTAL, n_frames=n_kf, pnp=pnp,
                     prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
-                    cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
-                    group=group,
+                    group=piv_group, kf_counts=kf_counts,
                 )
-                sample = streams(src[sl], x[sl], n_prop, part(depth, sl))
-                eps_c, _ = unet_apply(
-                    sample, t, embeds_prop, edit,
-                    **residuals(sample, t, embeds_prop, part(cond_image, sl), n_prop),
+                # the pivot eps is discarded; only the cache matters (reference
+                # run_tokenflow_pnp.py:227)
+                sample = streams(keyframes(src, piv) if n_piv == 3 else None,
+                                 keyframes(x, piv), n_piv, keyframes(depth, piv))
+                _, cache = unet_apply(
+                    sample, t, embeds_piv, edit_piv,
+                    **residuals(sample, t, embeds_piv, keyframes(cond_image, piv), n_piv),
                 )
-                eps3.append(eps_c.reshape(chunk, n_prop, *eps_c.shape[1:]))
-            eps3 = torch.cat(eps3)
-            # CFG on streams (1, 2) of [source|uncond|cond], (0, 1) of the
-            # approximate pass's [uncond|cond] (tokenflow_tpu/editing/pipeline.py:476)
-            u, c = (0, 1) if prop_approx else (1, 2)
-            eps = ddim.classifier_free_guidance(eps3[:, u], eps3[:, c], guidance_scale)
-            x = ddim.ddim_step(
-                x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
-            ).to(x.dtype)
+                cache = mesh.gather_cache(piv_group, cache, kf_counts)
+
+            with phase("propagate"), span("tf.propagate"):
+                eps3 = []
+                for c0 in range(0, f_local, chunk):
+                    sl = slice(c0, c0 + chunk)
+                    edit = editctx.UNetEdit(
+                        mode=editctx.EditMode.PROPAGATE, n_frames=chunk, pnp=pnp,
+                        prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
+                        cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
+                        group=group,
+                    )
+                    sample = streams(src[sl], x[sl], n_prop, part(depth, sl))
+                    eps_c, _ = unet_apply(
+                        sample, t, embeds_prop, edit,
+                        **residuals(sample, t, embeds_prop, part(cond_image, sl), n_prop),
+                    )
+                    eps3.append(eps_c.reshape(chunk, n_prop, *eps_c.shape[1:]))
+                with span("tf.ddim"):
+                    eps3 = torch.cat(eps3)
+                    # CFG on streams (1, 2) of [source|uncond|cond], (0, 1) of the
+                    # approximate pass's [uncond|cond] (tokenflow_tpu/editing/pipeline.py:476)
+                    u, c = (0, 1) if prop_approx else (1, 2)
+                    eps = ddim.classifier_free_guidance(eps3[:, u], eps3[:, c], guidance_scale)
+                    x = ddim.ddim_step(
+                        x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
+                    ).to(x.dtype)
     return x
 
 
@@ -378,14 +387,18 @@ def vanilla_sample_loop(
     embeds = embeds2.repeat(chunk, 1, 1)  # frame-major [uncond, cond]
     x = x_init
     for i in range(len(schedule.timesteps)):
-        t = int(schedule.timesteps[i])
-        eps = []
-        for c0 in range(0, f_total, chunk):
-            x_c = x[c0 : c0 + chunk]
-            eps2, _ = unet_apply(_stack_streams(x_c, x_c), t, embeds, None)
-            eps2 = eps2.reshape(chunk, 2, *eps2.shape[1:])
-            eps.append(ddim.classifier_free_guidance(eps2[:, 0], eps2[:, 1], guidance_scale))
-        x = ddim.ddim_step(
-            x, torch.cat(eps), schedule.alpha_t[i], schedule.alpha_prev[i]
-        ).to(x.dtype)
+        with span("tf.step"):
+            t = int(schedule.timesteps[i])
+            eps = []
+            for c0 in range(0, f_total, chunk):
+                x_c = x[c0 : c0 + chunk]
+                eps2, _ = unet_apply(_stack_streams(x_c, x_c), t, embeds, None)
+                eps2 = eps2.reshape(chunk, 2, *eps2.shape[1:])
+                with span("tf.ddim"):
+                    eps.append(ddim.classifier_free_guidance(eps2[:, 0], eps2[:, 1],
+                                                             guidance_scale))
+            with span("tf.ddim"):
+                x = ddim.ddim_step(
+                    x, torch.cat(eps), schedule.alpha_t[i], schedule.alpha_prev[i]
+                ).to(x.dtype)
     return x

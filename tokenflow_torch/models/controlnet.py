@@ -17,6 +17,7 @@ from torch import nn
 from tokenflow_torch.models import unet2d
 from tokenflow_torch.models.unet2d import UNet2DConfig
 from tokenflow_torch.ops import editctx
+from tokenflow_torch.profiling import span
 
 # channels of diffusers' ControlNetConditioningEmbedding (three stride-2
 # convs: the x8 latent factor of the SD VAE)
@@ -82,29 +83,31 @@ class ControlNetModel(nn.Module):
         conditioning_scale: float = 1.0,
     ) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
         """Returns (down residuals, one per skip, and the mid residual), NHWC
-        in the model's dtype, each scaled by ``conditioning_scale``."""
+        in the model's dtype, each scaled by ``conditioning_scale``; a
+        ``tf.controlnet`` span, its blocks' spans named as the UNet's."""
         n = self.controlnet_cond_embedding.num_downsamples
         if controlnet_cond.shape[1:3] != tuple(x << n for x in sample.shape[1:3]):
             raise ValueError(
                 f"cond image {tuple(controlnet_cond.shape[1:3])} is not 2^{n} times the "
                 f"latent {tuple(sample.shape[1:3])}"
             )
-        dtype = self.dtype
-        context = encoder_hidden_states.to(dtype)
-        temb = unet2d.embed_timesteps(
-            self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
-        )
-        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
-        h = h + self.controlnet_cond_embedding(controlnet_cond.to(dtype).permute(0, 3, 1, 2))
-        none = editctx.UNetEdit()
-        h, skips = unet2d.down_pass(self.down_blocks, h, temb, context, none, {})
-        h = unet2d.mid_pass(self.mid_block, h, temb, context, none, {})
+        with span("tf.controlnet"):
+            dtype = self.dtype
+            context = encoder_hidden_states.to(dtype)
+            temb = unet2d.embed_timesteps(
+                self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
+            )
+            h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+            h = h + self.controlnet_cond_embedding(controlnet_cond.to(dtype).permute(0, 3, 1, 2))
+            none = editctx.UNetEdit()
+            h, skips = unet2d.down_pass(self.down_blocks, h, temb, context, none, {})
+            h = unet2d.mid_pass(self.mid_block, h, temb, context, none, {})
 
-        def project(conv, x):
-            r = conv(x)
-            if conditioning_scale != 1.0:
-                r = r * conditioning_scale
-            return r.permute(0, 2, 3, 1)
+            def project(conv, x):
+                r = conv(x)
+                if conditioning_scale != 1.0:
+                    r = r * conditioning_scale
+                return r.permute(0, 2, 3, 1)
 
-        down = tuple(project(conv, s) for conv, s in zip(self.controlnet_down_blocks, skips))
-        return down, project(self.controlnet_mid_block, h)
+            down = tuple(project(conv, s) for conv, s in zip(self.controlnet_down_blocks, skips))
+            return down, project(self.controlnet_mid_block, h)

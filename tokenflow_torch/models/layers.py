@@ -8,6 +8,13 @@ row-major order; convolutions run on NCHW tensors inside the UNet/VAE.
 
 Dtype policy (as in JAX): weights and activations in the stack dtype (bf16
 on the GPU), normalization statistics and attention logits in fp32.
+
+Spans (``profiling.span``): ``tf.norm`` in both norms, casts included;
+inside a transformer block ``tf.self_attn``, ``tf.ext_attn`` (the
+keyframes' extended attention with the PnP injection), ``tf.propagation``
+(the propagate branch: the normalized pivots, K2/K3 and the output's cast
+and transpose), ``tf.cross_attn`` and ``tf.ff``. The UNet names each block's
+span by its site (``models/unet2d.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.attention import flash_attention, merge_heads, split_heads
 from tokenflow_torch.ops.extended_attention import extended_attention, inject_source_qk
 from tokenflow_torch.ops.propagation import token_propagation, token_propagation_sharded
+from tokenflow_torch.profiling import span
 
 
 class FusedGroupNorm(nn.GroupNorm):
@@ -44,32 +52,34 @@ class FusedGroupNorm(nn.GroupNorm):
         self.use_kernel = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.use_kernel:
-            if x.is_cuda:
-                norm = group_norm_kernel
-            elif x.device.type == "cpu":
-                norm = group_norm_plain
-            else:
-                raise ValueError(f"no GroupNorm path for device {x.device}")
-            return norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
-        y = F.group_norm(
-            x.float(), self.num_groups, self.weight.float(), self.bias.float(),
-            self.eps,
-        )
-        if self.act == "silu":
-            y = F.silu(y)
-        return y.to(x.dtype)
+        with span("tf.norm"):
+            if self.use_kernel:
+                if x.is_cuda:
+                    norm = group_norm_kernel
+                elif x.device.type == "cpu":
+                    norm = group_norm_plain
+                else:
+                    raise ValueError(f"no GroupNorm path for device {x.device}")
+                return norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
+            y = F.group_norm(
+                x.float(), self.num_groups, self.weight.float(), self.bias.float(),
+                self.eps,
+            )
+            if self.act == "silu":
+                y = F.silu(y)
+            return y.to(x.dtype)
 
 
 class LayerNorm32(nn.LayerNorm):
     """LayerNorm computed in fp32, returned in the input dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(),
-            self.bias.float(), self.eps,
-        )
-        return y.to(x.dtype)
+        with span("tf.norm"):
+            y = F.layer_norm(
+                x.float(), self.normalized_shape, self.weight.float(),
+                self.bias.float(), self.eps,
+            )
+            return y.to(x.dtype)
 
 
 def timestep_embedding(
@@ -213,12 +223,14 @@ class BasicTransformerBlock(nn.Module):
         h_norm = self.norm1(x)
         mode = editctx.EditMode.NONE if edit is None else edit.mode
         if mode == editctx.EditMode.NONE:
-            attn_out = self.attn1(h_norm)
+            with span("tf.self_attn"):
+                attn_out = self.attn1(h_norm)
         elif mode == editctx.EditMode.PIVOTAL:
             h3 = h_norm.reshape(edit.n_frames, edit.n_streams, s, dim)
-            kf_attn = self._keyframe_attention(h3.transpose(0, 1), edit, edit.group,
-                                               edit.kf_counts)
-            attn_out = kf_attn.transpose(0, 1).reshape(b, s, dim)
+            with span("tf.ext_attn"):
+                kf_attn = self._keyframe_attention(h3.transpose(0, 1), edit, edit.group,
+                                                   edit.kf_counts)
+                attn_out = kf_attn.transpose(0, 1).reshape(b, s, dim)
             cache = {
                 # stream 0's normed states drive the NN matching: the source
                 # stream (reference pivot_hidden_states[0],
@@ -232,22 +244,25 @@ class BasicTransformerBlock(nn.Module):
         elif mode == editctx.EditMode.PROPAGATE:
             f, ns = edit.n_frames, edit.n_streams
             propagate = token_propagation if edit.group is None else token_propagation_sharded
-            o3 = propagate(
-                h_norm.reshape(f, ns, s, dim)[:, 0],
-                edit.pivot_h, edit.kf_attn,
-                edit.prop_pa, edit.prop_pb, edit.prop_w1,
-            )
-            attn_out = o3.transpose(0, 1).reshape(b, s, dim).to(x.dtype)
+            with span("tf.propagation"):
+                o3 = propagate(
+                    h_norm.reshape(f, ns, s, dim)[:, 0],
+                    edit.pivot_h, edit.kf_attn,
+                    edit.prop_pa, edit.prop_pb, edit.prop_w1,
+                )
+                attn_out = o3.transpose(0, 1).reshape(b, s, dim).to(x.dtype)
         elif mode == editctx.EditMode.FUSED:
             # tokenflow_tpu/models/layers.py:313-341; each segment frame-major
             kf, f = edit.n_pivots, edit.n_frames
             h3 = h_norm.reshape(kf + f, 3, s, dim)
             hp = h3[:kf].transpose(0, 1)  # (3, K, S, C) view
             # every rank of a group holds all the keyframes: no K/V gather
-            kf_attn = self._keyframe_attention(hp, edit)
+            with span("tf.ext_attn"):
+                kf_attn = self._keyframe_attention(hp, edit)
             propagate = token_propagation if edit.group is None else token_propagation_sharded
-            oq = propagate(h3[kf:, 0], hp[0], kf_attn,
-                           edit.prop_pa, edit.prop_pb, edit.prop_w1)
+            with span("tf.propagation"):
+                oq = propagate(h3[kf:, 0], hp[0], kf_attn,
+                               edit.prop_pa, edit.prop_pb, edit.prop_w1)
             attn_out = torch.cat([
                 kf_attn.transpose(0, 1).reshape(3 * kf, s, dim),
                 oq.transpose(0, 1).reshape(3 * f, s, dim).to(x.dtype),
@@ -255,8 +270,10 @@ class BasicTransformerBlock(nn.Module):
         else:
             raise ValueError(f"unknown edit mode {mode!r}")
         x = x + attn_out
-        x = x + self.attn2(self.norm2(x), context)
-        x = x + self.ff(self.norm3(x))
+        with span("tf.cross_attn"):
+            x = x + self.attn2(self.norm2(x), context)
+        with span("tf.ff"):
+            x = x + self.ff(self.norm3(x))
         return x, cache
 
 

@@ -9,6 +9,13 @@ the PIVOTAL pass returns the per-site cache (with the PnP conv site's
 ``conv_src`` entry under approximate propagation). ControlNet residuals
 (``down_block_residuals``, ``mid_block_residual``) are added to the skips
 and to the mid block's output, as diffusers' UNet adds them.
+
+Spans (``profiling.span``): ``tf.unet`` over a call, and one per block
+under its site's name, fixed when the model is built:
+``tf.resnet:down_{i}_res_{j}``, ``tf.resnet:mid_res_{j}``,
+``tf.resnet:up_{i}_res_{j}`` (with its skip concatenation),
+``tf.transformer:down_{i}_{j}``, ``tf.transformer:mid``,
+``tf.transformer:up_{i}_{j}``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from tokenflow_torch.models.layers import (
     timestep_embedding,
 )
 from tokenflow_torch.ops import editctx
+from tokenflow_torch.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +92,12 @@ class UNet2DConfig:
         return self.block_out_channels[level] // self.num_heads[level]
 
 
+def _named(block: nn.Module, kind: str, site: str) -> nn.Module:
+    """``block`` with the name of the span its caller opens around it."""
+    block.span_name = f"tf.{kind}:{site}"
+    return block
+
+
 def _nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A residual from the NHWC public layout into the body's NCHW."""
     return x.to(dtype).permute(0, 3, 1, 2)
@@ -136,11 +150,11 @@ class UNetParts:
         down = []
         for i, ch in enumerate(chans):
             resnets, attns = [], []
-            for _ in range(cfg.layers_per_block):
-                resnets.append(self.resnet(cin, ch))
+            for j in range(cfg.layers_per_block):
+                resnets.append(_named(self.resnet(cin, ch), "resnet", f"down_{i}_res_{j}"))
                 cin = ch
                 if cfg.attn_down[i]:
-                    attns.append(self.attn(i))
+                    attns.append(_named(self.attn(i), "transformer", f"down_{i}_{j}"))
                 skips.append(ch)
             ds = Downsample2D(ch) if i < len(chans) - 1 else None
             if ds is not None:
@@ -150,7 +164,8 @@ class UNetParts:
 
     def mid_block(self) -> _Block:
         c = self.chans[-1]
-        return _Block([self.resnet(c, c), self.resnet(c, c)], [self.attn(len(self.chans) - 1)])
+        resnets = [_named(self.resnet(c, c), "resnet", f"mid_res_{j}") for j in range(2)]
+        return _Block(resnets, [_named(self.attn(len(self.chans) - 1), "transformer", "mid")])
 
 
 def embed_timesteps(cfg: UNet2DConfig, time_embedding: TimestepEmbedding, timesteps,
@@ -175,10 +190,13 @@ def down_pass(blocks: nn.ModuleList, h, temb, context, edit: editctx.UNetEdit,
     skips = [h]
     for i, block in enumerate(blocks):
         for j, res in enumerate(block.resnets):
-            h = res(h, temb)
+            with span(res.span_name):
+                h = res(h, temb)
             if len(block.attentions):
                 site = f"down_{i}_{j}"
-                h, c = block.attentions[j](h, context, edit.for_site(site))
+                attn = block.attentions[j]
+                with span(attn.span_name):
+                    h, c = attn(h, context, edit.for_site(site))
                 if c is not None:
                     cache[site] = c
             skips.append(h)
@@ -189,11 +207,15 @@ def down_pass(blocks: nn.ModuleList, h, temb, context, edit: editctx.UNetEdit,
 
 
 def mid_pass(mid: _Block, h, temb, context, edit: editctx.UNetEdit, cache: dict):
-    h = mid.resnets[0](h, temb)
-    h, c = mid.attentions[0](h, context, edit.for_site("mid"))
+    res0, res1, attn = mid.resnets[0], mid.resnets[1], mid.attentions[0]
+    with span(res0.span_name):
+        h = res0(h, temb)
+    with span(attn.span_name):
+        h, c = attn(h, context, edit.for_site("mid"))
     if c is not None:
         cache["mid"] = c
-    return mid.resnets[1](h, temb)
+    with span(res1.span_name):
+        return res1(h, temb)
 
 
 class UNet2DConditionModel(nn.Module):
@@ -214,11 +236,12 @@ class UNet2DConditionModel(nn.Module):
         for i in range(n):
             level = n - 1 - i
             resnets, attns = [], []
-            for _ in range(cfg.layers_per_block + 1):
-                resnets.append(parts.resnet(cin + skips.pop(), rev[i]))
+            for j in range(cfg.layers_per_block + 1):
+                resnets.append(_named(parts.resnet(cin + skips.pop(), rev[i]), "resnet",
+                                      f"up_{i}_res_{j}"))
                 cin = rev[i]
                 if cfg.attn_up[i]:
-                    attns.append(parts.attn(level))
+                    attns.append(_named(parts.attn(level), "transformer", f"up_{i}_{j}"))
             us = Upsample2D(rev[i]) if i < n - 1 else None
             up.append(_Block(resnets, attns, upsample=us))
         self.up_blocks = nn.ModuleList(up)
@@ -240,40 +263,44 @@ class UNet2DConditionModel(nn.Module):
         mid_block_residual: Optional[torch.Tensor] = None,  # NHWC
     ):
         """Returns (eps (B, H, W, C_out) NHWC, cache {site: entry})."""
-        edit = edit or editctx.UNetEdit()
-        dtype = self.dtype
-        context = encoder_hidden_states.to(dtype)
-        cache: dict = {}
-        temb = embed_timesteps(
-            self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
-        )
+        with span("tf.unet"):
+            edit = edit or editctx.UNetEdit()
+            dtype = self.dtype
+            context = encoder_hidden_states.to(dtype)
+            cache: dict = {}
+            temb = embed_timesteps(
+                self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
+            )
 
-        h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
-        h, skips = down_pass(self.down_blocks, h, temb, context, edit, cache)
-        if down_block_residuals is not None:
-            skips = [s + _nchw(r, dtype) for s, r in zip(skips, down_block_residuals)]
-        h = mid_pass(self.mid_block, h, temb, context, edit, cache)
-        if mid_block_residual is not None:
-            h = h + _nchw(mid_block_residual, dtype)
+            h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+            h, skips = down_pass(self.down_blocks, h, temb, context, edit, cache)
+            if down_block_residuals is not None:
+                skips = [s + _nchw(r, dtype) for s, r in zip(skips, down_block_residuals)]
+            h = mid_pass(self.mid_block, h, temb, context, edit, cache)
+            if mid_block_residual is not None:
+                h = h + _nchw(mid_block_residual, dtype)
 
-        for i, block in enumerate(self.up_blocks):
-            for j, res in enumerate(block.resnets):
-                h = torch.cat([h, skips.pop()], dim=1)
-                conv_site = f"up_{i}_res_{j}"
-                conv_edit = edit.for_conv(conv_site)
-                if conv_edit is None:
-                    h = res(h, temb)
-                else:
-                    h, c = res(h, temb, conv_edit)
-                    if c is not None:
-                        cache[conv_site] = c
-                if len(block.attentions):
-                    site = f"up_{i}_{j}"
-                    h, c = block.attentions[j](h, context, edit.for_site(site))
-                    if c is not None:
-                        cache[site] = c
-            if hasattr(block, "upsamplers"):
-                h = block.upsamplers[0](h)
+            for i, block in enumerate(self.up_blocks):
+                for j, res in enumerate(block.resnets):
+                    conv_site = f"up_{i}_res_{j}"
+                    conv_edit = edit.for_conv(conv_site)
+                    with span(res.span_name):
+                        h = torch.cat([h, skips.pop()], dim=1)
+                        if conv_edit is None:
+                            h = res(h, temb)
+                        else:
+                            h, c = res(h, temb, conv_edit)
+                            if c is not None:
+                                cache[conv_site] = c
+                    if len(block.attentions):
+                        site = f"up_{i}_{j}"
+                        attn = block.attentions[j]
+                        with span(attn.span_name):
+                            h, c = attn(h, context, edit.for_site(site))
+                        if c is not None:
+                            cache[site] = c
+                if hasattr(block, "upsamplers"):
+                    h = block.upsamplers[0](h)
 
-        eps = self.conv_out(self.conv_norm_out(h))
-        return eps.permute(0, 2, 3, 1), cache
+            eps = self.conv_out(self.conv_norm_out(h))
+            return eps.permute(0, 2, 3, 1), cache

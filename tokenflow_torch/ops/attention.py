@@ -17,6 +17,7 @@ from tokenflow_torch.kernels.flash_attention import (
     flash_attention_kernel,
     flash_attention_plain,
 )
+from tokenflow_torch.profiling import span
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -42,14 +43,16 @@ def sdp_attention(
 
     q: (B, Sq, H, D); k, v: (B, Skv, H, D). Returns (B, Sq, H, D) in q.dtype.
     Mirrors the jnp version (``preferred_element_type=float32`` on both
-    products, probabilities cast to the input dtype before P V).
+    products, probabilities cast to the input dtype before P V). Runs
+    inside a ``tf.sdp`` span.
     """
     d = q.shape[-1]
     scale = d**-0.5 if scale is None else scale
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    probs = torch.softmax(logits * scale, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
-    return out.to(q.dtype)
+    with span("tf.sdp"):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        probs = torch.softmax(logits * scale, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(q.dtype).float(), v.float())
+        return out.to(q.dtype)
 
 
 def flash_attention(
