@@ -11,17 +11,22 @@ Phases (any failure raises, and the script exits non-zero):
      times (CUDA events) per shape, beside the bound (bytes over 3.35 TB/s
      or bf16 flops over 989 TFLOP/s, whichever is larger) and, where one
      PyTorch call computes the same function, that call's time (SDPA for
-     K1, F.group_norm for K4 without SiLU; the port calls neither). K1 runs
+     K1, F.group_norm for K4 without SiLU; the port calls neither; for K5
+     the path it replaced, F.layer_norm on an fp32 copy, cast back). K1 runs
      at head dim 64 (SD-2.1) and at 40, 80 and 160 (SD-1.5's ControlNet
      path), also on the strided head-split views the pivotal pass gives it,
      under a watchdog that ends the run if its checks hang. K2 and K3 run at
      every site of both paths with the F the path passes, timed as the
      wrapper call, the kernel launch and the launch without output (the
      match stage alone), and once more against each other across S. K4
-     runs at both paths' GroupNorm shapes in bf16 (and one in fp32), SiLU
-     on and off, with its plan (variant, cluster size, CTAs per SM), the
-     wrapper's time and one launch's device time, and a repeat launch that
-     must match bit for bit. The fp32 kernels (``dtype: f32``) against
+     runs at both paths' GroupNorm shapes in bf16 (the transformers' 32^2,
+     16^2 and 8^2 among them, and one in fp32), SiLU on and off, with its
+     plan (variant, cluster size, CTAs per SM), the wrapper's time and one
+     launch's device time, and a repeat launch that must match bit for bit.
+     K5 runs at every UNet, ControlNet and CLIP text LayerNorm shape
+     (LN_SHAPES): its plan and grid, the wrapper's time, one launch's device
+     time and its share of the bound, a repeat launch bit for bit, and the
+     error against its plain version. The fp32 kernels (``dtype: f32``) against
      their plain versions in fp32, TF32 off, bounded as their 3xTF32 splits
      run, at three times the flops on the 495 TFLOP/s TF32 tensor cores,
      and also at 67 TFLOP/s of fp32 on the CUDA cores: K1-f32 at every shape of the
@@ -40,8 +45,8 @@ Phases (any failure raises, and the script exits non-zero):
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
-     5 pivots; check the output tree, finite frames, that K1 and K2 were
-     launched and that K3 and K4 were not. ``[clip]`` (``check_clip``):
+     5 pivots; check the output tree, finite frames, that K1, K2, K4 and
+     K5 were launched and that K3 was not. ``[clip]`` (``check_clip``):
      a full-width ViT-L/14 CLIP checkpoint in HF layout with random
      weights from a seed (build/, removed after); the port's
      ``compare_outputs`` CLI (PSNR, CLIP temporal consistency and score)
@@ -80,18 +85,19 @@ Phases (any failure raises, and the script exits non-zero):
      checkpoint; run_pnp, which must resume the edit; the resumed
      trajectory and frames must equal the uninterrupted ones bit for bit.
      Then, counters zeroed again, the SDEdit path at 768p
-     with the GroupNorm kernel on: preprocess 24 frames, an 8-step SDEdit
-     edit with 3 pivots and a 2-step --vanilla run; all four kernels must
-     launch (K3 at the 96x96 level). The edit runs once more with the
-     GroupNorm kernel off, for its step time. Launches are read after each
-     CLI, so each path reports them per step of its preprocess and edit.
+     at the CLIs' defaults: preprocess 24 frames, an 8-step SDEdit
+     edit with 3 pivots and a 2-step --vanilla run; all five kernels must
+     launch (K3 at the 96x96 level). The edit runs once more with
+     ``group_norm_kernel: false`` (``F.group_norm``), for its step time.
+     Launches are read after each CLI, so each path reports them per step
+     of its preprocess and edit.
      One pivotal and one propagation UNet call on the card against the
      CPU's plain path. Then, counters zeroed again, the ControlNet path at
      512^2 on SD-1.5 with random weights (the ControlNet's zero projections
      filled from a seed, its residuals checked non-zero): preprocess 40
      frames with --sd_version ControlNet, then a 10-step run_controlnet
-     edit with 5 pivots; K1 must launch at head dims 40, 80 and 160 and K2
-     must launch, K3 and K4 not. Then the same small-input check for the
+     edit with 5 pivots; K1 must launch at head dims 40, 80 and 160 and K2,
+     K4 and K5 must launch, K3 not. Then the same small-input check for the
      SD-1.5 UNet with the ControlNet's residuals. Then, counters zeroed
      again, the depth path at 512^2: a DPT-Large checkpoint with random
      weights from a seed in HF layout (build/, removed after), preprocess
@@ -99,7 +105,7 @@ Phases (any failure raises, and the script exits non-zero):
      each frame's depth map at 384^2, cached to depth/%05d.npy; SD-2-depth's
      5-channel UNet, 10 + 10 steps) and a 10-step PnP edit with 5 pivots,
      then the same edit with prop_approx, the CLIs run with TF32 on around
-     them; K1 (D = 64 only) and K2 must launch, K3 and K4 not; the 40 maps
+     them; K1 (D = 64 only), K2, K4 and K5 must launch, K3 not; the 40 maps
      must be finite and not constant, and the CLI's raw map of frame 0
      within DPT_REL_L2 of the CPU's fp32 run of the same checkpoint (the
      card's model run with TF32 on, a control that must read above it); the DPT's
@@ -115,11 +121,11 @@ Phases (any failure raises, and the script exits non-zero):
      similarity gap. Last,
      the stack in fp32 (dtype f32, fp32 kernels only, no bf16 launch
      allowed), depth cut further:
-     preprocess + PnP at 40x512^2 with 3 + 3 + 3 steps (K1-f32, K2-f32),
-     then preprocess + SDEdit at 8x768^2 with 4 + 4 steps and 2 edit steps,
-     the GroupNorm kernel on (K1-f32, K2-f32, K3-f32, K4 in fp32). Each bf16
+     preprocess + PnP at 40x512^2 with 3 + 3 + 3 steps (K1-f32, K2-f32, K4
+     in fp32), then preprocess + SDEdit at 8x768^2 with 4 + 4 steps and 2
+     edit steps (K1-f32, K2-f32, K3-f32, K4 in fp32). Each bf16
      path also edits its latents again (``run_variant``, counts zeroed just
-     before and read just after): PnP 512^2, SDEdit 768p (K4 on) and
+     before and read just after): PnP 512^2, SDEdit 768p and
      ControlNet 512^2 with ``prop_approx``; they must launch K2 at two
      streams only (``launches_by_streams``) and SDEdit 768p no K3; each
      prints its s/step by pass beside the exact edit's (PnP repeats the
@@ -348,6 +354,9 @@ GN_SHAPES = [  # (B, C, H, W), groups 32: the plan's variant and cluster size
     (15, 320, 64, 64),  # PnP 512^2 pivotal pass (5 pivots x 3 streams), 64^2
     (120, 320, 64, 64),  # PnP 512^2 propagation (40 frames x 3 streams), 1 CTA
     (120, 960, 64, 64),  # PnP 512^2 up-block at 64^2 (4-CTA clusters)
+    (120, 640, 32, 32),  # PnP 512^2 propagation, 32^2: a transformer's norm without SiLU
+    (120, 1280, 16, 16),  # PnP 512^2 propagation, 16^2
+    (120, 1280, 8, 8),  # PnP 512^2 propagation, the mid block's 8^2
     (10, 512, 192, 192),  # VAE decoder at 192^2 (16-CTA clusters of 74 KB)
     (10, 128, 768, 768),  # VAE decoder at pixel resolution (split spans)
     (3, 96, 7, 9),  # ragged: 3 channels x 63 per group, single-element ends
@@ -357,6 +366,20 @@ GN_SHAPES = [  # (B, C, H, W), groups 32: the plan's variant and cluster size
 # fast SiLU (a few fp32 ulps)
 GN_F32_SHAPES = [(9, 320, 96, 96)]
 GN_F32_TOL = 1e-5
+# K5's rows (rows, C): every LayerNorm of the UNet and the ControlNet on the
+# benchmark's paths (SD-2.1 and SD-1.5 share the widths) and of the CLIP
+# text towers
+LN_SHAPES = [
+    (61440, 320), (15360, 640), (3840, 1280), (960, 1280),  # pivotal pass: 5 pivots x 3 streams
+    (491520, 320), (122880, 640), (30720, 1280), (7680, 1280),  # propagation: 40 frames x 3
+    (163840, 320), (40960, 640), (10240, 1280), (2560, 1280),  # inversion: 40 frames
+    (92160, 320), (737280, 320),  # SDEdit 768^2: 5 pivots x 2 streams, 40 frames x 2, 96^2
+    (154, 1024), (77, 1024), (154, 768), (77, 768),  # CLIP text: OpenCLIP-H, CLIP-L
+]
+# K5 against its plain version: at most this many bf16 steps at
+# max(|ref|, GN_ULP_FLOOR) (fp32 sums in another order; the rounding to
+# bf16 of a result near a tie)
+LN_MAX_ULPS = 1
 # cluster sizes compared per row (sweep_group_norm_clusters)
 GN_CLUSTER_SWEEP = [
     ((9, 320, 96, 96), (2, 4, 8)), ((24, 640, 48, 48), (1, 2, 4)),
@@ -436,6 +459,24 @@ def host_ms(fn, runs: int = 7) -> float:
         times.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
     return float(np.median(times)) * 1e3
+
+
+def kernel_trace_ms(fn, key: str, runs: int = 10) -> float:
+    """Device time a call of ``fn`` spends in the kernels whose name holds
+    ``key`` (their durations summed over ``runs`` calls, over ``runs``),
+    from torch.profiler's CUDA kernel records: the kernels' own time,
+    without the launch and event overhead (a few us) that device_ms's
+    events take in. NaN if the profiler saw none."""
+    fn()  # warm up
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda and key in e.name()]
+    return sum(ns) / runs / 1e6 if ns else float("nan")
 
 
 def bf16_ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1217,7 +1258,8 @@ def _gn_row(gn, x, w, b, act, eps) -> dict:
     """One K4 row: the verdict, two launches bitwise equal, the plan and its
     occupancy, the wrapper's time, one launch's device time, the plain
     version's and F.group_norm's (without SiLU; the port never calls it),
-    and the one-read, one-write bound."""
+    the kernels' own time by the profiler's records, and the one-read,
+    one-write bound."""
     shape = tuple(x.shape)
     tag = f"[K4] {shape} {str(x.dtype).split('.')[-1]} act={act} eps={eps}"
     out = gn.group_norm_kernel(x, w, b, 32, eps, act)
@@ -1233,6 +1275,7 @@ def _gn_row(gn, x, w, b, act, eps) -> dict:
     ops = gn.prepare_operands(x, w, b, 32, act)
     out, part = torch.empty_like(x), gn.scratch(x, 32, p)
     kernel_ms = device_ms(lambda: gn.launch(ops, out, part, 32, eps, act, p))
+    trace_ms = kernel_trace_ms(lambda: gn.launch(ops, out, part, 32, eps, act, p), "gn_")
     ms = median_ms(lambda: gn.group_norm_kernel(x, w, b, 32, eps, act))
     plain_ms = median_ms(lambda: gn.group_norm_plain(x, w, b, 32, eps, act), runs=5)
     library_ms = None if act else median_ms(
@@ -1246,12 +1289,14 @@ def _gn_row(gn, x, w, b, act, eps) -> dict:
     print(f"{v['line']}, {p.variant} cluster {p.cluster} slice {p.slice} "
           f"({per_sm} CTAs/SM, {clusters} clusters), two launches bitwise equal: "
           f"wrapper {ms:.3f} ms, kernel {kernel_ms:.4f} ms "
-          f"({bound_ms / kernel_ms:.0%} of the bound), plain {plain_ms:.3f} ms, "
+          f"({bound_ms / kernel_ms:.0%} of the bound; by the profiler's kernel records "
+          f"{trace_ms:.4f} ms, {bound_ms / trace_ms:.0%}), plain {plain_ms:.3f} ms, "
           f"F.group_norm {lib}, bound {bound_ms:.4f} ms", flush=True)
     return {"shape": list(shape), "dtype": str(x.dtype).split(".")[-1], "act": act,
             "ulps": v["ulps"], "max_abs_err": v["max_abs_err"], "bitwise_repeat": True,
             "variant": p.variant, "cluster": p.cluster, "slice": p.slice,
             "ctas_per_sm": per_sm, "clusters": clusters, "ms": ms, "kernel_ms": kernel_ms,
+            "trace_ms": trace_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "bound_share": bound_ms / kernel_ms}
 
@@ -1285,6 +1330,68 @@ def check_group_norm(gen: torch.Generator) -> dict:
         "main": {"shape": main["shape"], "act": main["act"]},
         **{key: main[key] for key in
            ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "shapes": rows,
+    }
+
+
+def check_layer_norm(gen: torch.Generator) -> dict:
+    """K5 against its plain version at LN_SHAPES (bf16, eps 1e-5): per row
+    the plan and grid, at most LN_MAX_ULPS bf16 steps, two launches bit for
+    bit, the wrapper's time, one launch's device time by CUDA events and by
+    the profiler's kernel record, each with its share of the one-read,
+    one-write bound, and the time of the path K5 replaced (F.layer_norm on
+    an fp32 copy, cast back)."""
+    from tokenflow_torch.kernels import layer_norm as ln
+
+    rows = []
+    for n, c in LN_SHAPES:
+        x, w, b = gn_inputs(gen, (n, c))
+        tag = f"[K5] ({n}, {c})"
+        out = ln.layer_norm_kernel(x, w, b, 1e-5)
+        again = ln.layer_norm_kernel(x, w, b, 1e-5)
+        ref = ln.layer_norm_plain(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps_floored(out, ref)
+        err = float((out.float() - ref.float()).abs().max())
+        if not (bool(torch.isfinite(out.float()).all()) and ulps <= LN_MAX_ULPS):
+            raise AssertionError(f"{tag}: {ulps} bf16 steps from the plain version")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{tag}: two launches on the same input differ")
+        del out, again, ref
+        p = ln.plan(c)
+        grid = ln.grid(n, p)
+        ops = ln.prepare_operands(x, w, b)
+        out = torch.empty_like(x)
+        kernel_ms = device_ms(lambda: ln.launch(ops, out, 1e-5, p))
+        trace_ms = kernel_trace_ms(lambda: ln.launch(ops, out, 1e-5, p), "layer_norm")
+        ms = median_ms(lambda: ln.layer_norm_kernel(x, w, b, 1e-5))
+        replaced_ms = device_ms(lambda: torch.nn.functional.layer_norm(
+            x.float(), (c,), w.float(), b.float(), 1e-5).to(x.dtype))
+        bound_ms, bound_by = bound(2.0 * x.element_size() * x.numel(), 0.0)
+        print(f"{tag}: max|err|={err:.3e} ulps={ulps:.3f}, plan {p.lanes} lanes x {p.vecs} "
+              f"vectors, grid {grid}, two launches bitwise equal: "
+              f"wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms ({bound_ms / kernel_ms:.0%} of "
+              f"the bound; by the profiler's kernel record {trace_ms:.4f} ms, "
+              f"{bound_ms / trace_ms:.0%}), replaced path {replaced_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms", flush=True)
+        rows.append({"shape": [n, c], "ulps": ulps, "max_abs_err": err, "bitwise_repeat": True,
+                     "lanes": p.lanes, "vecs": p.vecs, "grid": grid,
+                     "ms": ms, "kernel_ms": kernel_ms, "trace_ms": trace_ms,
+                     "replaced_ms": replaced_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / kernel_ms,
+                     "trace_bound_share": bound_ms / trace_ms})
+        del x, w, b, out, ops
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return {
+        "name": "layer_norm",
+        "route": "cuda",
+        "source": "tokenflow_torch/csrc/layer_norm.cu",
+        "replaces": "F.layer_norm on an fp32 copy (no TPU kernel)",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_ulps": max(r["ulps"] for r in rows),
+        "main": {"shape": main["shape"]},
+        **{key: main[key] for key in ("ms", "kernel_ms", "replaced_ms", "bound_ms", "bound_by")},
         "shapes": rows,
     }
 
@@ -1425,28 +1532,35 @@ def kernel_modules() -> dict:
     line."""
     from tokenflow_torch.kernels import flash_attention as fa
     from tokenflow_torch.kernels import group_norm as gn
+    from tokenflow_torch.kernels import layer_norm as ln
     from tokenflow_torch.kernels import token_match as tm
     from tokenflow_torch.kernels import token_match_split as tms
 
     return {"flash_attention": fa, "token_match_gather": tm,
-            "token_match_gather_split": tms, "group_norm": gn}
+            "token_match_gather_split": tms, "group_norm": gn, "layer_norm": ln}
 
 
 # each entry of the kernels line: (its wrapper module in kernel_modules(),
 # the dtype of the launches it counts, or None for all: K4 is one source in
-# both dtypes)
+# both dtypes, K5 is bf16 only)
 KERNEL_ENTRIES = {
     "flash_attention": ("flash_attention", "bfloat16"),
     "token_match_gather": ("token_match_gather", "bfloat16"),
     "token_match_gather_split": ("token_match_gather_split", "bfloat16"),
     "group_norm": ("group_norm", None),
+    "layer_norm": ("layer_norm", None),
     "flash_attention_f32": ("flash_attention", "float32"),
     "token_match_f32": ("token_match_gather", "float32"),
     "token_match_split_f32": ("token_match_gather_split", "float32"),
 }
-BF16_KERNELS = ("flash_attention", "token_match_gather", "token_match_gather_split")
+BF16_KERNELS = ("flash_attention", "token_match_gather", "token_match_gather_split",
+                "layer_norm")
 MATCH_KERNELS = ("token_match_gather", "token_match_gather_split")
 F32_KERNELS = ("flash_attention_f32", "token_match_f32", "token_match_split_f32")
+# the norms' kernels a CUDA stack launches by default: K4 and K5 in bf16,
+# K4 alone in fp32 (an fp32 LayerNorm stays on F.layer_norm)
+NORMS_BF16 = ("group_norm_bf16", "layer_norm")
+NORMS_F32 = ("group_norm_f32",)
 
 
 def zero_counts() -> None:
@@ -1455,7 +1569,8 @@ def zero_counts() -> None:
         m.launches = 0
         m.launches_by_dtype.clear()
     mods["flash_attention"].launches_by_head_dim.clear()
-    mods["flash_attention"].launches_by_shape.clear()
+    for name in ("flash_attention", "group_norm", "layer_norm"):
+        mods[name].launches_by_shape.clear()
     for name in MATCH_KERNELS:
         mods[name].launches_by_streams.clear()
 
@@ -1521,12 +1636,12 @@ PNP_VARIANTS = (("pnp_approx", {"prop_approx": True}, 2), ("pnp_exact_again", {}
 def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
                   edit_steps: int = 10, sd_version: str = "2.1", pre_args: tuple = (),
                   variants=None, tag=None) -> dict:
-    """PnP at 512^2 with the GroupNorm kernel off, the stack in ``dtype``:
-    K1 (at D = 64 only) and K2 of that dtype must launch and no kernel of
-    the other dtype; K3 (no site past its table size at 512^2) and K4 (off)
-    must not. ``pre_args`` go to preprocess as well; ``variants`` (default:
-    PNP_VARIANTS in bf16, none in fp32) are the further edits of the
-    latents."""
+    """PnP at 512^2 at the CLIs' defaults, the stack in ``dtype``: K1 (at
+    D = 64 only), K2 and the norms' kernels of that dtype (K4 and K5 in
+    bf16, K4 in fp32) must launch and no kernel of the other dtype; K3 (no
+    site past its table size at 512^2) must not. ``pre_args`` go to
+    preprocess as well; ``variants`` (default: PNP_VARIANTS in bf16, none in
+    fp32) are the further edits of the latents."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_pnp
@@ -1592,8 +1707,8 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         variants = {
             name: run_variant(
                 run_pnp, config, name, extra, edit_steps,
-                ("flash_attention", "token_match_gather"),
-                ("token_match_gather_split", "group_norm") + F32_KERNELS, k2_streams,
+                ("flash_attention", "token_match_gather") + NORMS_BF16,
+                ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, k2_streams,
             )
             for name, extra, k2_streams in variants
         }
@@ -1602,11 +1717,13 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
     if set(dims) != {64}:
         raise AssertionError(f"{tag}: K1 must launch at head dim 64 only, launched {dims}")
     if dtype == "bf16":
-        check_launched(counts, "PnP 512^2", ("flash_attention", "token_match_gather"),
-                       ("token_match_gather_split", "group_norm") + F32_KERNELS)
+        check_launched(counts, "PnP 512^2",
+                       ("flash_attention", "token_match_gather") + NORMS_BF16,
+                       ("token_match_gather_split", "group_norm_f32") + F32_KERNELS)
     else:
-        check_launched(counts, "fp32 PnP 512^2", ("flash_attention_f32", "token_match_f32"),
-                       ("token_match_split_f32", "group_norm") + BF16_KERNELS)
+        check_launched(counts, "fp32 PnP 512^2",
+                       ("flash_attention_f32", "token_match_f32") + NORMS_F32,
+                       ("token_match_split_f32", "group_norm_bf16") + BF16_KERNELS)
     ph = metrics["phases_seconds"]
     report = {
         "dtype": dtype,
@@ -1714,13 +1831,14 @@ def compare_steps(tag: str, exact: dict, variants: dict) -> dict:
 
 def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
                     inv_steps: int = 10, n_timesteps: int = 10) -> dict:
-    """The SDEdit editor at 768p through the port's CLIs, with the GroupNorm
-    kernel on: preprocess ``n_frames`` synthetic 768x768 frames (SD-2.1,
-    random weights, the stack in ``dtype``), an SDEdit edit with window 8
-    and propagation chunks of 8 frames. All four kernels must launch in
-    that dtype in this phase (K3 at the 96x96 level), and none in the
-    other. In bf16, also a 2-step --vanilla run, then the same edit once
-    more with the GroupNorm kernel off, for its step time."""
+    """The SDEdit editor at 768p through the port's CLIs at their defaults
+    (the GroupNorm kernel on, as on every CUDA path): preprocess
+    ``n_frames`` synthetic 768x768 frames (SD-2.1, random weights, the
+    stack in ``dtype``), an SDEdit edit with window 8 and propagation chunks
+    of 8 frames. All the kernels of that dtype must launch in this phase
+    (K3 at the 96x96 level; K5 in bf16 only), and none of the other. In
+    bf16, also a 2-step --vanilla run, then the same edit once more with
+    ``group_norm_kernel: false`` (``F.group_norm``), for its step time."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_sdedit
@@ -1739,7 +1857,7 @@ def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
             "--sd_version", "2.1", "--init", "random", "--dtype", dtype,
             "--n_frames", str(n_frames), "--batch_size", str(n_frames),
             "--steps", str(inv_steps), "--save_steps", str(n_timesteps),
-            "--device", "cuda", "--group_norm_kernel",
+            "--device", "cuda",
         ])
         t_pre = time.perf_counter() - t0
         pre_counts = read_counts()
@@ -1752,7 +1870,7 @@ def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
             "prompt": "a shiny silver robotic wolf",
             "negative_prompt": "ugly, blurry, low res",
             "batch_size": 8, "propagate_chunk": 8, "start": 0.9,
-            "image_size": hw, "group_norm_kernel": True,
+            "image_size": hw,
         }
         decoded, out_dirs = {}, {}
 
@@ -1799,19 +1917,19 @@ def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
             # the 96x96 level's table fits K2 and K3 must not launch
             variants["sdedit_approx"] = run_variant(
                 run_sdedit, config, "sdedit_approx", {"prop_approx": True}, n_steps,
-                ("flash_attention", "token_match_gather", "group_norm"),
-                ("token_match_gather_split",) + F32_KERNELS, 2,
+                ("flash_attention", "token_match_gather") + NORMS_BF16,
+                ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, 2,
             )
     finally:
         os.chdir(cwd)
     if bf16:
         check_launched(counts["sdedit_path"], "SDEdit 768p",
-                       BF16_KERNELS + ("group_norm",), F32_KERNELS + ("group_norm_f32",))
+                       BF16_KERNELS + NORMS_BF16, F32_KERNELS + ("group_norm_f32",))
         if counts["gn_off_run"]["group_norm"] != 0:
             raise AssertionError("the GroupNorm kernel ran with group_norm_kernel off")
     else:
         check_launched(counts["sdedit_path"], "fp32 SDEdit 768p",
-                       F32_KERNELS + ("group_norm_f32",), BF16_KERNELS + ("group_norm_bf16",))
+                       F32_KERNELS + NORMS_F32, BF16_KERNELS + ("group_norm_bf16",))
     report = {
         "dtype": dtype,
         "n_frames": n_frames,
@@ -2169,8 +2287,8 @@ def run_controlnet_path(root: str) -> dict:
     synthetic frames with --sd_version ControlNet (SD-1.5, random weights,
     bf16, the ControlNet's projections filled from a seed), then a 10-step
     run_controlnet edit with window 8 (5 pivots). K1 must launch at head dims
-    40, 80 and 160 and K2 must launch; K3 (no site past its table size at
-    512^2) and K4 (off) must not."""
+    40, 80 and 160 and K2, K4 and K5 must launch; K3 (no site past its
+    table size at 512^2) must not."""
     import yaml
 
     from tokenflow_torch.cli import preprocess, run_controlnet
@@ -2231,8 +2349,8 @@ def run_controlnet_path(root: str) -> dict:
         edit = _edit_report(out_dir, edit_steps)
         variants = {"controlnet_approx": run_variant(
             run_controlnet, config, "controlnet_approx", {"prop_approx": True}, edit_steps,
-            ("flash_attention", "token_match_gather"),
-            ("token_match_gather_split", "group_norm") + F32_KERNELS, 2,
+            ("flash_attention", "token_match_gather") + NORMS_BF16,
+            ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, 2,
         )}
     finally:
         os.chdir(cwd)
@@ -2246,9 +2364,8 @@ def run_controlnet_path(root: str) -> dict:
         raise AssertionError(f"ControlNet K1 shapes missing from K1_SD15_SHAPES: {missing}")
     if counts["token_match_gather"] <= 0:
         raise AssertionError("K2 was not launched on the ControlNet path")
-    for name in ("token_match_gather_split", "group_norm"):
-        if counts[name] != 0:
-            raise AssertionError(f"kernel {name} ran on the 512^2 ControlNet path")
+    check_launched(counts, "512^2 ControlNet", NORMS_BF16,
+                   ("token_match_gather_split", "group_norm_f32") + F32_KERNELS)
     report = {
         "launches": counts,
         "launches_per_step": per_step(
@@ -2456,7 +2573,7 @@ def run_depth_path(root: str) -> dict:
     at 384^2) and a DEPTH_STEPS-step PnP edit with 5 pivots on SD-2-depth's
     5-channel UNet, bf16, random weights, the CLIs run with TF32 on as a
     caller might leave it; then the same edit with ``prop_approx``. K1 (D =
-    64 only) and K2 must launch, K3 and K4 not. Then ``check_dpt``."""
+    64 only), K2, K4 and K5 must launch, K3 not. Then ``check_dpt``."""
     from tokenflow_torch import utils
 
     ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -3057,8 +3174,10 @@ def check_sharded_launches(ranks: list) -> None:
     for r in ranks:
         for name, k1_sharded in (("shard_pivotal", True), ("replicated_pivotal", False)):
             for prefix, want, not_want in (
-                    ("", ("flash_attention", "token_match_gather"), F32_KERNELS),
-                    ("f32_", ("flash_attention_f32", "token_match_f32"), BF16_KERNELS)):
+                    ("", ("flash_attention", "token_match_gather") + NORMS_BF16,
+                     F32_KERNELS + ("group_norm_f32",)),
+                    ("f32_", ("flash_attention_f32", "token_match_f32") + NORMS_F32,
+                     BF16_KERNELS + ("group_norm_bf16",))):
                 run = r[prefix + name]
                 if (run["k1_launches_sharded"] > 0) != k1_sharded or run["k2_launches_sharded"] <= 0:
                     raise AssertionError(
@@ -3066,8 +3185,8 @@ def check_sharded_launches(ranks: list) -> None:
                         f"{run['k1_launches_sharded']} and {run['k2_launches_sharded']} times "
                         f"through the sharded entries")
                 check_launched(run["launches"], f"sharded rank {r['rank']} {prefix}{name}",
-                               want, ("token_match_gather_split", "token_match_split_f32",
-                                      "group_norm") + not_want)
+                               want, ("token_match_gather_split", "token_match_split_f32")
+                               + not_want)
 
 
 def latents_rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3306,8 +3425,8 @@ def run_fused_path(root: str, main_out_dir: str, two_pass: dict) -> dict:
     try:
         cli = run_variant(run_pnp, dict(config, pivot_indices=pivots.tolist()), "pnp_fused",
                           {"fused_step": True}, n_steps,
-                          ("flash_attention", "token_match_gather"),
-                          ("token_match_gather_split", "group_norm") + F32_KERNELS, 3)
+                          ("flash_attention", "token_match_gather") + NORMS_BF16,
+                          ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, 3)
     finally:
         os.chdir(cwd)
     for name in ("flash_attention", "token_match_gather"):
@@ -3447,7 +3566,7 @@ def main() -> int:
     with watchdog(K1_PHASE_SECONDS, "K1-f32's checks"):
         kernels.append(check_flash_f32(gen))
     kernels += [check_token_match(gen), check_token_match_split(gen),
-                *check_token_match_f32(gen), check_group_norm(gen)]
+                *check_token_match_f32(gen), check_group_norm(gen), check_layer_norm(gen)]
 
     # phase 3: the paths through the CLIs, each with the counts zeroed
     # just before it and read just after

@@ -13,8 +13,11 @@ and counts the blocking calls. Standard error gets the ``[bench] sites:``
 table; the last line of standard output is a JSON object with the
 windows' steps and step seconds, the spans' cost and the readings of
 ``sites.readings``. On a machine without a card window (b) is left out and
-the device numbers are null. No reference runs: ``benchmark/run.py``
-decides ``correct``.
+the device numbers are null. The line also gives the norm kernels'
+launches in window (a) beside the model calls (``tf.unet``,
+``tf.controlnet`` spans) they ran in: on the card K4 (GroupNorm) launches
+once per GroupNorm site a call runs, K5 (LayerNorm) once per LayerNorm
+site. No reference runs: ``benchmark/run.py`` decides ``correct``.
 """
 
 from __future__ import annotations
@@ -61,15 +64,28 @@ def stage_for(cell: manifest.Cell, seed: int, root: Path, device):
     return stage
 
 
+def norm_launches(record, launched: dict, steps: int) -> dict:
+    """K4's and K5's launches (``launched``) and the model calls of the
+    span ``record``, in all and per step."""
+    calls = {name: sum(1 for s in record.spans if s is not None and s.name == f"tf.{name}")
+             for name in ("unet", "controlnet")}
+    counts = {**{f"{k}_calls": v for k, v in calls.items()}, **launched}
+    return {**counts, "per_step": {k: v / steps for k, v in counts.items()}}
+
+
 def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) -> dict:
     from tokenflow_torch import profiling
+    from tokenflow_torch.kernels import group_norm, layer_norm
 
     cuda = device.type == "cuda"
     stage = stage_for(cell, seed, root, device)
     setup_s = time.monotonic() - T0
     steps, window_s = harness.window(stage, seconds, False, cuda)
+    before = {"group_norm": group_norm.launches, "layer_norm": layer_norm.launches}
     with profiling.spans() as record:
         steps_a, window_a = harness.window(stage, seconds, False, cuda)
+    launched = {"group_norm": group_norm.launches - before["group_norm"],
+                "layer_norm": layer_norm.launches - before["layer_norm"]}
     reduced, steps_b = None, 0
     if cuda:
         with profiling.spans(), tracing.profiled(True) as prof:
@@ -83,6 +99,7 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
         "step_s": {"off": off, "spans_on": on},
         "spans_on_cost_pct": 100.0 * (on / off - 1.0),
         "readings": sites.readings(cell.stage, record, reduced),
+        "norm_launches": norm_launches(record, launched, steps_a),
     }
     if reduced is not None:
         out.update(coverage_pct=reduced.coverage, linked_pct=reduced.linked_share,

@@ -10,6 +10,8 @@ tiny stack on the CPU (fp32):
 - a stale checkpoint (another prompt, source video, start-latent geometry,
   ``prop_approx``, ``dtype``, ``group_norm_kernel``, ``fused_step``, weights
   or token ids) is ignored, by the edit and by the inversion;
+- both fingerprints record the GroupNorm path ``group_norm_kernel``
+  resolves to on the run's device, not the key as written;
 - an unreadable file is ignored, and saves leave no temporary file;
 - the ``checkpoint_every`` cadence;
 - a killed and resumed inversion gives the uninterrupted trajectory bit for
@@ -163,6 +165,49 @@ def test_stale_checkpoint_is_ignored(tmp_path, change):
     calls.clear()
     common.run_segmented_edit(other, _segments(4), _failing(calls, 99), x1, ident)
     assert len(calls) == 4  # fingerprint mismatch: started from scratch
+
+
+# (device, two settings of group_norm_kernel that resolve to one path there,
+# one that resolves to another): on the CPU unset and false both run
+# F.group_norm and true the plain version; on CUDA unset and true both run
+# K4 and false F.group_norm
+RESOLVED_GN = [("cpu", (None, False), True), ("cuda", (None, True), False)]
+
+
+@pytest.mark.parametrize("device,same,other", RESOLVED_GN, ids=["cpu", "cuda"])
+def test_edit_fingerprint_records_the_resolved_group_norm_path(device, same, other):
+    def fingerprint(value):
+        cfg = _edit_config(device=device)
+        if value is not None:
+            cfg["group_norm_kernel"] = value
+        return common._edit_fingerprint(cfg, _segments(2), torch.arange(4.0), IDENT)
+
+    assert fingerprint(same[0]) == fingerprint(same[1])
+    assert fingerprint(other) != fingerprint(same[0])
+
+
+@pytest.mark.parametrize("device,same,other", RESOLVED_GN, ids=["cpu", "cuda"])
+def test_inversion_fingerprint_records_the_resolved_group_norm_path(device, same, other):
+    def fingerprint(value):
+        args = _pre_args("latents")
+        args[args.index("--device") + 1] = device
+        if value is not None:
+            args += ["--group_norm_kernel", str(value).lower()]
+        opt = preprocess.build_parser().parse_args(args)
+        return preprocess._inversion_fingerprint(opt, utils.segment_slices(8, 3), IDENT)
+
+    assert fingerprint(same[0]) == fingerprint(same[1])
+    assert fingerprint(other) != fingerprint(same[0])
+
+
+@pytest.mark.parametrize("flag,want", [((), None), (("--group_norm_kernel",), True),
+                                       (("--group_norm_kernel", "true"), True),
+                                       (("--group_norm_kernel", "false"), False)])
+def test_preprocess_group_norm_flag(flag, want):
+    """The flag: absent is unset (the device decides), bare or ``true`` is
+    true, ``false`` is false."""
+    opt = preprocess.build_parser().parse_args(_pre_args("latents", "tiny", 8, 4, *flag))
+    assert opt.group_norm_kernel is want
 
 
 @pytest.mark.parametrize(

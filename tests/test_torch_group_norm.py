@@ -101,24 +101,74 @@ def test_plain_matches_ref_more_shapes(shape, g):
 
 
 def test_fused_group_norm_switch():
-    """use_kernel off is the F.group_norm path, unchanged; on (CPU tensor)
-    is the plain version."""
+    """On the CPU, use_kernel unset (the default) and off are the
+    F.group_norm path, unchanged; on is the plain version."""
     torch.manual_seed(0)
     m = FusedGroupNorm(8, 32, eps=1e-5, act="silu")
     with torch.no_grad():
         m.weight.normal_()
         m.bias.normal_()
     x = torch.randn(2, 32, 5, 5)
-    assert m.use_kernel is False
-    off = m(x)
+    assert m.use_kernel is None
     want = torch.nn.functional.silu(
         torch.nn.functional.group_norm(x, 8, m.weight, m.bias, 1e-5)
     )
+    assert torch.equal(m(x), want)
+    m.use_kernel = False
+    off = m(x)
     assert torch.equal(off, want)
     m.use_kernel = True
     on = m(x)
     assert torch.equal(on, tgn.group_norm_plain(x, m.weight, m.bias, 8, 1e-5, "silu"))
     torch.testing.assert_close(on, off, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", "cuda:1", "meta"])
+@pytest.mark.parametrize("use_kernel", [None, False, True])
+def test_group_norm_path_rule(use_kernel, device):
+    """The dispatch rule: unset, the device decides (K4 on CUDA,
+    F.group_norm elsewhere); false forces F.group_norm on every device;
+    true runs K4 on CUDA and the plain version on the CPU, and has no path
+    on another device."""
+    kind = torch.device(device).type
+    want = {
+        (None, "cuda"): "kernel", (None, "cpu"): "torch", (None, "meta"): "torch",
+        (False, "cuda"): "torch", (False, "cpu"): "torch", (False, "meta"): "torch",
+        (True, "cuda"): "kernel", (True, "cpu"): "plain", (True, "meta"): None,
+    }[(use_kernel, kind)]
+    if want is None:
+        with pytest.raises(ValueError, match="no GroupNorm kernel path"):
+            layers.group_norm_path(use_kernel, device)
+    else:
+        assert layers.group_norm_path(use_kernel, device) == want
+        assert layers.group_norm_path(use_kernel, torch.device(device)) == want
+
+
+@pytest.mark.parametrize("use_kernel", [None, False, True])
+def test_fused_group_norm_dispatches_by_path(use_kernel, monkeypatch):
+    """``FusedGroupNorm.forward`` calls the function its resolved path
+    names, with the module's groups, eps and act (the CUDA case is read
+    off the rule with the device stubbed, since no card is here)."""
+    calls = []
+
+    def fake(name):
+        def norm(x, w, b, groups, eps, act):
+            calls.append((name, groups, eps, act))
+            return x
+        return norm
+
+    monkeypatch.setattr(layers, "group_norm_kernel", fake("kernel"))
+    monkeypatch.setattr(layers, "group_norm_plain", fake("plain"))
+    monkeypatch.setattr(layers, "group_norm_path",
+                        lambda uk, device: {None: "kernel", False: "torch", True: "plain"}[uk])
+    m = FusedGroupNorm(8, 32, eps=1e-6, act="silu")
+    m.use_kernel = use_kernel
+    x = torch.randn(2, 32, 3, 3)
+    y = m(x)
+    if use_kernel is False:
+        assert calls == [] and y.shape == x.shape
+    else:
+        assert calls == [("kernel" if use_kernel is None else "plain", 8, 1e-6, "silu")]
 
 
 def test_kernel_wrapper_rejects_cpu_tensors():
@@ -394,3 +444,17 @@ def test_kernel_f32_and_repeat_on_cuda():
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
             else:
                 assert _bf16_steps(got.float().cpu().numpy(), want.float().cpu().numpy()) <= 2
+
+
+@pytest.mark.parametrize("value", [None, False, True])
+def test_load_stack_sets_the_switch_as_given(value):
+    """``load_stack(group_norm_kernel=)`` sets every UNet and VAE GroupNorm's
+    ``use_kernel`` to the value as given (None, the default, lets the device
+    decide), on every call to the held stack."""
+    from tokenflow_torch import runtime
+
+    kw = {} if value is None else {"group_norm_kernel": value}
+    stack = runtime.load_stack("tiny", device="cpu", init="random", dtype=torch.float32, **kw)
+    norms = [m for model in (stack.unet, stack.vae) for m in model.modules()
+             if isinstance(m, FusedGroupNorm)]
+    assert norms and all(m.use_kernel is value for m in norms)

@@ -1,14 +1,17 @@
 """Shared editor-CLI plumbing (config loading, data and latents assembly,
 outputs) for the port's PnP, SDEdit and ControlNet editors; the counterpart
 of the main-path part of ``tokenflow_tpu/cli/common.py``. Same YAML keys and
-output tree, plus ``group_norm_kernel`` (bool, default false): run every
-UNet and VAE GroupNorm through K4. ``prop_approx`` (approximate,
-source-free propagation; NON-PARITY) is read from the config only: the JAX
-package's ``TOKENFLOW_PROP_APPROX`` environment fallback has no counterpart
-here. ``fused_step: true`` runs each edit step as one UNet call over the
-keyframes and the frames (``EditMode.FUSED``), or as two passes where the
-JAX loop falls back (a chunked propagation, a ControlNet, ``prop_approx``):
-one printed line says which. ``trace_dir`` (PnP editor only) writes a
+output tree, plus ``group_norm_kernel`` (bool, unset by default): unset,
+every UNet and VAE GroupNorm runs K4 on CUDA and ``F.group_norm`` on the
+CPU; false forces ``F.group_norm`` (an A/B baseline); true runs K4 on CUDA
+and its plain version on the CPU (``models/layers.py::group_norm_path``).
+``prop_approx`` (approximate, source-free propagation; NON-PARITY) is read
+from the config only: the JAX package's ``TOKENFLOW_PROP_APPROX``
+environment fallback has no counterpart here. ``fused_step: true`` runs
+each edit step as one UNet call over the keyframes and the frames
+(``EditMode.FUSED``), or as two passes where the JAX loop falls back (a
+chunked propagation, a ControlNet, ``prop_approx``): one printed line says
+which. ``trace_dir`` (PnP editor only) writes a
 ``torch.profiler`` trace of the edit loop there (``profiling.trace``).
 ``depth_model_dir`` (an Intel/dpt-large checkpoint) is where a depth model
 (``sd_version: depth``) computes its frames' depth maps when the data has
@@ -55,6 +58,7 @@ from tokenflow_torch.diffusion import ddim
 from tokenflow_torch.editing import pipeline
 from tokenflow_torch.io import latents as latents_io
 from tokenflow_torch.io import video as video_io
+from tokenflow_torch.models.layers import group_norm_path
 from tokenflow_torch.sharding import mesh
 
 VAE_BATCH_SIZE = 10  # reference run_tokenflow_pnp.py:22
@@ -225,7 +229,7 @@ def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
         model_dir=config.get("model_dir"),
         dtype=DTYPES[config.get("dtype", "bf16")],
         init=config.get("init", "auto"),
-        group_norm_kernel=config.get("group_norm_kernel", False),
+        group_norm_kernel=config.get("group_norm_kernel"),
     )
     save_path, n_frames = latents_io.find_latents_path(
         config["latents_path"],
@@ -348,9 +352,11 @@ def _edit_fingerprint(config: dict, segments: list, x_init: torch.Tensor,
     """Identity of an edit run for checkpoint/resume: the JAX keys
     (``tokenflow_tpu/cli/common.py::_edit_fingerprint``), ``prop_approx``,
     the segment lengths, the pivots' digest and the start latents' shape and
-    dtype, plus the port's ``dtype``, ``group_norm_kernel`` and
-    ``fused_step`` (K4 and ``F.group_norm``, one UNet call or two, differ
-    in their last bits) and the stack's
+    dtype, plus the port's ``dtype``, the GroupNorm path that
+    ``group_norm_kernel`` resolves to on the config's device
+    (``layers.group_norm_path``) and ``fused_step`` (K4 and
+    ``F.group_norm``, one UNet call or two, differ in their last bits) and
+    the stack's
     ``identity`` (:func:`stack_identity`), so that a checkpoint never seeds
     a run that would compute anything else."""
     ident = {
@@ -365,7 +371,8 @@ def _edit_fingerprint(config: dict, segments: list, x_init: torch.Tensor,
     ident["prop_approx"] = bool(config.get("prop_approx", False))
     ident["fused_step"] = bool(config.get("fused_step", False))
     ident["dtype"] = config.get("dtype", "bf16")
-    ident["group_norm_kernel"] = bool(config.get("group_norm_kernel", False))
+    ident["group_norm_kernel"] = group_norm_path(config.get("group_norm_kernel"),
+                                                 config.get("device", "cuda"))
     ident["segment_steps"] = [len(s.timesteps) for s, _ in segments]
     ident["pivots"] = [
         None if piv is None else hashlib.sha256(np.ascontiguousarray(piv)).hexdigest()

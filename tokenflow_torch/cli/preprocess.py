@@ -52,6 +52,7 @@ from tokenflow_torch.diffusion import ddim, inversion
 from tokenflow_torch.io import depth as depth_io
 from tokenflow_torch.io import latents as latents_io
 from tokenflow_torch.io import video as video_io
+from tokenflow_torch.models.layers import group_norm_path
 from tokenflow_torch.sharding import mesh
 
 
@@ -113,21 +114,33 @@ def load_depth_maps(data_path: str, n_frames: int, latent_hw, *, model_dir=None,
 def _inversion_fingerprint(opt, slices: list, identity: dict) -> str:
     """Identity of an inversion run for checkpoint/resume: the JAX keys
     (``tokenflow_tpu/cli/preprocess.py::_inversion_fingerprint``) and the
-    segment lengths, plus the port's ``dtype`` and ``group_norm_kernel`` and
-    the stack's ``identity`` (weights and the prompt's token ids,
-    ``cli_common.stack_identity``), so that a checkpoint never seeds a run
-    of another schedule, prompt, geometry, weights or numerics."""
+    segment lengths, plus the port's ``dtype``, the GroupNorm path that
+    ``group_norm_kernel`` resolves to on ``device``
+    (``layers.group_norm_path``) and the stack's ``identity`` (weights and
+    the prompt's token ids, ``cli_common.stack_identity``), so that a
+    checkpoint never seeds a run of another schedule, prompt, geometry,
+    weights or numerics."""
     ident = {
         k: getattr(opt, k, None)
         for k in (
             "sd_version", "inversion_prompt", "steps", "save_steps",
             "n_frames", "H", "W", "batch_size", "steps_per_dispatch",
-            "data_path", "dtype", "group_norm_kernel",
+            "data_path", "dtype",
         )
     }
+    ident["group_norm_kernel"] = group_norm_path(getattr(opt, "group_norm_kernel", None),
+                                                 getattr(opt, "device", "cuda"))
     ident["segment_steps"] = [s.stop - s.start for s in slices]
     ident.update(identity)
     return hashlib.sha256(json.dumps(ident, sort_keys=True).encode()).hexdigest()
+
+
+def _switch(text: str) -> bool:
+    """A switch's value on the command line: true or false."""
+    value = {"true": True, "false": False}.get(text.lower())
+    if value is None:
+        raise argparse.ArgumentTypeError(f"expected true or false, got {text!r}")
+    return value
 
 
 def infer_editor_family(cfg: dict, config_path: str) -> str:
@@ -310,8 +323,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="skip the DDIM reconstruction sanity pass",
     )
     p.add_argument(
-        "--group_norm_kernel", action="store_true",
-        help="run every UNet and VAE GroupNorm through the GroupNorm kernel",
+        "--group_norm_kernel", nargs="?", const=True, default=None, type=_switch,
+        metavar="true|false",
+        help="every UNet and VAE GroupNorm through the GroupNorm kernel (on the CPU "
+        "its plain version); 'false' through F.group_norm; unset, the kernel on "
+        "CUDA and F.group_norm on the CPU",
     )
     p.add_argument(
         "--steps_per_dispatch", type=int, default=0,

@@ -9,8 +9,8 @@ reference's operator precedence), ``use_ddim_noise`` switch, output-path
 encoding and output tree as ``tokenflow_tpu/cli/run_sdedit.py``.
 ``--vanilla`` runs the per-frame SDEdit baseline instead (no TokenFlow),
 writing ``img_ode_vanilla_sde/`` and ``vanilla_sde*.mp4``. ``device`` is
-``cuda`` (default) or ``cpu``; ``group_norm_kernel: true`` runs every
-GroupNorm through K4. ``checkpoint_edit`` checkpoints both loops, and
+``cuda`` (default) or ``cpu``; ``group_norm_kernel`` picks the GroupNorm
+path (``cli/common.py``). ``checkpoint_edit`` checkpoints both loops, and
 ``data_parallel`` shards the frames of both over a launcher's processes
 (``cli/common.py``; the vanilla loop is frame-parallel, each rank samples
 its block in chunks of at most ``batch_size`` frames).

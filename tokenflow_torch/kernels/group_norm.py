@@ -28,8 +28,11 @@ from tokenflow_torch.kernels import _build
 launches = 0
 # launches by dtype ("bfloat16", "float32"), the same launches as ``launches``
 launches_by_dtype: dict[str, int] = {}
+# launches by (B, C, H * W), the same launches as ``launches``
+launches_by_shape: dict[tuple[int, int, int], int] = {}
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 _MAX_GROUP_CHANNELS = 1024  # channels per group the kernels take
 
 # the cluster variant's limits (csrc/group_norm.cu)
@@ -204,21 +207,30 @@ def scratch(x: torch.Tensor, groups: int, p: Plan) -> torch.Tensor:
     return torch.empty((b * groups * n_chunks, 2), dtype=torch.float32, device=x.device)
 
 
-def launch(ops, out: torch.Tensor, partials: torch.Tensor, groups: int, eps: float,
-           act: Optional[str], p: Plan) -> None:
+def launch(ops, out: torch.Tensor, partials: Optional[torch.Tensor], groups: int,
+           eps: float, act: Optional[str], p: Plan) -> None:
     """One run of K4 (the split variant's two kernels) on operands from
     :func:`prepare_operands` into ``out`` (x's shape and dtype, 16-byte
-    aligned), as ``p`` plans it. The wrapper counts its launches."""
+    aligned), as ``p`` plans it; ``partials`` is the split variant's
+    :func:`scratch` (None for the cluster variant). The stream is the
+    device's current one as a raw handle, and the device context is entered
+    only when x lies on another device than the current one. The wrapper
+    counts its launches."""
     x, weight, bias = ops
     b, c = x.shape[:2]
     lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.tf_group_norm(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[x.dtype], b * groups, groups, c // groups,
-            x.numel() // (b * c), p.cluster, p.slice, p.piece, p.chunk, float(eps),
-            int(act == "silu"), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    args = (
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        0 if partials is None else partials.data_ptr(), out.data_ptr(),
+        _DTYPE_CODES[x.dtype], b * groups, groups, c // groups, x.numel() // (b * c),
+        p.cluster, p.slice, p.piece, p.chunk, float(eps), int(act == "silu"),
+        torch._C._cuda_getCurrentRawStream(x.device.index),
+    )
+    if x.device.index == torch.cuda.current_device():
+        rc = lib.tf_group_norm(*args)
+    else:
+        with torch.cuda.device(x.device):
+            rc = lib.tf_group_norm(*args)
     _build.check(lib, rc, "GroupNorm launch")
 
 
@@ -248,17 +260,21 @@ def group_norm_kernel(
     """Launch K4 on CUDA tensors; returns a new tensor of x's shape and
     dtype. x, weight and bias share one dtype, bf16 or fp32 (the kernel
     widens gamma and beta itself, so a call is the kernel's launches
-    alone); another dtype raises."""
+    alone); another dtype raises. Per call the host does the checks, the
+    output, the plan (cached per shape) and the launch: the cluster variant
+    allocates no scratch."""
     global launches
     ops = prepare_operands(x, weight, bias, groups, act)
     x = ops[0]
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     b, c = x.shape[:2]
-    p = plan(b, c, x.numel() // (b * c), groups, x.dtype)
-    launch(ops, out, scratch(x, groups, p), groups, eps, act, p)
+    hw = x.numel() // (b * c)
+    p = plan(b, c, hw, groups, x.dtype)
+    launch(ops, out, scratch(x, groups, p) if p.chunk else None, groups, eps, act, p)
     launches += 1
-    name = str(x.dtype).removeprefix("torch.")
+    name = _DTYPE_NAMES[x.dtype]
     launches_by_dtype[name] = launches_by_dtype.get(name, 0) + 1
+    launches_by_shape[(b, c, hw)] = launches_by_shape.get((b, c, hw), 0) + 1
     return out

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tokenflow_torch.models import unet2d
+from tokenflow_torch.models.layers import nchw_body
 from tokenflow_torch.models.unet2d import UNet2DConfig
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.profiling import span
@@ -97,7 +98,7 @@ class ControlNetModel(nn.Module):
             temb = unet2d.embed_timesteps(
                 self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
             )
-            h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+            h = self.conv_in(nchw_body(sample.to(dtype)))
             h = h + self.controlnet_cond_embedding(controlnet_cond.to(dtype).permute(0, 3, 1, 2))
             none = editctx.UNetEdit()
             h, skips = unet2d.down_pass(self.down_blocks, h, temb, context, none, {})

@@ -7,7 +7,9 @@ editing code reads them: attention tokens are (B, S, C) with S in (h, w)
 row-major order; convolutions run on NCHW tensors inside the UNet/VAE.
 
 Dtype policy (as in JAX): weights and activations in the stack dtype (bf16
-on the GPU), normalization statistics and attention logits in fp32.
+on the GPU), normalization statistics and attention logits in fp32. On
+CUDA the norms keep their statistics on chip (K4, K5) and write no fp32
+copy of the activation.
 
 Spans (``profiling.span``): ``tf.norm`` in both norms, casts included;
 inside a transformer block ``tf.self_attn``, ``tf.ext_attn`` (the
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tokenflow_torch.kernels.group_norm import group_norm_kernel, group_norm_plain
+from tokenflow_torch.kernels.layer_norm import layer_norm_kernel
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.attention import flash_attention, merge_heads, split_heads
 from tokenflow_torch.ops.extended_attention import extended_attention, inject_source_qk
@@ -34,32 +37,60 @@ from tokenflow_torch.ops.propagation import token_propagation, token_propagation
 from tokenflow_torch.profiling import span
 
 
+def nchw_body(x: torch.Tensor) -> torch.Tensor:
+    """An NHWC model input (latents, pixels) as the NCHW body's first
+    activation. On CUDA it is copied to NCHW-contiguous (the input's few
+    channels), so the convolutions, residual adds and norms after it keep
+    that layout, the one K4 reads in place: no norm copies its input. On the
+    CPU it stays the permuted view, as before."""
+    x = x.permute(0, 3, 1, 2)
+    return x.contiguous() if x.is_cuda else x
+
+
+def group_norm_path(use_kernel: Optional[bool], device) -> str:
+    """The GroupNorm path ``FusedGroupNorm`` takes on ``device`` under
+    ``use_kernel``: "kernel" (K4, ``kernels/group_norm.py``), "plain" (its
+    plain version) or "torch" (``F.group_norm`` on an fp32 copy). Unset
+    (None), the device decides: K4 on CUDA, ``F.group_norm`` elsewhere (the
+    CPU's JAX parity reference). False forces ``F.group_norm`` everywhere;
+    True runs K4 on CUDA and the plain version on the CPU."""
+    kind = torch.device(device).type
+    if use_kernel is False:
+        return "torch"
+    if kind == "cuda":
+        return "kernel"
+    if not use_kernel:
+        return "torch"
+    if kind == "cpu":
+        return "plain"
+    raise ValueError(f"no GroupNorm kernel path for device {device}")
+
+
 class FusedGroupNorm(nn.GroupNorm):
     """GroupNorm with fp32 statistics and an optional fused SiLU, cast back
     to the input dtype: the JAX FusedGroupNorm
     (tokenflow_tpu/models/layers.py:91-109).
 
-    ``use_kernel`` (default off, set by ``runtime.load_stack``) is the
-    counterpart of the JAX opt-in ``TOKENFLOW_PALLAS_GN=1``. Off: the
-    ``F.group_norm`` path, the counterpart of the JAX default flax
-    GroupNorm. On: K4 (``kernels/group_norm.py``) for CUDA tensors and its
-    plain version (fp32 ``E[x^2] - E[x]^2``) for CPU tensors."""
+    ``use_kernel`` (set by ``runtime.load_stack``) picks the path as
+    :func:`group_norm_path` resolves it: unset, K4 on CUDA (bf16 and fp32,
+    one read and one write of the activation, the statistics on chip) and
+    the ``F.group_norm`` path on the CPU, the counterpart of the JAX default
+    flax GroupNorm; False, the ``F.group_norm`` path on CUDA too (an A/B
+    baseline); True, K4 on CUDA and its plain version (fp32 ``E[x^2] -
+    E[x]^2``) on the CPU, the counterpart of the JAX opt-in
+    ``TOKENFLOW_PALLAS_GN=1``."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
                  act: Optional[str] = None):
         super().__init__(num_groups, num_channels, eps=eps)
         self.act = act
-        self.use_kernel = False
+        self.use_kernel: Optional[bool] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("tf.norm"):
-            if self.use_kernel:
-                if x.is_cuda:
-                    norm = group_norm_kernel
-                elif x.device.type == "cpu":
-                    norm = group_norm_plain
-                else:
-                    raise ValueError(f"no GroupNorm path for device {x.device}")
+            path = group_norm_path(self.use_kernel, x.device)
+            if path != "torch":
+                norm = group_norm_kernel if path == "kernel" else group_norm_plain
                 return norm(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
             y = F.group_norm(
                 x.float(), self.num_groups, self.weight.float(), self.bias.float(),
@@ -70,11 +101,26 @@ class FusedGroupNorm(nn.GroupNorm):
             return y.to(x.dtype)
 
 
+def layer_norm_path(device, dtype: torch.dtype) -> str:
+    """The path ``LayerNorm32`` takes for an activation of ``dtype`` on
+    ``device``: "kernel" (K5, ``kernels/layer_norm.py``) for bf16 on CUDA,
+    else "torch" (``F.layer_norm`` on an fp32 copy; a no-op copy for an
+    fp32 stack). No switch."""
+    if torch.device(device).type == "cuda" and dtype == torch.bfloat16:
+        return "kernel"
+    return "torch"
+
+
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm computed in fp32, returned in the input dtype."""
+    """LayerNorm with fp32 statistics, returned in the input dtype, on the
+    path :func:`layer_norm_path` gives: K5 for a bf16 CUDA tensor (one read
+    and one write of the activation, the statistics on chip), else
+    ``F.layer_norm`` on an fp32 copy."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("tf.norm"):
+            if layer_norm_path(x.device, x.dtype) == "kernel":
+                return layer_norm_kernel(x, self.weight, self.bias, self.eps)
             y = F.layer_norm(
                 x.float(), self.normalized_shape, self.weight.float(),
                 self.bias.float(), self.eps,
@@ -304,13 +350,18 @@ class Transformer2DModel(nn.Module):
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
         else:
             h = self.proj_in(h)
-            h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, h.shape[1])
+            # contiguous tokens (the NCHW projection's permute is a
+            # transposed view): the block's norms read them in place and
+            # its residual adds keep that layout
+            h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, h.shape[1]).contiguous()
         h, cache = self.transformer_blocks[0](h, context, edit)
         if self.linear:
             h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         else:
             h = self.proj_out(h.reshape(b, hh, ww, h.shape[-1]).permute(0, 3, 1, 2))
-        return h + x, cache
+        # x first: the sum takes the block input's layout, not the
+        # projection's NHWC one
+        return x + h, cache
 
 
 class ResnetBlock2D(nn.Module):

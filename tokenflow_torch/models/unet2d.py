@@ -33,6 +33,7 @@ from tokenflow_torch.models.layers import (
     TimestepEmbedding,
     Transformer2DModel,
     Upsample2D,
+    nchw_body,
     timestep_embedding,
 )
 from tokenflow_torch.ops import editctx
@@ -272,7 +273,7 @@ class UNet2DConditionModel(nn.Module):
                 self.config, self.time_embedding, timesteps, sample.shape[0], sample.device
             )
 
-            h = self.conv_in(sample.to(dtype).permute(0, 3, 1, 2))
+            h = self.conv_in(nchw_body(sample.to(dtype)))
             h, skips = down_pass(self.down_blocks, h, temb, context, edit, cache)
             if down_block_residuals is not None:
                 skips = [s + _nchw(r, dtype) for s, r in zip(skips, down_block_residuals)]

@@ -19,6 +19,7 @@ from tokenflow_torch.models.layers import (
     FusedGroupNorm,
     ResnetBlock2D,
     Upsample2D,
+    nchw_body,
 )
 from tokenflow_torch.ops.attention import sdp_attention
 
@@ -168,11 +169,11 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) image in [-1, 1] -> posterior mean (B, h, w, 4)."""
-        moments = self.quant_conv(self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)))
+        moments = self.quant_conv(self.encoder(nchw_body(x.to(self.dtype))))
         mean = moments[:, : self.config.latent_channels]
         return mean.permute(0, 2, 3, 1)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, h, w, 4) latent -> (B, H, W, 3) image."""
-        h = self.post_quant_conv(z.to(self.dtype).permute(0, 3, 1, 2))
+        h = self.post_quant_conv(nchw_body(z.to(self.dtype)))
         return self.decoder(h).permute(0, 2, 3, 1)

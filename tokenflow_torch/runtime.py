@@ -285,14 +285,17 @@ def load_stack(
     dtype: torch.dtype = torch.bfloat16,
     init: str = "auto",  # "auto" | "pretrained" | "random"
     seed: int = 0,
-    group_norm_kernel: bool = False,
+    group_norm_kernel: Optional[bool] = None,
 ) -> SDStack:
     """Build the SD model stack on ``device``. The most recent stack is
     held, so chained stages in one process (preprocess, then the editor)
     share one set of weights; a different request replaces it.
     ``group_norm_kernel`` sets ``use_kernel`` on every GroupNorm of the UNet
     and the VAE (the sites the JAX switch ``TOKENFLOW_PALLAS_GN=1``
-    reaches); it is applied on every call, so it never sticks to the held
+    reaches; ``models/layers.py::group_norm_path``): None (unset) lets the
+    device decide (K4 on CUDA, ``F.group_norm`` on the CPU), False forces
+    ``F.group_norm``, True runs K4 on CUDA and its plain version on the
+    CPU. It is applied on every call, so it never sticks to the held
     stack.
 
     An fp32 stack turns TF32 off for PyTorch's own matmuls and cuDNN
