@@ -12,9 +12,11 @@ after its last the loop starts again from the same start latents.
 The inputs are the harness's: the start latents and a 50-slot source
 trajectory made from seeded clean latents with DDIM's forward formula (the
 edit costs the same whatever made its trajectory), the embeddings, the
-pivot frames and the conditioning images. The program's own schedule
-tables come from its ``ddim`` and ``pipeline`` functions; the reference
-works them out again."""
+architecture's further model inputs, the pivot frames and the conditioning
+images. The models, those inputs and the PnP sites come from the
+architecture's module (``run.arch``). The program's own schedule tables
+come from its ``ddim`` and ``pipeline`` functions; the reference works them
+out again."""
 
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ import torch
 
 import checks
 import inputs
-import program
 from reference import schedule, steps as ref_steps
 
 
@@ -31,11 +32,11 @@ class Stage:
         from tokenflow_torch.diffusion import ddim
         from tokenflow_torch.editing import pipeline
 
-        self.run, tr = run, run.traffic
+        self.run, tr, arch = run, run.traffic, run.arch
         dev, dt = run.device, run.dtype
-        self.unet = program.unet(run.unet_spec, run.state["unet"])
-        self.controlnet = (None if run.controlnet_spec is None else
-                           program.controlnet(run.controlnet_spec, run.state["controlnet"]))
+        self.unet = arch.program_model("unet", run.unet_spec, run.state["unet"])
+        self.controlnet = (None if run.controlnet_spec is None else arch.program_model(
+            "controlnet", run.controlnet_spec, run.state["controlnet"]))
         frames = inputs.video(tr, run.seed, dev)
         x0 = inputs.latents(frames, run.seed)
         eps = inputs.noise(x0.shape, run.seed, dev)
@@ -60,6 +61,8 @@ class Stage:
         del x0, eps
         ctx = run.unet_spec.cross_attention_dim
         self.embeds3 = inputs.embeddings(3, ctx, run.seed, dev).to(dt)
+        self.program_kw, self.reference_kw = arch.model_inputs(run.unet_spec, 3, run.seed,
+                                                               dev, dt)
         self.pivots = inputs.pivots(len(self.steps), tr["frames"], tr["window"], run.seed)
         self.sample = checks.Sample(run.seed, tr["compared_later_steps"])
         self.x = self.x_init
@@ -73,6 +76,7 @@ class Stage:
             window_size=tr["window"], guidance_scale=tr["guidance_scale"],
             pnp=tr["editor"] == "pnp", pivot_indices=self.pivots[pos : pos + 1],
             phase=self.run.phase, controlnet_fn=self.controlnet, cond_image=self.cond,
+            **self.program_kw,
         )
 
     def warm(self) -> None:
@@ -101,12 +105,13 @@ class Stage:
         tr = self.run.traffic
         pa, pb, w1 = (torch.as_tensor(a, device=self.run.device)
                       for a in schedule.propagation_indices(tr["frames"], tr["window"]))
+        inject = self.run.arch.inject_sites(self.run.unet_spec)
 
         def ref(prec, x_in, pos):
             return ref_steps.edit_step(
                 prec, ref_unet, ref_controlnet, x_in, self.traj[int(self.tables["slot"][pos])],
-                self.embeds3, self.tables, pos, self.pivots[pos], tr, cond=self.cond,
-                pa=pa, pb=pb, w1=w1)
+                self.embeds3, self.tables, pos, self.pivots[pos], tr, inject, cond=self.cond,
+                pa=pa, pb=pb, w1=w1, model_kw=self.reference_kw)
 
         out = []
         for k, pos, x_in, x_out in self.sample.items():

@@ -3,10 +3,11 @@ ddim_inversion``, one step a call (``steps=slice(i, i + 1)`` with the
 previous call's ``carry``), on the eps of ``cli/preprocess.build_eps_fn``
 at preprocess's defaults: all frames in one chunk, the inversion prompt's
 embedding alone (no guidance), the ControlNet's residuals where the
-configuration has one. Steps run over the traffic's schedule from its
-first; after its last the loop starts again from the clean latents and an
-empty trajectory. Compared: the state after sampled steps, and the
-trajectory slots the window wrote."""
+configuration has one, and the architecture's further model inputs (its
+module, ``run.arch``, builds the models too). Steps run over the
+traffic's schedule from its first; after its last the loop starts again
+from the clean latents and an empty trajectory. Compared: the state after
+sampled steps, and the trajectory slots the window wrote."""
 
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ import types
 
 import checks
 import inputs
-import program
 from reference import schedule, steps as ref_steps
 
 
@@ -23,20 +23,22 @@ class Stage:
         from tokenflow_torch.cli.preprocess import build_eps_fn
         from tokenflow_torch.diffusion import ddim
 
-        self.run, tr = run, run.traffic
+        self.run, tr, arch = run, run.traffic, run.arch
         dev, dt = run.device, run.dtype
-        self.unet = program.unet(run.unet_spec, run.state["unet"])
-        self.controlnet = (None if run.controlnet_spec is None else
-                           program.controlnet(run.controlnet_spec, run.state["controlnet"]))
+        self.unet = arch.program_model("unet", run.unet_spec, run.state["unet"])
+        self.controlnet = (None if run.controlnet_spec is None else arch.program_model(
+            "controlnet", run.controlnet_spec, run.state["controlnet"]))
         frames = inputs.video(tr, run.seed, dev)
         self.latents = inputs.latents(frames, run.seed)
         self.cond = None if self.controlnet is None else inputs.canny(frames).to(dt)
         del frames
         self.embed = inputs.embeddings(1, run.unet_spec.cross_attention_dim, run.seed,
                                        dev).to(dt)
+        program_kw, self.reference_kw = arch.model_inputs(run.unet_spec, 1, run.seed, dev, dt)
         # build_eps_fn reads the stack's UNet entry and dtype alone
         stack = types.SimpleNamespace(unet_apply=self.unet, dtype=dt)
-        self.eps_fn = build_eps_fn(stack, self.embed, None, self.controlnet, self.cond)
+        self.eps_fn = build_eps_fn(stack, self.embed, None, self.controlnet, self.cond,
+                                   **program_kw)
         self.sched = ddim.make_schedule(tr["timesteps"])
         self.tables = schedule.inversion_tables(run.sched_config, tr)
         self.carry = None
@@ -86,7 +88,8 @@ class Stage:
         (``slots_wrong``)."""
         def ref(prec, x_in, pos):
             return ref_steps.inversion_step(prec, ref_unet, ref_controlnet, x_in, self.embed,
-                                            self.tables, pos, cond=self.cond)
+                                            self.tables, pos, cond=self.cond,
+                                            model_kw=self.reference_kw)
 
         out = []
         saved = {it[0]: it for it in self.saved.items()}

@@ -6,7 +6,10 @@ and the comparison with the plain reference that decides ``correct``.
 Set-up (``setup_s``: process start to the first timed step) builds or
 loads the program's kernel library, makes the weights on the device from
 the seed, builds the program's models on them, makes the cell's inputs and
-runs the stage's warm-up steps. The window then runs the stage's steps for
+runs the stage's warm-up steps. What depends on the model family (specs,
+the reference's and the program's models, the operation count, further
+model inputs, PnP sites) comes from the configuration's architecture module
+(``manifest.architecture``). The window then runs the stage's steps for
 ``--seconds`` and ends on a step: every end-to-end rate is the window's
 seconds over the steps it completed, with at most one step enqueued ahead
 of the device. ``--trace 1`` reports the per-layer metrics instead: it
@@ -69,6 +72,11 @@ class Run:
     @property
     def traffic(self) -> dict:
         return self.cell.traffic
+
+    @property
+    def arch(self):
+        """The configuration's architecture module (``manifest.architecture``)."""
+        return self.cell.arch
 
     @property
     def sched_config(self) -> dict:
@@ -168,17 +176,14 @@ def run_cell(cell: manifest.Cell, args, t0: float, root: Path, device,
     import program
     import tracing
     import weights
-    import yardstick
-    from reference import model as ref_model
     from reference.precision import Precision
 
     traced = bool(args.trace)
     marks = [("imports", time.monotonic())]
-    cfg = cell.config
+    cfg, arch = cell.config, cell.arch
     dtype_name = cfg["dtype"]
     dtype = program.DTYPES[dtype_name]
-    unet_spec = ref_model.UNetSpec.from_config(cfg["unet"])
-    cn_spec = ref_model.UNetSpec.from_config(cfg["controlnet"]) if "controlnet" in cfg else None
+    unet_spec, cn_spec = arch.specs(cfg)
     if device.type == "cuda":
         torch.cuda.init()
         marks.append(("cuda", time.monotonic()))
@@ -186,10 +191,10 @@ def run_cell(cell: manifest.Cell, args, t0: float, root: Path, device,
         print(f"[bench] kernel library {'built' if built else 'loaded'} in "
               f"{time.monotonic() - marks[-1][1]:.3f} s", flush=True)
     marks.append(("kernels", time.monotonic()))
-    state = {"unet": weights.random_state_dict(ref_model.build("unet", cfg["unet"]),
+    state = {"unet": weights.random_state_dict(arch.reference_model("unet", cfg["unet"]),
                                                weights.sub_seed(args.seed, 1), device, dtype)}
     state["controlnet"] = None if cn_spec is None else weights.random_state_dict(
-        ref_model.build("controlnet", cfg["controlnet"]), weights.sub_seed(args.seed, 2),
+        arch.reference_model("controlnet", cfg["controlnet"]), weights.sub_seed(args.seed, 2),
         device, dtype)
     clock = PassClock() if traced else None
     run = Run(cell, args.seed, device, dtype, unet_spec, cn_spec, state,
@@ -222,7 +227,7 @@ def run_cell(cell: manifest.Cell, args, t0: float, root: Path, device,
     guard.check("after the window")
     measures = Measures(
         cell=cell, steps=steps, window_s=window_s, setup_s=setup_s, peak_bytes=peak,
-        step_ops=yardstick.step_ops(cell.stage, unet_spec, cn_spec, cell.traffic),
+        step_ops=arch.step_ops(cell.stage, unet_spec, cn_spec, cell.traffic),
         phase_s=phase_s if traced else {}, trace=trace, trace_steps=trace_steps,
         dtype=dtype_name)
     metrics = {}
@@ -241,9 +246,9 @@ def run_cell(cell: manifest.Cell, args, t0: float, root: Path, device,
         torch.cuda.empty_cache()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    ref_unet = ref_model.build("unet", cfg["unet"], state["unet"])
-    ref_cn = None if cn_spec is None else ref_model.build("controlnet", cfg["controlnet"],
-                                                          state["controlnet"])
+    ref_unet = arch.reference_model("unet", cfg["unet"], state["unet"])
+    ref_cn = None if cn_spec is None else arch.reference_model("controlnet", cfg["controlnet"],
+                                                               state["controlnet"])
     t_ref = time.monotonic()
     compared = stage.compare(Precision("fp32"), ref_unet, ref_cn)
     reference_s = time.monotonic() - t_ref

@@ -1,9 +1,11 @@
 """``BENCHMARK.json`` and the files it names. A cell pairs a configuration
 (``configs/<name>.json``) with a traffic mix (``traffic/<name>.json``),
-whose ``stage`` names its driver (``drivers/<stage>.py``); each metric is
-read by ``metrics/<name>.py`` and each cell's output limits are in
+whose ``stage`` names its driver (``drivers/<stage>.py``); the
+configuration's ``architecture`` names the module of its model family
+(``architectures/<architecture>.py``, SD's UNet where it names none); each
+metric is read by ``metrics/<name>.py`` and each cell's output limits are in
 ``limits/<cell>.json``. Everything is found by name, so a new cell, mix,
-stage or metric is a new file."""
+stage, architecture or metric is a new file."""
 
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from pathlib import Path
 from types import ModuleType
 
 HERE = Path(__file__).resolve().parent
+DEFAULT_ARCHITECTURE = "sd"
 
 
 @dataclasses.dataclass
@@ -25,6 +28,7 @@ class Cell:
     limits: dict
     end_to_end: list  # the BENCHMARK.json entries this cell reports
     per_layer: list
+    arch: ModuleType  # the configuration's architecture module
 
     @property
     def stage(self) -> str:
@@ -56,12 +60,13 @@ def cell(name: str, root: Path = HERE) -> Cell:
     per_layer = [m for m in bench["per_layer"]
                  if (name in m["workloads"] if "workloads" in m else m["moves"] in moved)]
     limits_path = root / "limits" / f"{name}.json"
+    config = load_json(root / "configs" / f"{w['config']}.json")
     return Cell(
-        name=name, chips=w["chips"],
-        config=load_json(root / "configs" / f"{w['config']}.json"),
+        name=name, chips=w["chips"], config=config,
         traffic=load_json(root / "traffic" / f"{w['traffic']}.json"),
         limits=load_json(limits_path)["limits"] if limits_path.exists() else {},
         end_to_end=e2e, per_layer=per_layer,
+        arch=architecture(config.get("architecture", DEFAULT_ARCHITECTURE), root),
     )
 
 
@@ -76,6 +81,31 @@ def _module(path: Path) -> ModuleType:
 
 def driver(stage: str, root: Path = HERE) -> ModuleType:
     return _module(root / "drivers" / f"{stage}.py")
+
+
+def architecture(name: str, root: Path = HERE) -> ModuleType:
+    """The module of a model family, which gives the harness and the stage
+    drivers everything that depends on the architecture:
+
+    - ``specs(config)``: (the UNet's spec, the ControlNet's or None) of a
+      configuration file; a spec has ``cross_attention_dim``, the prompt
+      embeddings' width;
+    - ``reference_model(kind, group, state_dict=None)``: the plain
+      reference's "unet" or "controlnet" of the configuration's group, on the
+      meta device (the weights are drawn for its parameters) or holding
+      ``state_dict`` in fp32; called as ``reference/steps.py`` says;
+    - ``step_ops(stage, unet_spec, controlnet_spec, traffic)``: the
+      yardstick's operations of one step of the stage;
+    - ``program_model(kind, spec, state_dict)``: the program's model holding
+      the state dict;
+    - ``model_inputs(spec, prompts, seed, device, dtype)``: (keyword arguments
+      for the program's calls, for the reference's) beyond the ``prompts``
+      prompt embeddings, made from the seed, one row per prompt;
+    - ``inject_sites(spec)``: the PnP sites under the reference's names."""
+    path = root / "architectures" / f"{name}.py"
+    if not path.exists():
+        raise FileNotFoundError(f"architecture {name!r}: no module {path}")
+    return _module(path)
 
 
 def reader(metric: str, root: Path = HERE) -> ModuleType:

@@ -1,13 +1,13 @@
-"""The system under test: the PyTorch and CUDA port's UNet and ControlNet
-built for a configuration and handed the benchmark's state dict by key
-name, as the port loads a diffusers checkpoint, and its kernel library.
-Only this module and the stage drivers import the program."""
+"""The system under test: the PyTorch and CUDA port's kernel library, its
+dtypes, and the loading of the benchmark's state dict into a model of the
+port by key name, as the port loads a diffusers checkpoint. The models
+themselves are built by the architecture's module
+(``architectures/<name>.py::program_model``). Only this module, the
+architectures' program side and the stage drivers import the program."""
 
 from __future__ import annotations
 
 import torch
-
-from reference.model import UNetSpec
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -23,39 +23,8 @@ def build_kernels() -> bool:
     return built
 
 
-def _port_config(spec: UNetSpec):
-    from tokenflow_torch.models.unet2d import UNet2DConfig
-
-    if spec.norm_num_groups != 32:
-        raise ValueError("the port's norms have 32 groups")
-    return UNet2DConfig(
-        in_channels=spec.in_channels, out_channels=spec.out_channels,
-        block_out_channels=spec.block_out_channels, layers_per_block=spec.layers_per_block,
-        cross_attention_dim=spec.cross_attention_dim, num_heads=spec.heads,
-        use_linear_projection=spec.use_linear_projection, norm_eps=spec.norm_eps,
-        flip_sin_to_cos=spec.flip_sin_to_cos, freq_shift=spec.freq_shift,
-        attn_down=spec.attn_down, attn_up=spec.attn_up,
-    )
-
-
-def _load(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+def load(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
+    """``model`` (built on the meta device) holding ``state_dict``, for
+    inference."""
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model.eval().requires_grad_(False)
-
-
-def unet(spec: UNetSpec, state_dict: dict):
-    from tokenflow_torch.models.unet2d import UNet2DConditionModel
-
-    with torch.device("meta"):
-        model = UNet2DConditionModel(_port_config(spec))
-    return _load(model, state_dict)
-
-
-def controlnet(spec: UNetSpec, state_dict: dict):
-    from tokenflow_torch.models.controlnet import COND_CHANNELS, ControlNetModel
-
-    if spec.cond_channels != COND_CHANNELS:
-        raise ValueError(f"the port's conditioning embedding has {COND_CHANNELS}")
-    with torch.device("meta"):
-        model = ControlNetModel(_port_config(spec), len(spec.cond_channels) - 1)
-    return _load(model, state_dict)

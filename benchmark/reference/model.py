@@ -4,9 +4,9 @@ ControlNet's ``config.json``) under diffusers' state-dict names, with
 TokenFlow's edit at the self-attention and PnP sites.
 
 Public layout is NHWC (the latents as the program holds them); the body
-runs NCHW. Modules only hold the weights: every product goes through a
-:class:`~reference.precision.Precision`, so one model serves the fp32
-reference and the fp8 control.
+runs NCHW. Modules hold the weights, and the forward takes the
+:class:`~reference.precision.Precision` that every product goes through, so
+one model serves the fp32 reference and the fp8 control.
 
 The edit (``Edit``) follows TokenFlow (Geyer et al., 2023) as the measured
 program implements it:
@@ -15,16 +15,20 @@ program implements it:
   ([source|uncond|cond]): at every self-attention site the uncond and cond
   streams attend over the keys and values of all K keyframes at once, the
   source stream per frame; with PnP the q and k of the uncond and cond
-  streams are the source stream's at ``QK_INJECT_SITES`` while ``qk_gate``
-  holds. Each site caches the source stream's normed states (``pivot_h``)
-  and the attention output after ``to_out`` (``kf_attn``);
+  streams are the source stream's at the sites ``qk_sites`` while
+  ``qk_gate`` holds. Each site caches the source stream's normed states
+  (``pivot_h``) and the attention output after ``to_out`` (``kf_attn``);
 * propagation pass over F frames: each site's self-attention output is
   gathered from ``kf_attn`` at the nearest pivot token (first argmax of the
   frame's source-stream normed state against the L2-normalised
   ``pivot_h``), for the frame's own-window pivot ``pa`` and the previous
   window's ``pb``, and blended ``w1 * a + (1 - w1) * b``;
 * both passes: with PnP and ``conv_gate``, the uncond and cond streams take
-  the source stream's features after ``conv2`` of ``CONV_INJECT_SITE``.
+  the source stream's features after ``conv2`` of the resnet ``conv_site``.
+
+The PnP sites (``Edit.qk_sites``, ``Edit.conv_site``) are named as the forward
+names them (``down_{i}_{j}``, ``mid``, ``up_{i}_{j}``, ``up_{i}_res_{j}``); the
+architecture module (``architectures/sd.py``) says which they are.
 """
 
 from __future__ import annotations
@@ -39,10 +43,6 @@ from torch import nn
 
 from reference.precision import Precision
 
-QK_INJECT_SITES = frozenset({
-    "up_1_1", "up_1_2", "up_2_0", "up_2_1", "up_2_2", "up_3_0", "up_3_1", "up_3_2",
-})
-CONV_INJECT_SITE = "up_1_res_1"
 TRANSFORMER_NORM_EPS = 1e-6
 LAYER_NORM_EPS = 1e-5
 # fp32 elements of one block of attention scores or match similarities
@@ -70,16 +70,13 @@ class UNetSpec:
 
     @staticmethod
     def from_config(cfg: dict) -> "UNetSpec":
+        """The fields of ``cfg``; what the reference cannot run is refused
+        before this by ``architectures/sd.py::specs``."""
         levels = len(cfg["block_out_channels"])
         ahd = cfg["attention_head_dim"]
         heads = tuple([ahd] * levels if isinstance(ahd, int) else ahd)
         down = tuple(cfg["down_block_types"])
         up = tuple(cfg.get("up_block_types", ()))
-        for key, want in (("act_fn", "silu"), ("center_input_sample", False),
-                          ("mid_block_scale_factor", 1), ("downsample_padding", 1),
-                          ("class_embed_type", None), ("addition_embed_type", None)):
-            if cfg.get(key, want) != want:
-                raise ValueError(f"config {key}={cfg[key]!r}: the reference has {want!r}")
         return UNetSpec(
             in_channels=cfg["in_channels"],
             out_channels=cfg.get("out_channels", cfg["in_channels"]),
@@ -104,8 +101,8 @@ class UNetSpec:
 @dataclasses.dataclass
 class Edit:
     """One pass's edit: mode "pivotal" (K keyframes) or "propagate" (F
-    frames), ``ns`` streams frame-major, PnP gates, and for "propagate" the
-    pivotal pass's cache and the frames' (pa, pb, w1)."""
+    frames), ``ns`` streams frame-major, PnP gates and sites, and for
+    "propagate" the pivotal pass's cache and the frames' (pa, pb, w1)."""
 
     mode: str
     n_frames: int
@@ -113,6 +110,8 @@ class Edit:
     pnp: bool = False
     qk_gate: bool = False
     conv_gate: bool = False
+    qk_sites: frozenset = frozenset()
+    conv_site: Optional[str] = None
     cache: Optional[dict] = None
     pa: Optional[torch.Tensor] = None
     pb: Optional[torch.Tensor] = None
@@ -259,6 +258,10 @@ class UNet(nn.Module):
         self.conv_norm_out = nn.GroupNorm(g, ch[0], eps)
         self.conv_out = nn.Conv2d(ch[0], spec.out_channels, 3, padding=1)
 
+    def forward(self, P: Precision, sample, t: int, context, edit=None, down_residuals=None,
+                mid_residual=None):
+        return unet_forward(P, self, sample, t, context, edit, down_residuals, mid_residual)
+
 
 class CondEmbedding(nn.Module):
     def __init__(self, channels: tuple, out_channels: int):
@@ -282,6 +285,9 @@ class ControlNet(nn.Module):
         self.controlnet_down_blocks = nn.ModuleList([nn.Conv2d(c, c, 1) for c in skips])
         c = spec.block_out_channels[-1]
         self.controlnet_mid_block = nn.Conv2d(c, c, 1)
+
+    def forward(self, P: Precision, sample, t: int, context, cond):
+        return controlnet_forward(P, self, sample, t, context, cond)
 
 
 def build(kind: str, config: dict, state_dict: Optional[dict] = None) -> nn.Module:
@@ -373,7 +379,7 @@ def transformer_block(P, blk: TransformerBlock, x, context, edit: Optional[Edit]
         kf = b // ns
         h3 = h.reshape(kf, ns, s, dim).transpose(0, 1)  # (ns, K, S, C)
         q, k, v = (P.linear(h3, m) for m in (a.to_q, a.to_k, a.to_v))
-        if edit.pnp and edit.qk_gate and site in QK_INJECT_SITES:
+        if edit.pnp and edit.qk_gate and site in edit.qk_sites:
             q, k = q[:1].expand_as(q), k[:1].expand_as(k)
         inner = q.shape[-1]
 
@@ -474,7 +480,8 @@ def unet_forward(P: Precision, model: UNet, sample, t: int, context,
     for i, block in enumerate(model.up_blocks):
         for j, r in enumerate(block.resnets):
             h = torch.cat([h, skips.pop()], dim=1)
-            h = resnet(P, r, h, temb, edit, inject=f"up_{i}_res_{j}" == CONV_INJECT_SITE)
+            inject = edit is not None and f"up_{i}_res_{j}" == edit.conv_site
+            h = resnet(P, r, h, temb, edit, inject=inject)
             if len(block.attentions):
                 h, c = transformer2d(P, block.attentions[j], h, context, edit, f"up_{i}_{j}")
                 if c is not None:

@@ -1,5 +1,10 @@
 """One edit step and one inversion step of the reference, from the state the
-program held before the step and the harness's inputs."""
+program held before the step and the harness's inputs. The models are the
+architecture's reference modules (``architectures/<name>.py::reference_model``),
+called as ``unet(P, sample, t, context, edit, down_residuals, mid_residual,
+**model_kw)`` and ``controlnet(P, sample, t, context, cond, **model_kw)``;
+``model_kw`` holds the architecture's inputs beyond the prompt embeddings,
+one row per prompt, batched as the embeddings are."""
 
 from __future__ import annotations
 
@@ -25,44 +30,55 @@ def _ddim(x, eps, alpha_t, alpha_prev):
     return torch.sqrt(a_p) * x0 + torch.sqrt(1 - a_p) * eps
 
 
-def _residuals(P, controlnet, sample, t, ctx, cond):
+def _residuals(P, controlnet, sample, t, ctx, cond, kw):
     if controlnet is None:
         return {}
-    down, mid = M.controlnet_forward(P, controlnet, sample, t, ctx, cond)
+    down, mid = controlnet(P, sample, t, ctx, cond, **kw)
     return {"down_residuals": down, "mid_residual": mid}
+
+
+def _repeat(model_kw: dict, n: int) -> dict:
+    """The per-prompt inputs for ``n`` frames of every prompt, frame-major."""
+    return {k: v.repeat(n, *[1] * (v.dim() - 1)) for k, v in model_kw.items()}
 
 
 @torch.no_grad()
 def edit_step(P: Precision, unet, controlnet, x, src, embeds3, tables: dict, i: int,
-              pivots, traffic: dict, cond=None, pa=None, pb=None, w1=None):
+              pivots, traffic: dict, inject: tuple, cond=None, pa=None, pb=None, w1=None,
+              model_kw=None):
     """x after edit step ``i`` (fp32), from ``x`` (F, h, w, 4), the source
     trajectory's latents at step i's slot ``src``, the [inversion | uncond
-    | cond] embeddings, the step's pivot frames and, with a ControlNet, the
-    conditioning images ``cond`` (F, H, W, 3)."""
+    | cond] embeddings, the step's pivot frames, the PnP sites ``inject``
+    (q and k sites, feature site) and, with a ControlNet, the conditioning
+    images ``cond`` (F, H, W, 3)."""
     x, src = x.float(), src.float()
+    model_kw = model_kw or {}
     f = x.shape[0]
     piv = torch.as_tensor(pivots, dtype=torch.long, device=x.device)
     k = len(piv)
     t = int(tables["t"][i])
     pnp = traffic.get("editor") == "pnp"
     gates = dict(pnp=pnp, qk_gate=bool(tables["qk_gate"][i]),
-                 conv_gate=bool(tables["conv_gate"][i]))
+                 conv_gate=bool(tables["conv_gate"][i]), qk_sites=inject[0],
+                 conv_site=inject[1])
     sample = _streams(src[piv], x[piv], x[piv])
     ctx = embeds3.float().repeat(k, 1, 1)
+    kw = _repeat(model_kw, k)
     res = _residuals(P, controlnet, sample, t, ctx,
-                     None if cond is None else cond[piv].repeat_interleave(3, dim=0))
-    _, cache = M.unet_forward(P, unet, sample, t, ctx, M.Edit("pivotal", k, 3, **gates), **res)
+                     None if cond is None else cond[piv].repeat_interleave(3, dim=0), kw)
+    _, cache = unet(P, sample, t, ctx, M.Edit("pivotal", k, 3, **gates), **res, **kw)
     eps = []
     for c0 in range(0, f, FRAMES_PER_CALL):
         sl = slice(c0, c0 + FRAMES_PER_CALL)
         n = len(x[sl])
         sample = _streams(src[sl], x[sl], x[sl])
         ctx = embeds3.float().repeat(n, 1, 1)
+        kw = _repeat(model_kw, n)
         res = _residuals(P, controlnet, sample, t, ctx,
-                         None if cond is None else cond[sl].repeat_interleave(3, dim=0))
+                         None if cond is None else cond[sl].repeat_interleave(3, dim=0), kw)
         edit = M.Edit("propagate", n, 3, cache=cache, pa=pa[sl], pb=pb[sl], w1=w1[sl],
                       **gates)
-        e, _ = M.unet_forward(P, unet, sample, t, ctx, edit, **res)
+        e, _ = unet(P, sample, t, ctx, edit, **res, **kw)
         e3 = e.reshape(n, 3, *e.shape[1:])
         eps.append(e3[:, 1] + traffic["guidance_scale"] * (e3[:, 2] - e3[:, 1]))
     return _ddim(x, torch.cat(eps), tables["alpha_t"][i], tables["alpha_prev"][i])
@@ -70,18 +86,20 @@ def edit_step(P: Precision, unet, controlnet, x, src, embeds3, tables: dict, i: 
 
 @torch.no_grad()
 def inversion_step(P: Precision, unet, controlnet, x, cond_embed, tables: dict, i: int,
-                   cond=None):
+                   cond=None, model_kw=None):
     """x after inversion step ``i`` (fp32): conditional-only eps on the
     inversion prompt's embedding ``cond_embed`` (1, 77, C)."""
     x = x.float()
+    model_kw = model_kw or {}
     t = int(tables["t"][i])
     eps = []
     for c0 in range(0, x.shape[0], FRAMES_PER_CALL):
         xs = x[c0 : c0 + FRAMES_PER_CALL]
         ctx = cond_embed.float().expand(len(xs), -1, -1)
+        kw = _repeat(model_kw, len(xs))
         res = _residuals(P, controlnet, xs, t, ctx,
-                         None if cond is None else cond[c0 : c0 + FRAMES_PER_CALL])
-        eps.append(M.unet_forward(P, unet, xs, t, ctx, **res)[0])
+                         None if cond is None else cond[c0 : c0 + FRAMES_PER_CALL], kw)
+        eps.append(unet(P, xs, t, ctx, **res, **kw)[0])
     eps = torch.cat(eps)
     a_t, a_p = (torch.tensor(float(tables[k][i]), dtype=torch.float32, device=x.device)
                 for k in ("alpha_t", "alpha_prev"))

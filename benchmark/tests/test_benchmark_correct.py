@@ -58,7 +58,11 @@ def test_sound_runs_are_correct(root, cell, capsys):
 
 
 @pytest.mark.parametrize("cell", sorted(tiny.TINY_CELLS))
-def test_the_fp8_control_is_not_correct(root, cell):
+def test_the_fp8_control_is_not_correct(root, cell, monkeypatch):
+    """The inversion's control reads under its limit on the first step and
+    over it on later ones: the window holds six steps however slow the
+    machine, so a later step is compared."""
+    monkeypatch.setattr(harness, "window", tiny.fixed_window(6))
     c = manifest.cell(cell, root)
     args = harness.parse(["--workload", cell, "--seed", str(SEED), "--seconds", "0.5"])
     out = harness.run_cell(c, args, time.monotonic(), root, torch.device("cpu"), control="fp8")

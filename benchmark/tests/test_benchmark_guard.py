@@ -1,5 +1,7 @@
 """The benchmark measures the PyTorch port alone: nothing it runs loads JAX
-or the JAX package, and the reference imports nothing of the program."""
+or the JAX package, the reference imports nothing of the program, and an
+architecture module imports the program only inside the functions of its
+program side."""
 
 from __future__ import annotations
 
@@ -14,9 +16,12 @@ sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 import guard  # noqa: E402
 
 PROGRAM = "tokenflow_torch"
-# what may import the program: the system under test's builder, the stage
-# drivers, and the tests that break it
-PROGRAM_USERS = {"program.py", "drivers", "tests"}
+# what may import the program: the system under test's loader, the stage
+# drivers, the architectures' program side (lazily, below), and the tests
+# that break it
+PROGRAM_USERS = {"program.py", "drivers", "architectures", "tests"}
+# the architecture modules: the benchmark's, and the tests' own
+ARCHITECTURES = sorted(BENCH.glob("architectures/*.py")) + sorted(BENCH.glob("tests/*_arch.py"))
 
 
 def test_forbidden_names_are_compared_whole():
@@ -27,9 +32,10 @@ def test_forbidden_names_are_compared_whole():
         "flax", "jax", "jaxlib", "tokenflow_tpu"]
 
 
-def _imports(path: Path) -> set[str]:
+def _imports(path: Path, top_level_only: bool = False) -> set[str]:
     names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
+    tree = ast.parse(path.read_text())
+    for node in tree.body if top_level_only else ast.walk(tree):
         if isinstance(node, ast.Import):
             names |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -49,6 +55,12 @@ def test_reference_and_yardstick_import_nothing_of_the_program():
             assert PROGRAM not in tops, rel
 
 
+def test_architecture_modules_import_the_program_lazily():
+    assert [p.name for p in ARCHITECTURES if p.parent.name == "architectures"]
+    for path in ARCHITECTURES:
+        assert PROGRAM not in _imports(path, top_level_only=True), path.relative_to(BENCH)
+
+
 def test_a_run_loads_neither_jax_nor_the_jax_package():
     """Import everything a run imports, the program's modules that the
     drivers call included, in a fresh process."""
@@ -59,6 +71,8 @@ import harness, manifest, program, tracing, readers, checks, inputs, weights, ya
 from reference import model, steps, schedule, precision
 for stage in ("edit", "invert"):
     manifest.driver(stage)
+for arch in {[p.stem for p in sorted(BENCH.glob("architectures/*.py"))]!r}:
+    manifest.architecture(arch)
 for m in manifest.benchmark()["end_to_end"] + manifest.benchmark()["per_layer"]:
     manifest.reader(m["name"])
 from tokenflow_torch.editing import pipeline

@@ -67,6 +67,8 @@ def test_configs_name_their_files_and_cut_nothing():
         assert Path(c["file"]) == Path("benchmark/configs") / f"{c['name']}.json"
         assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"] == []
         assert cfg["assumed"], "each configuration lists what was assumed"
+        arch = cfg.get("architecture", manifest.DEFAULT_ARCHITECTURE)
+        assert (BENCH / "architectures" / f"{arch}.py").exists()
         assert any(w["config"] == c["name"] for w in SPEC["workloads"])
 
 

@@ -1,6 +1,8 @@
-"""The yardstick's counts: its analytic FLOPs against PyTorch's FLOP
-counter on the plain reference, its least times against the smoke test's
-rows, and its kernel calls against the program's launch counts."""
+"""The yardstick's counts (the SD architecture's operations of a step): its
+analytic FLOPs against PyTorch's FLOP counter on the plain reference, its
+least times against the smoke test's rows, its kernel calls against the
+program's launch counts, and each cell's count against the one it read
+before the architecture became the configuration's."""
 
 from __future__ import annotations
 
@@ -16,23 +18,25 @@ from torch.utils.flop_counter import FlopCounterMode
 BENCH = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(BENCH), str(BENCH.parent), str(BENCH / "tests")]
 
+import manifest  # noqa: E402
 import tiny  # noqa: E402
 import weights  # noqa: E402
 import yardstick as Y  # noqa: E402
-from reference import model as M  # noqa: E402
 from reference import schedule  # noqa: E402
 from reference.precision import Precision  # noqa: E402
 from reference.steps import edit_step, inversion_step  # noqa: E402
 
 CONFIGS = {p.stem: json.loads(p.read_text()) for p in (BENCH / "configs").glob("*.json")}
+SD = manifest.architecture("sd")
 
 
 def _models(cfg: dict, seed: int = 7):
     out = []
     for kind in ("unet", "controlnet"):
         if kind in cfg:
-            sd = weights.random_state_dict(M.build(kind, cfg[kind]), seed, "cpu", torch.float32)
-            out.append(M.build(kind, cfg[kind], sd))
+            shapes = SD.reference_model(kind, cfg[kind])
+            sd = weights.random_state_dict(shapes, seed, "cpu", torch.float32)
+            out.append(SD.reference_model(kind, cfg[kind], sd))
         else:
             out.append(None)
     return out
@@ -53,6 +57,7 @@ def test_step_flops_match_the_flop_counter_on_the_reference(stage, controlnet):
     if controlnet:
         cfg["controlnet"] = tiny.TINY_CONTROLNET
     traffic = copy.deepcopy(tiny.TINY_TRAFFIC["tiny_pnp" if stage == "edit" else "tiny_invert"])
+    spec, cn_spec = SD.specs(cfg)
     unet, cn = _models(cfg)
     f, hw = traffic["frames"], traffic["resolution"] // 8
     gen = torch.Generator().manual_seed(0)
@@ -65,15 +70,14 @@ def test_step_flops_match_the_flop_counter_on_the_reference(stage, controlnet):
                       schedule.propagation_indices(f, traffic["window"]))
         embeds = torch.randn((3, 77, 32), generator=gen)
         pivots = [1, 2]
+        inject = SD.inject_sites(spec)
         counted = _counted(lambda: edit_step(P, unet, cn, x, x, embeds, tables, 0, pivots,
-                                             traffic, cond=cond, pa=pa, pb=pb, w1=w1))
+                                             traffic, inject, cond=cond, pa=pa, pb=pb, w1=w1))
     else:
         tables = schedule.inversion_tables(cfg["scheduler"], traffic)
         counted = _counted(lambda: inversion_step(P, unet, cn, x, torch.randn((1, 77, 32)),
                                                   tables, 0, cond=cond))
-    spec = M.UNetSpec.from_config(cfg["unet"])
-    cn_spec = M.UNetSpec.from_config(cfg["controlnet"]) if controlnet else None
-    assert Y.flops(Y.step_ops(stage, spec, cn_spec, traffic)) == counted
+    assert Y.flops(SD.step_ops(stage, spec, cn_spec, traffic)) == counted
 
 
 def test_least_times_match_the_smoke_rows():
@@ -100,11 +104,28 @@ def test_kernel_calls_per_step_match_the_programs_launch_counts(config, traffic,
     14 / 5 / 5 at D = 40 / 80 / 160; SDEdit 768p 25)."""
     cfg = CONFIGS[config]
     tr = json.loads((BENCH / "traffic" / f"{traffic}.json").read_text())
-    spec = M.UNetSpec.from_config(cfg["unet"])
-    cn = M.UNetSpec.from_config(cfg["controlnet"]) if "controlnet" in cfg else None
-    ops = Y.step_ops(tr["stage"], spec, cn, tr)
+    ops = SD.step_ops(tr["stage"], *SD.specs(cfg), tr)
     assert sum(isinstance(o, Y.Attn) and o.k1 for o in ops) == k1
     assert sum(isinstance(o, Y.Match) for o in ops) == matches
     if config == "sd15_controlnet":
         dims = [o.d for o in ops if isinstance(o, Y.Attn) and o.k1]
         assert (dims.count(40), dims.count(80), dims.count(160)) == (14, 5, 5)
+
+
+@pytest.mark.parametrize("cell,n_ops,step_flops,k1", [
+    ("sd21_pnp512_edit", 516, 97534510694400.0, 20),
+    ("sd15cn_pnp512_edit", 788, 135646084300800.0, 24),
+    ("sd21_pnp512_invert", 266, 32170298572800.0, 5),
+    ("sd21_sdedit768_edit", 516, 251508072038400.0, 25),
+])
+def test_each_cell_counts_what_it_counted_before_the_architecture_plug(cell, n_ops, step_flops,
+                                                                      k1):
+    """Each cell's operations through its configuration's architecture
+    module: as many, and exactly the FLOPs, that ``yardstick.step_ops`` read
+    on the same configurations and traffic before the count moved there;
+    every ``*.mfu`` and ``k1_roofline.*`` reads these."""
+    c = manifest.cell(cell)
+    ops = c.arch.step_ops(c.stage, *c.arch.specs(c.config), c.traffic)
+    assert len(ops) == n_ops
+    assert Y.flops(ops) == step_flops
+    assert sum(isinstance(o, Y.Attn) and o.k1 for o in ops) == k1

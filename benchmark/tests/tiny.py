@@ -36,31 +36,46 @@ TINY_CELLS = {  # cell -> (config, traffic)
 }
 
 
+def fixed_window(steps: int):
+    """A stand-in for ``harness.window`` that runs ``steps`` steps whatever
+    they take, so which steps are compared does not depend on the machine's
+    speed."""
+    def window(stage, seconds, traced, cuda):
+        for k in range(steps):
+            stage.step(k, check=not traced)
+        return steps, 1.0
+
+    return window
+
+
 def _dump(path: Path, obj) -> None:
     path.write_text(json.dumps(obj, indent=1) + "\n")
 
 
-def copy_with_tiny_cells(dest: Path, limits) -> Path:
+def copy_with_tiny_cells(dest: Path, limits, cells: dict = TINY_CELLS,
+                         configs: dict | None = None) -> Path:
     """``dest``/BENCHMARK.json and ``dest``/benchmark: the benchmark with
-    the tiny configurations, mixes and cells added, each with the output
-    limits ``limits(cell)``; returns the copy's benchmark directory."""
+    the tiny configurations (and ``configs``: name -> the keys a configuration
+    sets over sd21's), mixes and ``cells`` added, each with the output limits
+    ``limits(cell)``; returns the copy's benchmark directory."""
     root = dest / "benchmark"
     shutil.copytree(BENCH, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
     config = json.loads((BENCH / "configs" / "sd21.json").read_text())
-    _dump(root / "configs" / "tiny.json", dict(config, name="tiny", unet=TINY_UNET))
-    _dump(root / "configs" / "tiny_cn.json",
-          dict(config, name="tiny_cn", unet=TINY_UNET, controlnet=TINY_CONTROLNET))
+    configs = {"tiny": {"unet": TINY_UNET},
+               "tiny_cn": {"unet": TINY_UNET, "controlnet": TINY_CONTROLNET}, **(configs or {})}
+    for name, keys in configs.items():
+        _dump(root / "configs" / f"{name}.json", dict(config, name=name, **keys))
     for name, traffic in TINY_TRAFFIC.items():
         _dump(root / "traffic" / f"{name}.json", traffic)
-    for cell, (cfg, traffic) in TINY_CELLS.items():
+    for cell, (cfg, traffic) in cells.items():
         bench["workloads"].append({"name": cell, "config": cfg, "traffic": traffic,
                                    "chips": 1, "why": "test"})
         _dump(root / "limits" / f"{cell}.json", {"limits": limits(cell)})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             stage = "invert" if "invert" in m.get("moves", m["name"]) else "edit"
-            m["workloads"] += [c for c, (_, t) in TINY_CELLS.items()
+            m["workloads"] += [c for c, (_, t) in cells.items()
                                if TINY_TRAFFIC[t]["stage"] == stage]
     _dump(dest / "BENCHMARK.json", bench)
     return root
