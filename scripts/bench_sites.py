@@ -17,7 +17,12 @@ the device numbers are null. The line also gives the norm kernels'
 launches in window (a) beside the model calls (``tf.unet``,
 ``tf.controlnet`` spans) they ran in: on the card K4 (GroupNorm) launches
 once per GroupNorm site a call runs, K5 (LayerNorm) once per LayerNorm
-site. No reference runs: ``benchmark/run.py`` decides ``correct``.
+site; and the program's edit counters in the same window
+(``ops/editctx.py``): the edit sites the UNet calls visited (one per
+transformer block a call runs: 16 on SD, 70 on SD-XL) and the bytes of the
+pivotal caches they returned. The weights, the specs and the models come
+from the configuration's architecture module, as a benchmark run takes
+them. No reference runs: ``benchmark/run.py`` decides ``correct``.
 """
 
 from __future__ import annotations
@@ -40,22 +45,21 @@ import program  # noqa: E402
 import sites  # noqa: E402
 import tracing  # noqa: E402
 import weights  # noqa: E402
-from reference import model as ref_model  # noqa: E402
 
 
 def stage_for(cell: manifest.Cell, seed: int, root: Path, device):
-    """The cell's stage driver, set up and warmed as a benchmark run's."""
-    cfg = cell.config
+    """The cell's stage driver, set up and warmed as a benchmark run's
+    (``harness.run_cell``): specs, weights and models from the
+    configuration's architecture module."""
+    cfg, arch = cell.config, cell.arch
     dtype = program.DTYPES[cfg["dtype"]]
-    unet_spec = ref_model.UNetSpec.from_config(cfg["unet"])
-    cn_spec = (ref_model.UNetSpec.from_config(cfg["controlnet"])
-               if "controlnet" in cfg else None)
+    unet_spec, cn_spec = arch.specs(cfg)
     if device.type == "cuda":
         program.build_kernels()
-    state = {"unet": weights.random_state_dict(ref_model.build("unet", cfg["unet"]),
+    state = {"unet": weights.random_state_dict(arch.reference_model("unet", cfg["unet"]),
                                                weights.sub_seed(seed, 1), device, dtype)}
     state["controlnet"] = None if cn_spec is None else weights.random_state_dict(
-        ref_model.build("controlnet", cfg["controlnet"]), weights.sub_seed(seed, 2),
+        arch.reference_model("controlnet", cfg["controlnet"]), weights.sub_seed(seed, 2),
         device, dtype)
     run = harness.Run(cell, seed, device, dtype, unet_spec, cn_spec, state,
                       lambda name: contextlib.nullcontext())
@@ -73,19 +77,33 @@ def norm_launches(record, launched: dict, steps: int) -> dict:
     return {**counts, "per_step": {k: v / steps for k, v in counts.items()}}
 
 
+def edit_counters(record, counted: dict, steps: int) -> dict:
+    """The edit counters' growth over a window (``counted``: sites visited,
+    pivotal cache bytes), in all, per step and per UNet call of the span
+    ``record``."""
+    calls = sum(1 for s in record.spans if s is not None and s.name == "tf.unet")
+    return {**counted, "unet_calls": calls,
+            "per_step": {k: v / steps for k, v in counted.items()},
+            "per_unet_call": {k: v / calls for k, v in counted.items()} if calls else None}
+
+
 def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) -> dict:
     from tokenflow_torch import profiling
     from tokenflow_torch.kernels import group_norm, layer_norm
+    from tokenflow_torch.ops import editctx
 
     cuda = device.type == "cuda"
     stage = stage_for(cell, seed, root, device)
     setup_s = time.monotonic() - T0
     steps, window_s = harness.window(stage, seconds, False, cuda)
     before = {"group_norm": group_norm.launches, "layer_norm": layer_norm.launches}
+    sites0, cache0 = editctx.sites_visited, editctx.pivotal_cache_bytes
     with profiling.spans() as record:
         steps_a, window_a = harness.window(stage, seconds, False, cuda)
     launched = {"group_norm": group_norm.launches - before["group_norm"],
                 "layer_norm": layer_norm.launches - before["layer_norm"]}
+    counted = {"sites_visited": editctx.sites_visited - sites0,
+               "pivotal_cache_bytes": editctx.pivotal_cache_bytes - cache0}
     reduced, steps_b = None, 0
     if cuda:
         with profiling.spans(), tracing.profiled(True) as prof:
@@ -100,6 +118,7 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
         "spans_on_cost_pct": 100.0 * (on / off - 1.0),
         "readings": sites.readings(cell.stage, record, reduced),
         "norm_launches": norm_launches(record, launched, steps_a),
+        "edit_counters": edit_counters(record, counted, steps_a),
     }
     if reduced is not None:
         out.update(coverage_pct=reduced.coverage, linked_pct=reduced.linked_share,

@@ -44,6 +44,7 @@ from tokenflow_tpu.diffusion import ddim as jddim
 from tokenflow_tpu.diffusion import inversion as jinv
 from tokenflow_tpu.editing import pipeline as jpipe
 from tokenflow_tpu.models import unet2d as junet
+from test_torch_sd15 import _jax_fields  # noqa: E402  (the port-only fields checked)
 
 torch.set_num_threads(2)
 
@@ -56,12 +57,12 @@ CLI_F, CLI_HW, CLI_STEPS = 4, 32, 4
 def test_depth_configs_match_jax(version):
     got = truntime.configs_for(version)
     want = jruntime.configs_for(version)
-    assert [dataclasses.asdict(c) for c in got] == [dataclasses.asdict(c) for c in want]
+    assert [_jax_fields(c) for c in got] == [dataclasses.asdict(c) for c in want]
     assert got[0].in_channels == 5 and got[0].out_channels == 4
     assert truntime.is_depth(version) and jruntime.is_depth(version)
     assert truntime.MODEL_KEYS.get(version) == jruntime.MODEL_KEYS.get(version)
     assert version in truntime.SD_VERSIONS
-    assert dataclasses.asdict(tunet.UNet2DConfig.sd21_depth()) == dataclasses.asdict(
+    assert _jax_fields(tunet.UNet2DConfig.sd21_depth()) == dataclasses.asdict(
         junet.UNet2DConfig.sd21_depth())
 
 

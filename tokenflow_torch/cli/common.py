@@ -16,7 +16,11 @@ which. ``trace_dir`` (PnP editor only) writes a
 ``depth_model_dir`` (an Intel/dpt-large checkpoint) is where a depth model
 (``sd_version: depth``) computes its frames' depth maps when the data has
 none precomputed; the JAX package reads ``TOKENFLOW_MIDAS_CKPT`` instead.
-SDEdit refuses the depth models, as the JAX editor does.
+SDEdit refuses the depth models, as the JAX editor does. SD-XL
+(``sd_version: xl``, ``runtime.is_xl``) is edited with SDEdit alone: the
+PnP and ControlNet editors refuse it (PnP's injection sites are SD's
+four-level up path, and there is no SD-XL ControlNet); its added
+conditioning is made at ``image_size``.
 
 ``checkpoint_edit: true`` writes the edit's latents to
 ``<output_path>/edit_checkpoint.npz`` at segment boundaries and resumes a
@@ -93,11 +97,23 @@ def refuse_depth_for_sdedit(sd_version) -> None:
         )
 
 
+def refuse_xl(sd_version, mode: str) -> None:
+    """SD-XL is edited with SDEdit: raises for the PnP and ControlNet
+    editors."""
+    if runtime.is_xl(sd_version) and mode in ("pnp", "controlnet"):
+        why = ("PnP's injection sites are SD's four-level up path "
+               "(tokenflow_utils.py:102, 208-214) and SD-XL's has three"
+               if mode == "pnp" else "the port has no SD-XL ControlNet")
+        raise ValueError(f"the {mode} editor does not take sd_version={sd_version!r}: "
+                         f"{why}; edit SD-XL with run_sdedit")
+
+
 def validate_config(config: dict, mode: str) -> dict:
     """Fail fast on missing keys, a bad propagate_chunk, device, dtype,
     switch (``BOOL_KEYS``) or ``data_parallel`` (``mesh.resolve_world``:
-    held to the launcher's world size), a depth model under SDEdit, and
-    ``trace_dir`` outside the PnP editor."""
+    held to the launcher's world size), a depth model under SDEdit, SD-XL
+    under PnP or the ControlNet editor, and ``trace_dir`` outside the PnP
+    editor."""
     missing = [
         k for k in REQUIRED_KEYS["base"] + REQUIRED_KEYS.get(mode, ())
         if k not in config
@@ -106,6 +122,7 @@ def validate_config(config: dict, mode: str) -> dict:
         raise KeyError(f"config missing required keys for {mode}: {missing}")
     if mode == "sdedit":
         refuse_depth_for_sdedit(config["sd_version"])
+    refuse_xl(config["sd_version"], mode)
     pc = config.get("propagate_chunk")
     if pc is not None and pc % config["batch_size"]:
         raise ValueError(
@@ -203,6 +220,8 @@ class EditorData:
     embeds3: torch.Tensor  # (3, 77, D) [inv | uncond | cond]
     identity: dict  # stack_identity of the stack and the three prompts
     group: Optional[mesh.FramesGroup] = None
+    # SD-XL's added conditioning, rows [inv | uncond | cond]; None for SD
+    added_cond: Optional[dict] = None
 
     def local(self, x, axis: int = 0):
         """The rank's block of per-frame ``x`` (all of it in one process)."""
@@ -213,7 +232,8 @@ def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
     """Common editor init (reference TokenFlow.__init__,
     run_tokenflow_pnp.py:25-68): resolve the latents dir, load and clamp
     frames, VAE-encode, recover the inversion endpoint noise, build the
-    three text embeddings. ``use_steps_dir=False`` (SDEdit) looks for the
+    three text embeddings (and SD-XL's added conditioning at
+    ``image_size``). ``use_steps_dir=False`` (SDEdit) looks for the
     latents under every ``steps_*`` dir (reference
     run_tokenflow_sdedit.py:81-92). Over a frames group (``data_parallel``)
     the frame count must divide over the ranks (``mesh.check_divisible``,
@@ -272,14 +292,19 @@ def setup_editor(config: dict, *, use_steps_dir: bool = True) -> EditorData:
     )
 
     inv_prompt = latents_io.read_inversion_prompt(os.path.join(save_path, "latents"))
-    uncond_cond = stack.encode_prompt(config["prompt"], config["negative_prompt"])
-    inv_embed = stack.encode_prompt(inv_prompt, inv_prompt)[0:1]
-    embeds3 = mesh.broadcast(group, torch.cat([inv_embed, uncond_cond], dim=0))
+    uncond_cond, pooled = stack.encode_prompts(config["prompt"], config["negative_prompt"])
+    # the prompt's row: as preprocess encoded it (an empty negative is zeros)
+    inv_embed, inv_pooled = stack.encode_prompts(inv_prompt, inv_prompt)
+    embeds3 = mesh.broadcast(group, torch.cat([inv_embed[1:2], uncond_cond], dim=0))
+    added = None
+    if pooled is not None:
+        pooled3 = mesh.broadcast(group, torch.cat([inv_pooled[1:2], pooled], dim=0))
+        added = stack.added_cond(pooled3, image_size, image_size)
     identity = stack_identity(stack, inv_prompt, config["negative_prompt"], config["prompt"])
     return EditorData(
         stack=stack, config=config, frames=frames, latents=latents, eps=eps,
         trajectory=trajectory, embeds3=embeds3,
-        identity=mesh.broadcast_object(group, identity), group=group,
+        identity=mesh.broadcast_object(group, identity), group=group, added_cond=added,
     )
 
 
@@ -532,7 +557,8 @@ def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.n
     ``edit_propagate``, or its fused steps as ``edit_fused``, in the
     config's segments (:func:`schedule_segments`,
     :func:`run_segmented_edit`); ``loop_kw`` goes to
-    ``tokenflow_sample_loop`` (per-frame inputs as the rank's block).
+    ``tokenflow_sample_loop`` (per-frame inputs as the rank's block), and
+    so does SD-XL's added conditioning.
     Returns (latents, the loop's seconds)."""
     stack, config, group = data.stack, data.config, data.group
     device = stack.device
@@ -551,6 +577,8 @@ def run_edit_loop(data: EditorData, schedule, x_init: torch.Tensor, pivots: np.n
                 if group is not None else "")
             if why is None else f"two passes (fallback: {why})"))
     traj = torch.as_tensor(data.trajectory.traj, device=device).to(stack.dtype)
+    if data.added_cond is not None:
+        loop_kw = dict(loop_kw, added_cond=data.added_cond)
 
     def step_fn(x, sched_seg, piv_seg):
         return pipeline.tokenflow_sample_loop(

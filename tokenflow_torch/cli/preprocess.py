@@ -10,7 +10,9 @@ reconstructed ``frames/``. ``--device`` is ``cuda`` (default) or ``cpu``,
 ``--dtype`` ``bf16`` (default) or ``f32`` on either. ``--sd_version
 ControlNet`` (and its tiny test stack ``tiny-controlnet``) adds the
 residuals of a canny ControlNet (``--controlnet_dir``, else random weights)
-to every UNet call. ``--sd_version depth`` (and ``tiny-depth``) runs the
+to every UNet call. ``--sd_version xl`` (and ``tiny-xl``) runs SD-XL with
+its added conditioning at ``--H`` x ``--W`` (``runtime.SDStack.added_cond``).
+``--sd_version depth`` (and ``tiny-depth``) runs the
 5-channel SD-2-depth UNet with each frame's depth map as the fifth latent
 channel: maps from ``{data_path}/depth/%05d.npy``, else the port's DPT on
 ``--depth_model_dir`` (an Intel/dpt-large checkpoint), else MiDaS through
@@ -63,6 +65,7 @@ def build_eps_fn(
     controlnet=None,
     canny=None,
     depth=None,
+    added_cond=None,
 ):
     """Conditional-only eps (no CFG during inversion, reference
     preprocess.py:271), over frame chunks of ``frame_chunk`` (the
@@ -71,10 +74,13 @@ def build_eps_fn(
     added to every UNet call (reference preprocess.py:129-149); per-frame
     ``depth`` maps (F, h, w, 1) are concatenated to x as a fifth channel in
     the stack's dtype (reference preprocess.py:207-209). Both chunk together
-    with x."""
+    with x. SD-XL's ``added_cond`` (one row, the inversion prompt's) goes to
+    every call, expanded as ``cond`` is."""
 
     def single(x, t, cn, d):
         ctx = cond.expand(x.shape[0], *cond.shape[1:])
+        kw = {} if added_cond is None else {"added_cond": {
+            k: v.expand(x.shape[0], *v.shape[1:]) for k, v in added_cond.items()}}
         sample = x
         if d is not None:
             sample = torch.cat([x.to(stack.dtype), d.to(stack.dtype)], dim=-1)
@@ -82,7 +88,7 @@ def build_eps_fn(
         if controlnet is not None:
             down, mid = controlnet(sample, t, ctx, cn)
             residuals = dict(down_block_residuals=down, mid_block_residual=mid)
-        eps, _ = stack.unet_apply(sample, t, ctx, None, **residuals)
+        eps, _ = stack.unet_apply(sample, t, ctx, None, **residuals, **kw)
         return eps
 
     def part(a, sl):
@@ -202,7 +208,10 @@ def run(opt) -> dict:
     frames = video_io.load_frames(opt.data_path, opt.n_frames, resize_square=opt.H)
     lat = stack.encode_frames(frames, group=group)  # (F, h, w, 4) fp32, the rank's
     # cond only; rank 0's (HashTokenizer hashes words per process)
-    cond = mesh.broadcast(group, stack.encode_prompt(opt.inversion_prompt, "")[1:2])
+    embeds, pooled = stack.encode_prompts(opt.inversion_prompt, "")
+    cond = mesh.broadcast(group, embeds[1:2])
+    added = stack.added_cond(None if pooled is None else mesh.broadcast(group, pooled[1:2]),
+                             opt.H, opt.W)
     controlnet = canny = depth = None
     if runtime.is_controlnet(opt.sd_version):
         controlnet, canny = controlnet_utils.build_controlnet(
@@ -221,7 +230,7 @@ def run(opt) -> dict:
 
     sched = ddim.make_schedule(opt.steps)
     frame_chunk = opt.batch_size if opt.batch_size < lat.shape[0] else None
-    eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny, depth)
+    eps_fn = build_eps_fn(stack, cond, frame_chunk, controlnet, canny, depth, added)
 
     # segments: checkpoint boundaries only (one segment without a checkpoint)
     seg_len = utils.plan_seg_len(

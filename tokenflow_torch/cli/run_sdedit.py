@@ -77,6 +77,8 @@ def edit_video(config: dict, vanilla: bool = False) -> Optional[np.ndarray]:
             return pipeline.vanilla_sample_loop(
                 stack.unet_apply, x, data.embeds3[1:], sched_seg,
                 guidance_scale=config["guidance_scale"], frame_chunk=chunk,
+                added_cond=None if data.added_cond is None else {
+                    k: v[1:] for k, v in data.added_cond.items()},
             )
 
         with common.device_phase(metrics, "edit_loop", device, data.group), \

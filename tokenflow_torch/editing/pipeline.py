@@ -17,8 +17,10 @@ their own batch (the conditioning images of their frames, one per stream).
 both passes as one UNet call a step (``EditMode.FUSED``), save where the
 JAX loop falls back to two (:func:`fused_fallback`). With per-frame
 ``depth`` maps (the 5-channel depth UNet), every stream of both passes
-carries its frame's map as a fifth channel. Over a frames group
-(``sharding/mesh.py``) both loops run on the rank's block of the frames.
+carries its frame's map as a fifth channel. SD-XL's ``added_cond`` (the
+pooled text embedding and time ids, one row per prompt) is batched as the
+prompt embeddings are. Over a frames group (``sharding/mesh.py``) both
+loops run on the rank's block of the frames.
 
 Spans (``profiling.span``): ``tf.step`` per denoising step; inside it
 ``tf.pivotal`` and ``tf.propagate`` (or ``tf.fused``) within the
@@ -142,6 +144,16 @@ def _stack_streams(*streams: torch.Tensor) -> torch.Tensor:
     return torch.stack(streams, dim=1).reshape(-1, *streams[0].shape[1:])
 
 
+def _per_prompt(added_cond: Optional[dict], rows: slice, n: int) -> dict:
+    """The UNet's ``added_cond`` keyword for ``n`` frames of the prompts
+    ``rows``, frame-major (as ``embeds3[rows].repeat(n, 1, 1)``); none
+    without added conditioning."""
+    if added_cond is None:
+        return {}
+    return {"added_cond": {k: v[rows].repeat(n, *[1] * (v.dim() - 1))
+                           for k, v in added_cond.items()}}
+
+
 def _with_depth(x: torch.Tensor, depth: Optional[torch.Tensor]) -> torch.Tensor:
     """x (F, h, w, 4) with the frames' depth maps (F, h, w, 1) as a fifth
     channel, in x's dtype."""
@@ -185,6 +197,7 @@ def tokenflow_sample_loop(
     group: Optional[mesh.FramesGroup] = None,
     shard_pivotal: bool = True,
     fused: bool = False,
+    added_cond: Optional[dict] = None,  # SD-XL: text_embeds (3, P), time_ids (3, 6)
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
     x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
@@ -226,9 +239,24 @@ def tokenflow_sample_loop(
     pivot segment (``mesh.take_frames``) beside its frames, so no K/V or
     cache is gathered and ``shard_pivotal`` does not apply.
 
+    ``added_cond`` (SD-XL's added conditioning: ``text_embeds``,
+    ``time_ids``, one row per prompt [inversion | uncond | cond]) goes to
+    every UNet call, its rows repeated frame-major for the call's frames as
+    ``embeds3``'s are. PnP's sites and the ControlNet are SD's: with
+    ``added_cond`` both raise, and so does a frames ``group`` (SD-XL over a
+    frames group is not held to one process yet).
+
     ``propagate_chunk`` must divide the (rank's) frames; unlike the JAX
     loop's, it need not be a multiple of the window, since every frame's
     pivot indices are global (the CLIs keep the JAX rule on the YAML key)."""
+    if added_cond is not None and (pnp or controlnet_fn is not None):
+        raise ValueError(
+            "SD-XL is edited with SDEdit: PnP's injection sites are SD's four-level up path "
+            "(tokenflow_utils.py:102, 208-214) and the port has no SD-XL ControlNet")
+    if added_cond is not None and group is not None:
+        raise NotImplementedError(
+            "the SD-XL edit loop runs in one process: its sharded run over a frames group "
+            "is not tested against one process; set data_parallel: off")
     world = 1 if group is None else group.world
     f_local = x_init.shape[0]
     f_total = f_local * world
@@ -260,8 +288,12 @@ def tokenflow_sample_loop(
     src_free_piv = prop_approx and not pnp
     n_piv = 2 if src_free_piv else 3
     # frame-major [inv, uncond, cond] (or [uncond, cond]) per frame
-    embeds_piv = (embeds3[1:] if src_free_piv else embeds3).repeat(n_kf, 1, 1)
-    embeds_prop = (embeds3[1:] if prop_approx else embeds3).repeat(chunk, 1, 1)
+    rows_piv = slice(1, None) if src_free_piv else slice(None)
+    rows_prop = slice(1, None) if prop_approx else slice(None)
+    embeds_piv = embeds3[rows_piv].repeat(n_kf, 1, 1)
+    embeds_prop = embeds3[rows_prop].repeat(chunk, 1, 1)
+    added_piv = _per_prompt(added_cond, rows_piv, n_kf)
+    added_prop = _per_prompt(added_cond, rows_prop, chunk)
     if (controlnet_fn is None) != (cond_image is None):
         raise ValueError("controlnet_fn and cond_image come together")
     fused = fused and fused_fallback(f_local, propagate_chunk, controlnet_fn is not None,
@@ -269,6 +301,7 @@ def tokenflow_sample_loop(
     # the fused batch: frame-major [inv, uncond, cond] for the K pivots, then
     # for the rank's frames
     embeds_fused = embeds3.repeat(n_windows + f_local, 1, 1) if fused else None
+    added_fused = _per_prompt(added_cond, slice(None), n_windows + f_local) if fused else {}
 
     def residuals(sample, t, embeds, cond, ns):
         """ControlNet residuals of an ns-stream pass (the reference's 3x
@@ -309,7 +342,7 @@ def tokenflow_sample_loop(
                         pnp=pnp, qk_gate=qk_g, conv_gate=conv_g,
                         prop_pa=pa, prop_pb=pb, prop_w1=w1, group=group,
                     )
-                    eps_all, _ = unet_apply(sample, t, embeds_fused, edit)
+                    eps_all, _ = unet_apply(sample, t, embeds_fused, edit, **added_fused)
                     with span("tf.ddim"):
                         eps3 = eps_all[3 * n_windows :].reshape(f_local, 3, *eps_all.shape[1:])
                         eps = ddim.classifier_free_guidance(eps3[:, 1], eps3[:, 2],
@@ -332,6 +365,7 @@ def tokenflow_sample_loop(
                 _, cache = unet_apply(
                     sample, t, embeds_piv, edit_piv,
                     **residuals(sample, t, embeds_piv, keyframes(cond_image, piv), n_piv),
+                    **added_piv,
                 )
                 cache = mesh.gather_cache(piv_group, cache, kf_counts)
 
@@ -349,6 +383,7 @@ def tokenflow_sample_loop(
                     eps_c, _ = unet_apply(
                         sample, t, embeds_prop, edit,
                         **residuals(sample, t, embeds_prop, part(cond_image, sl), n_prop),
+                        **added_prop,
                     )
                     eps3.append(eps_c.reshape(chunk, n_prop, *eps_c.shape[1:]))
                 with span("tf.ddim"):
@@ -372,6 +407,7 @@ def vanilla_sample_loop(
     *,
     guidance_scale: float,
     frame_chunk: Optional[int] = None,
+    added_cond: Optional[dict] = None,  # SD-XL: text_embeds (2, P), time_ids (2, 6)
 ) -> torch.Tensor:
     """Per-frame SDEdit baseline (no TokenFlow): 2-stream [uncond|cond] CFG
     sampling over chunks of ``frame_chunk`` frames (the JAX ``lax.map``
@@ -379,12 +415,14 @@ def vanilla_sample_loop(
     denoised latents in x_init's dtype. Every frame is independent, so over
     a frames group each rank passes its block of the frames (the JAX
     package's sharded vanilla loop, ``tests/test_sharding.py``) and no rank
-    talks to another."""
+    talks to another. ``added_cond`` (SD-XL) has one row per prompt
+    [uncond | cond], batched as ``embeds2``."""
     f_total = x_init.shape[0]
     chunk = frame_chunk or f_total
     if f_total % chunk:
         raise ValueError(f"frame_chunk {chunk} must divide {f_total} frames")
     embeds = embeds2.repeat(chunk, 1, 1)  # frame-major [uncond, cond]
+    added = _per_prompt(added_cond, slice(None), chunk)
     x = x_init
     for i in range(len(schedule.timesteps)):
         with span("tf.step"):
@@ -392,7 +430,7 @@ def vanilla_sample_loop(
             eps = []
             for c0 in range(0, f_total, chunk):
                 x_c = x[c0 : c0 + chunk]
-                eps2, _ = unet_apply(_stack_streams(x_c, x_c), t, embeds, None)
+                eps2, _ = unet_apply(_stack_streams(x_c, x_c), t, embeds, None, **added)
                 eps2 = eps2.reshape(chunk, 2, *eps2.shape[1:])
                 with span("tf.ddim"):
                     eps.append(ddim.classifier_free_guidance(eps2[:, 0], eps2[:, 1],

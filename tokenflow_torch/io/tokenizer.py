@@ -90,11 +90,23 @@ class CLIPTokenizer:
         self.pad_token_id = self.eos_token_id
 
     @classmethod
-    def from_pretrained(cls, tokenizer_dir: str) -> "CLIPTokenizer":
-        return cls(
+    def from_pretrained(cls, tokenizer_dir: str, config_pad: bool = False) -> "CLIPTokenizer":
+        """The tokenizer of a checkpoint directory. ``config_pad``: pad with
+        the ``pad_token`` its ``special_tokens_map.json`` names (SD-XL's
+        ``tokenizer_2`` pads with "!"), else with eos."""
+        tok = cls(
             os.path.join(tokenizer_dir, "vocab.json"),
             os.path.join(tokenizer_dir, "merges.txt"),
         )
+        special = os.path.join(tokenizer_dir, "special_tokens_map.json")
+        if config_pad and os.path.exists(special):
+            with open(special) as f:
+                pad = json.load(f).get("pad_token")
+            if isinstance(pad, dict):
+                pad = pad.get("content")
+            if pad is not None:
+                tok.pad_token_id = tok.encoder[pad]
+        return tok
 
     def _bpe(self, token: str) -> str:
         if token in self.cache:

@@ -17,7 +17,6 @@ from torch import nn
 from tokenflow_torch.models import unet2d
 from tokenflow_torch.models.layers import nchw_body
 from tokenflow_torch.models.unet2d import UNet2DConfig
-from tokenflow_torch.ops import editctx
 from tokenflow_torch.profiling import span
 
 # channels of diffusers' ControlNetConditioningEmbedding (three stride-2
@@ -61,6 +60,9 @@ class ControlNetModel(nn.Module):
 
     def __init__(self, config: UNet2DConfig, cond_downsamples: int = 3, kv_block: int = 1024):
         super().__init__()
+        if not config.pnp_defined:
+            raise ValueError("the port has no ControlNet for this UNet: its ControlNet is "
+                             "SD-1.5's canny model (SD's layout, no added conditioning)")
         self.config = config
         parts = unet2d.UNetParts(config, kv_block)
         self.conv_in, self.time_embedding = parts.stem()
@@ -100,9 +102,9 @@ class ControlNetModel(nn.Module):
             )
             h = self.conv_in(nchw_body(sample.to(dtype)))
             h = h + self.controlnet_cond_embedding(controlnet_cond.to(dtype).permute(0, 3, 1, 2))
-            none = editctx.UNetEdit()
-            h, skips = unet2d.down_pass(self.down_blocks, h, temb, context, none, {})
-            h = unet2d.mid_pass(self.mid_block, h, temb, context, none, {})
+            # no edit directive: the blocks run plain self-attention
+            h, skips = unet2d.down_pass(self.down_blocks, h, temb, context, None, {})
+            h = unet2d.mid_pass(self.mid_block, h, temb, context, None, {})
 
             def project(conv, x):
                 r = conv(x)

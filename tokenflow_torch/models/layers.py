@@ -163,6 +163,19 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(h))
 
 
+class Timesteps(nn.Module):
+    """:func:`timestep_embedding` as a module without weights (diffusers'
+    ``Timesteps``: SD-XL's ``add_time_proj`` of its size and crop ids)."""
+
+    def __init__(self, dim: int, flip_sin_to_cos: bool = True, freq_shift: float = 0.0):
+        super().__init__()
+        self.dim, self.flip_sin_to_cos, self.freq_shift = dim, flip_sin_to_cos, freq_shift
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        return timestep_embedding(t, self.dim, flip_sin_to_cos=self.flip_sin_to_cos,
+                                  freq_shift=self.freq_shift)
+
+
 class Attention(nn.Module):
     """Multi-head attention with separate projection and output entry
     points, so editing code can operate between them."""
@@ -323,15 +336,27 @@ class BasicTransformerBlock(nn.Module):
         return x, cache
 
 
+def block_sites(site: str, n_blocks: int) -> tuple:
+    """The edit sites of an attention site of ``n_blocks`` transformer
+    blocks: the site's own name for one block (SD's sites, cache keys and
+    PnP sites), ``<site>.<n>`` for block n of several (SD-XL's)."""
+    return (site,) if n_blocks == 1 else tuple(f"{site}.{n}" for n in range(n_blocks))
+
+
 class Transformer2DModel(nn.Module):
-    """GroupNorm -> proj_in -> BasicTransformerBlock -> proj_out + residual;
-    Linear projections (SD-2.x) or 1x1 convs (SD-1.5)."""
+    """GroupNorm -> proj_in -> ``n_blocks`` BasicTransformerBlocks in order
+    -> proj_out + residual; Linear projections (SD-2.x, SD-XL) or 1x1 convs
+    (SD-1.5). Each block is a TokenFlow edit site of its own
+    (:func:`block_sites` of ``site``): it takes its own directive from the
+    UNet's and returns its own cache entry."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
-                 use_linear_projection: bool = True, kv_block: int = 1024):
+                 use_linear_projection: bool = True, kv_block: int = 1024,
+                 n_blocks: int = 1, site: str = ""):
         super().__init__()
         inner = heads * dim_head
         self.linear = use_linear_projection
+        self.sites = block_sites(site, n_blocks)
         self.norm = FusedGroupNorm(32, channels, eps=1e-6)
         if self.linear:
             self.proj_in = nn.Linear(channels, inner)
@@ -340,10 +365,12 @@ class Transformer2DModel(nn.Module):
             self.proj_in = nn.Conv2d(channels, inner, 1)
             self.proj_out = nn.Conv2d(inner, channels, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, context_dim, kv_block)]
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim, kv_block)
+             for _ in range(n_blocks)]
         )
 
-    def forward(self, x, context, edit: Optional[editctx.BlockEdit] = None):
+    def forward(self, x, context, edit: Optional[editctx.UNetEdit] = None):
+        """-> (x + the site's output, {block site: its PIVOTAL cache entry})."""
         b, c, hh, ww = x.shape
         h = self.norm(x)
         if self.linear:
@@ -354,7 +381,11 @@ class Transformer2DModel(nn.Module):
             # transposed view): the block's norms read them in place and
             # its residual adds keep that layout
             h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, h.shape[1]).contiguous()
-        h, cache = self.transformer_blocks[0](h, context, edit)
+        cache = {}
+        for site, block in zip(self.sites, self.transformer_blocks):
+            h, entry = block(h, context, None if edit is None else edit.for_site(site))
+            if entry is not None:
+                cache[site] = entry
         if self.linear:
             h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         else:

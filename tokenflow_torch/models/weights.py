@@ -70,7 +70,8 @@ def normalize_state_dict(sd: dict[str, torch.Tensor], kind: str) -> dict:
     """Drop buffers the port does not keep (position_ids, the CLIP text
     projection) and rename legacy VAE attention keys; 1x1-conv legacy
     attention weights become linear weights. ``kind`` is ``unet``, ``vae``,
-    ``clip_text``, ``controlnet`` (a diffusers ``ControlNetModel``, whose
+    ``clip_text``, ``clip_text_projection`` (a text tower that keeps its
+    ``text_projection``: SD-XL's ``text_encoder_2``), ``controlnet`` (a diffusers ``ControlNetModel``, whose
     keys are the port's as they are), ``dpt`` (an HF
     ``DPTForDepthEstimation``: the keys the model never reads,
     ``models.dpt.UNREAD_KEYS``, are dropped, and only those) or ``clip`` (an
@@ -87,7 +88,8 @@ def normalize_state_dict(sd: dict[str, torch.Tensor], kind: str) -> dict:
             if not key.endswith("position_ids") and key != "logit_scale":
                 out[key] = w
             continue
-        if key.endswith("position_ids") or key.startswith("text_projection"):
+        if key.endswith("position_ids") or (key.startswith("text_projection")
+                                            and kind != "clip_text_projection"):
             continue
         if kind == "vae":
             for pat, rep in _VAE_LEGACY:

@@ -17,6 +17,14 @@ a PIVOTAL pass then holds this rank's block of the keyframes (``kf_counts``
 gives every rank's count) and gathers the extended streams' K/V, and a
 PROPAGATE pass holds this rank's frames against the replicated cache. A
 FUSED pass holds all the keyframes and this rank's frames.
+
+A site is one transformer block (``models/layers.py::block_sites``): SD has
+one block at each of its 16 attention sites, SD-XL 70 blocks at 11 sites,
+each block a site with its own directive and cache entry. Two counters
+(read as K4's and K5's ``launches`` are, by ``scripts/bench_sites.py``):
+``sites_visited``, the directives :meth:`UNetEdit.for_site` handed out
+(one per block a UNet call runs), and ``pivotal_cache_bytes``, the bytes of
+the PIVOTAL caches the UNet returned (:func:`count_cache`).
 """
 
 from __future__ import annotations
@@ -25,6 +33,19 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+# directives handed to transformer blocks (one per block a UNet call runs)
+sites_visited = 0
+# bytes of the PIVOTAL caches the UNet returned, every entry's tensors
+pivotal_cache_bytes = 0
+
+
+def count_cache(cache: dict) -> None:
+    """Add the bytes of a PIVOTAL cache ({site: {name: tensor}}) to
+    ``pivotal_cache_bytes``: shapes and dtypes only, no device sync."""
+    global pivotal_cache_bytes
+    pivotal_cache_bytes += sum(t.numel() * t.element_size()
+                               for entry in cache.values() for t in entry.values())
 
 
 class EditMode:
@@ -114,6 +135,8 @@ class UNetEdit:
     kf_counts: Optional[tuple] = None
 
     def for_site(self, site: str) -> BlockEdit:
+        global sites_visited
+        sites_visited += 1
         entry = (self.cache or {}).get(site)
         approx_prop = self.prop_approx and self.mode == EditMode.PROPAGATE
         src_free_piv = self.prop_approx and not self.pnp and self.mode == EditMode.PIVOTAL

@@ -6,6 +6,15 @@ A stack comes from a local diffusers-layout directory (``model_dir``, or
 ``$TOKENFLOW_MODELS/<repo id>``, or the HF cache layout under ``$HF_HOME``)
 or, with ``init="random"``, from seeded random weights at the JAX stack's
 init scales. Nothing is downloaded.
+
+``sd_version: xl`` (``stabilityai/stable-diffusion-xl-base-1.0``, and its
+tiny test stack ``tiny-xl``) adds the second text tower: the context is
+CLIP-L's and OpenCLIP-bigG's penultimate hidden states concatenated, and
+the UNet's added conditioning (:meth:`SDStack.added_cond`) is bigG's pooled
+output with the size and crop ids of an uncropped image at the run's
+resolution; an empty negative prompt encodes to zeros (diffusers'
+``force_zeros_for_empty_prompt``), and the VAE's ``scaling_factor`` is its
+checkpoint config's (0.13025). The JAX package has no SD-XL.
 """
 
 from __future__ import annotations
@@ -20,7 +29,11 @@ import numpy as np
 import torch
 
 from tokenflow_torch.models import weights as weights_lib
-from tokenflow_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from tokenflow_torch.models.clip_text import (
+    CLIPTextConfig,
+    CLIPTextModel,
+    CLIPTextModelWithProjection,
+)
 from tokenflow_torch.models.layers import FusedGroupNorm
 from tokenflow_torch.models.unet2d import UNet2DConditionModel, UNet2DConfig
 from tokenflow_torch.models.vae import AutoencoderKL, AutoencoderKLConfig
@@ -33,9 +46,11 @@ MODEL_KEYS = {
     "1.5": "runwayml/stable-diffusion-v1-5",
     "ControlNet": "runwayml/stable-diffusion-v1-5",
     "depth": "stabilityai/stable-diffusion-2-depth",
+    "xl": "stabilityai/stable-diffusion-xl-base-1.0",
 }
 SD_VERSIONS = ("1.5", "2.0", "2.1", "ControlNet", "depth", "tiny", "tiny-controlnet",
-               "tiny-depth")
+               "tiny-depth", "xl", "tiny-xl")
+SDXL_VAE_SCALING = 0.13025  # stable-diffusion-xl-base-1.0 vae/config.json
 
 
 def is_depth(sd_version: str) -> bool:
@@ -50,7 +65,30 @@ def is_controlnet(sd_version: str) -> bool:
     return sd_version in ("ControlNet", "tiny-controlnet")
 
 
+def is_xl(sd_version: str) -> bool:
+    """SD-XL and its tiny test stack: two text towers, the added
+    conditioning; edited with SDEdit only."""
+    return sd_version in ("xl", "tiny-xl")
+
+
+def text_encoder_2_config(sd_version: str) -> Optional[CLIPTextConfig]:
+    """SD-XL's second text tower (OpenCLIP-bigG with its projection); None
+    for a one-tower stack."""
+    if sd_version == "xl":
+        return CLIPTextConfig.sdxl_g()
+    if sd_version == "tiny-xl":
+        return CLIPTextConfig.tiny_xl()[1]
+    return None
+
+
 def configs_for(sd_version: str):
+    if sd_version == "xl":
+        return (UNet2DConfig.sdxl_base(),
+                AutoencoderKLConfig(scaling_factor=SDXL_VAE_SCALING), CLIPTextConfig.sd15())
+    if sd_version == "tiny-xl":
+        return (UNet2DConfig.tiny_xl(),
+                dataclasses.replace(AutoencoderKLConfig.tiny(), scaling_factor=SDXL_VAE_SCALING),
+                CLIPTextConfig.tiny_xl()[0])
     if sd_version in ("tiny", "tiny-controlnet", "tiny-depth"):
         unet_cfg = UNet2DConfig.tiny()
         if is_depth(sd_version):
@@ -108,13 +146,14 @@ def _config_mismatches(ckpt_cfg: dict, expected: dict) -> list[str]:
 
 
 def validate_checkpoint_configs(
-    sd_version: str, configs: dict, unet_cfg, vae_cfg, clip_cfg
+    sd_version: str, configs: dict, unet_cfg, vae_cfg, clip_cfg, clip2_cfg=None
 ) -> None:
     """Raise, with every mismatch listed, when a checkpoint's own
     config.json disagrees with the preset chosen for ``sd_version``
     (``tokenflow_tpu/runtime.py::validate_checkpoint_configs``: the same
     keys and message). ``configs`` maps ``unet``, ``vae`` and
-    ``text_encoder`` to their parsed config.json; a missing one is skipped.
+    ``text_encoder`` (and SD-XL's ``text_encoder_2``, checked against
+    ``clip2_cfg``) to their parsed config.json; a missing one is skipped.
     Strict loading catches shapes but not the keys no weight shape carries
     (``hidden_act``, the head count, ``scaling_factor``)."""
     mismatches: list[str] = []
@@ -140,6 +179,13 @@ def validate_checkpoint_configs(
             "block_out_channels": list(unet_cfg.block_out_channels),
             "layers_per_block": unet_cfg.layers_per_block,
             "use_linear_projection": unet_cfg.use_linear_projection,
+            **({} if unet_cfg.transformer_layers is None else {
+                "transformer_layers_per_block": list(unet_cfg.transformer_layers)}),
+            **({} if not unet_cfg.addition_time_embed_dim else {
+                "addition_embed_type": "text_time",
+                "addition_time_embed_dim": unet_cfg.addition_time_embed_dim,
+                "projection_class_embeddings_input_dim":
+                    unet_cfg.projection_class_embeddings_input_dim}),
         })
     ]
     mismatches += [
@@ -165,6 +211,20 @@ def validate_checkpoint_configs(
             "hidden_act": clip_cfg.hidden_act,
         })
     ]
+    if clip2_cfg is not None:
+        mismatches += [
+            f"text_encoder_2: {m}"
+            for m in _config_mismatches(dict(configs.get("text_encoder_2") or {}), {
+                "vocab_size": clip2_cfg.vocab_size,
+                "hidden_size": clip2_cfg.hidden_size,
+                "num_hidden_layers": clip2_cfg.num_layers,
+                "num_attention_heads": clip2_cfg.num_heads,
+                "intermediate_size": clip2_cfg.intermediate_size,
+                "max_position_embeddings": clip2_cfg.max_position_embeddings,
+                "hidden_act": clip2_cfg.hidden_act,
+                "projection_dim": clip2_cfg.projection_dim,
+            })
+        ]
     if mismatches:
         raise ValueError(
             f"checkpoint does not match the sd_version={sd_version!r} "
@@ -174,10 +234,11 @@ def validate_checkpoint_configs(
 
 
 def read_component_configs(found: str) -> dict:
-    """{component: parsed config.json} of a diffusers directory's unet, vae
-    and text_encoder; a component without one is left out."""
+    """{component: parsed config.json} of a diffusers directory's unet, vae,
+    text_encoder and text_encoder_2; a component without one is left
+    out."""
     configs = {}
-    for name in ("unet", "vae", "text_encoder"):
+    for name in ("unet", "vae", "text_encoder", "text_encoder_2"):
         path = os.path.join(found, name, "config.json")
         if os.path.exists(path):
             with open(path) as f:
@@ -195,6 +256,9 @@ class SDStack:
     dtype: torch.dtype
     device: torch.device
     model_dir: Optional[str] = None  # the checkpoint read, None for random weights
+    # SD-XL's OpenCLIP-bigG tower and its tokenizer; None for SD
+    text_encoder_2: Optional[CLIPTextModelWithProjection] = None
+    tokenizer_2: Any = None
 
     # ---- text ---------------------------------------------------------
 
@@ -205,8 +269,39 @@ class SDStack:
 
     def encode_prompt(self, prompt: str, negative_prompt: str) -> torch.Tensor:
         """-> (2, 77, D) [uncond, cond] (reference get_text_embeds order)."""
-        ids = np.stack([self.tokenizer(negative_prompt), self.tokenizer(prompt)])
-        return self.encode_tokens(ids)
+        return self.encode_prompts(prompt, negative_prompt)[0]
+
+    @torch.inference_mode()
+    def encode_prompts(self, prompt: str, negative_prompt: str):
+        """-> ((2, 77, D) [uncond, cond], SD-XL's pooled (2, P) or None).
+        SD-XL: CLIP-L's and bigG's penultimate hidden states concatenated,
+        bigG's pooled output; an empty negative prompt gives zeros for
+        both (diffusers' ``force_zeros_for_empty_prompt``)."""
+        if self.text_encoder_2 is None:
+            ids = np.stack([self.tokenizer(negative_prompt), self.tokenizer(prompt)])
+            return self.encode_tokens(ids), None
+
+        def ids(tok):
+            return torch.as_tensor(np.stack([tok(negative_prompt), tok(prompt)]),
+                                   dtype=torch.long, device=self.device)
+
+        first = self.text_encoder.penultimate(ids(self.tokenizer))
+        second, pooled = self.text_encoder_2.penultimate_and_pooled(
+            ids(self.tokenizer_2), self.tokenizer_2.eos_token_id)
+        embeds = torch.cat([first, second.to(first.dtype)], dim=-1)
+        if negative_prompt == "":
+            embeds[0], pooled[0] = 0, 0
+        return embeds, pooled
+
+    def added_cond(self, pooled: Optional[torch.Tensor], height: int, width: int):
+        """The UNet's ``added_cond`` for prompts with the pooled outputs
+        ``pooled`` (rows), an uncropped image of ``height`` x ``width``
+        pixels: time ids (H, W, 0, 0, H, W); None for SD."""
+        if pooled is None:
+            return None
+        ids = torch.tensor([height, width, 0, 0, height, width], dtype=torch.float32,
+                           device=pooled.device)
+        return {"text_embeds": pooled, "time_ids": ids.expand(len(pooled), -1).contiguous()}
 
     # ---- VAE ----------------------------------------------------------
 
@@ -240,10 +335,11 @@ class SDStack:
 
     # ---- UNet ---------------------------------------------------------
 
-    def unet_apply(self, sample, t, context, edit=None, **residuals):
-        """-> (eps, cache); see UNet2DConditionModel.forward (``residuals``:
-        its ControlNet ``down_block_residuals`` / ``mid_block_residual``)."""
-        return self.unet(sample, t, context, edit, **residuals)
+    def unet_apply(self, sample, t, context, edit=None, **kw):
+        """-> (eps, cache); see UNet2DConditionModel.forward (``kw``: its
+        ControlNet ``down_block_residuals`` / ``mid_block_residual``, SD-XL's
+        ``added_cond``)."""
+        return self.unet(sample, t, context, edit, **kw)
 
 
 @functools.lru_cache(maxsize=1)
@@ -251,30 +347,44 @@ def _build_stack(sd_version, found, dtype, init, seed, device) -> SDStack:
     """``found`` is the resolved checkpoint directory or None. The cache
     holds the most recent stack only."""
     unet_cfg, vae_cfg, clip_cfg = configs_for(sd_version)
+    clip2_cfg = text_encoder_2_config(sd_version)
     pretrained = found is not None and init != "random"
     if pretrained:  # before any weight is read
-        validate_checkpoint_configs(
-            sd_version, read_component_configs(found), unet_cfg, vae_cfg, clip_cfg
-        )
+        configs = read_component_configs(found)
+        if clip2_cfg is not None and "scaling_factor" in configs.get("vae", {}):
+            # SD-XL's VAE scale is its checkpoint's
+            vae_cfg = dataclasses.replace(vae_cfg,
+                                          scaling_factor=configs["vae"]["scaling_factor"])
+        validate_checkpoint_configs(sd_version, configs, unet_cfg, vae_cfg, clip_cfg, clip2_cfg)
     # build in fp32 on the target device, fill, then cast
     with torch.device(device):
         unet = UNet2DConditionModel(unet_cfg)
         vae = AutoencoderKL(vae_cfg)
         text = CLIPTextModel(clip_cfg)
+        text_2 = None if clip2_cfg is None else CLIPTextModelWithProjection(clip2_cfg)
+    models = [m for m in (unet, vae, text, text_2) if m is not None]
+    tokenizer_2 = None
     if pretrained:
         weights_lib.load_into(unet, os.path.join(found, "unet"), "unet")
         weights_lib.load_into(vae, os.path.join(found, "vae"), "vae")
         weights_lib.load_into(text, os.path.join(found, "text_encoder"), "clip_text")
         tokenizer = CLIPTokenizer.from_pretrained(os.path.join(found, "tokenizer"))
+        if text_2 is not None:
+            weights_lib.load_into(text_2, os.path.join(found, "text_encoder_2"),
+                                  "clip_text_projection")
+            tokenizer_2 = CLIPTokenizer.from_pretrained(os.path.join(found, "tokenizer_2"),
+                                                        config_pad=True)
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
-        for m in (unet, vae, text):
+        for m in models:
             weights_lib.init_random_(m, gen)
         tokenizer = HashTokenizer(vocab_size=clip_cfg.vocab_size)
-    for m in (unet, vae, text):
+        if text_2 is not None:
+            tokenizer_2 = HashTokenizer(vocab_size=clip2_cfg.vocab_size)
+    for m in models:
         m.to(dtype).eval().requires_grad_(False)
     return SDStack(sd_version, unet, vae, text, tokenizer, dtype, device,
-                   os.path.abspath(found) if pretrained else None)
+                   os.path.abspath(found) if pretrained else None, text_2, tokenizer_2)
 
 
 def load_stack(
