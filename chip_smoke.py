@@ -15,7 +15,12 @@ Phases (any failure raises, and the script exits non-zero):
      the path it replaced, F.layer_norm on an fp32 copy, cast back). K1 runs
      at head dim 64 (SD-2.1) and at 40, 80 and 160 (SD-1.5's ControlNet
      path), also on the strided head-split views the pivotal pass gives it,
-     under a watchdog that ends the run if its checks hang. K2 and K3 run at
+     under a watchdog that ends the run if its checks hang. K6 (short-key
+     attention) runs at one row per family the paths launch (K6_SHAPES:
+     cross attention over 77 keys at each head dim, 1024, 256 and 64 keys)
+     against sdp_attention in fp32 at K1's limits, with its plan, wrapper /
+     device / host ms, share of the bound, the plain version's and SDPA's
+     times, under the same watchdog. K2 and K3 run at
      every site of both paths with the F the path passes, timed as the
      wrapper call, the kernel launch and the launch without output (the
      match stage alone), and once more against each other across S. K4
@@ -45,8 +50,9 @@ Phases (any failure raises, and the script exits non-zero):
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
-     5 pivots; check the output tree, finite frames, that K1, K2, K4 and
-     K5 were launched and that K3 was not. ``[clip]`` (``check_clip``):
+     5 pivots; check the output tree, finite frames, that K1, K2, K4, K5
+     and K6 were launched and that K3 was not (K6's launches a step are
+     reported beside the yardstick's count, K6_PER_STEP). ``[clip]`` (``check_clip``):
      a full-width ViT-L/14 CLIP checkpoint in HF layout with random
      weights from a seed (build/, removed after); the port's
      ``compare_outputs`` CLI (PSNR, CLIP temporal consistency and score)
@@ -237,6 +243,29 @@ K1_PHASE_SECONDS = 420
 # one 1024-token KV block stay under this many bytes (its temporaries take
 # a few times that)
 K1_PLAIN_BYTES = 6 << 30
+# (B, Sq, Skv, H, D): K6's rows, one per family the paths launch (cross
+# attention over 77 text tokens at each head dim, 1024 keys at D = 64 and
+# 80, 256 at D = 160, 64 keys), held to K1's limits against sdp_attention
+# on fp32 copies; the first two are the byte-bound rows that carry the most
+# of K6's bytes (SD-XL's 32^2 and SDEdit 768^2's 96^2 cross attention over
+# the propagation pass's 120 images)
+K6_SHAPES = [
+    (120, 1024, 77, 20, 64),  # SD-XL 1024^2: cross attention at 32x32
+    (120, 9216, 77, 5, 64),  # SDEdit 768^2: cross attention at 96x96
+    (120, 4096, 77, 8, 40),  # SD-1.5 512^2: cross attention at 64x64
+    (120, 1024, 77, 8, 80),  # SD-1.5 512^2: cross attention at 32x32
+    (120, 256, 77, 8, 160),  # SD-1.5 512^2: cross attention at 16x16
+    (5, 1024, 1024, 20, 64),  # SD-XL 1024^2: the source stream's self attention at 32x32
+    (120, 1024, 1024, 8, 80),  # SD-1.5 + ControlNet: self attention at 32x32
+    (40, 256, 256, 8, 160),  # SD-1.5 inversion: self attention at 16x16
+    (40, 64, 64, 20, 64),  # SD-2.1 inversion: self attention at the 8x8 mid block
+]
+# K6's launches a step on the main paths (the yardstick's count of the
+# attention calls at or under kv_block: 44 an edit step of PnP 512^2 over
+# 40 frames, 27 an inversion or reconstruction step; 68 a ControlNet edit
+# step), beside the counts the paths read
+K6_PER_STEP = {"pnp_512": {"inversion+reconstruction": 27, "edit": 44},
+               "controlnet_512": {"edit": 68}}
 # the depth path (SD-2-depth, DPT-Large): this many inversion,
 # reconstruction and edit steps
 DEPTH_STEPS = 10
@@ -710,6 +739,71 @@ def check_flash(gen: torch.Generator) -> dict:
                       "bound_share_device", "tflops", "max_abs_err", "rel_l2")}
             for d, r in sorted(by_d.items())
         },
+        "shapes": rows,
+    }
+
+
+def check_short_attention(gen: torch.Generator) -> dict:
+    """K6 against sdp_attention on fp32 copies of its bf16 inputs at
+    K6_SHAPES (K1's limits, ``k1_mismatch``), two launches bitwise equal;
+    per row K6's plan, its wrapper / device / host-enqueue ms, the share of
+    the bound by device time, the plain version's ms (sdp_attention on the
+    bf16 inputs, the path K6 replaced) and SDPA's device ms (the library
+    yardstick; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from tokenflow_torch.kernels import short_attention as sa
+    from tokenflow_torch.ops.attention import sdp_attention
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    rows = []
+    for b, sq, skv, h, d in K6_SHAPES:
+        q, k, v = randn(b, sq, h, d), randn(b, skv, h, d), randn(b, skv, h, d)
+        tag = f"[K6] B={b} Sq={sq} Skv={skv} H={h} D={d}"
+        out = sa.short_attention_kernel(q, k, v)
+        again = sa.short_attention_kernel(q, k, v)
+        ref = sdp_attention(q.float(), k.float(), v.float())
+        torch.cuda.synchronize()
+        m = k1_mismatch(out, ref)
+        bitwise = torch.equal(out, again)
+        del out, again, ref
+        if not (k1_within_limits(m) and bitwise):
+            raise AssertionError(f"{tag}: {m}, two launches bitwise equal: {bitwise}")
+
+        def call():
+            return sa.short_attention_kernel(q, k, v)
+
+        ms, dev_ms, enq_ms = median_ms(call), device_ms(call), host_ms(call)
+        plain_ms = median_ms(lambda: sdp_attention(q, k, v), runs=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        flops = 4.0 * b * h * sq * skv * d
+        bound_ms, bound_by = bound(q.element_size() * d * b * h * (2 * sq + 2 * skv), flops)
+        plan = sa.plan(skv)
+        print(f"{tag}: plan {plan}, max|err|={m['max_abs_err']:.3e} (limit "
+              f"{m['max_abs_limit']:.3e}) rel L2 {m['rel_l2']:.3e}, two launches bitwise "
+              f"equal; kernel {ms:.4f} ms wrapper / {dev_ms:.4f} ms device / {enq_ms:.4f} ms "
+              f"host ({bound_ms / dev_ms:.1%} of the bound by device time), plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms device, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        rows.append({"shape": [b, sq, skv, h], "head_dim": d, "plan": plan, **m,
+                     "ms": ms, "device_ms": dev_ms, "host_ms": enq_ms, "plain_ms": plain_ms,
+                     "library_device_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share_device": bound_ms / dev_ms})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return {
+        "name": "short_attention",
+        "route": "cuda",
+        "source": "tokenflow_torch/csrc/short_attention.cu",
+        "replaces": "ops/attention.py::sdp_attention on CUDA bf16 (no TPU kernel: XLA's einsums)",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "rel_l2": max(r["rel_l2"] for r in rows),
+        **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": main["library_device_ms"],
         "shapes": rows,
     }
 
@@ -1533,11 +1627,13 @@ def kernel_modules() -> dict:
     from tokenflow_torch.kernels import flash_attention as fa
     from tokenflow_torch.kernels import group_norm as gn
     from tokenflow_torch.kernels import layer_norm as ln
+    from tokenflow_torch.kernels import short_attention as sa
     from tokenflow_torch.kernels import token_match as tm
     from tokenflow_torch.kernels import token_match_split as tms
 
     return {"flash_attention": fa, "token_match_gather": tm,
-            "token_match_gather_split": tms, "group_norm": gn, "layer_norm": ln}
+            "token_match_gather_split": tms, "group_norm": gn, "layer_norm": ln,
+            "short_attention": sa}
 
 
 # each entry of the kernels line: (its wrapper module in kernel_modules(),
@@ -1549,17 +1645,21 @@ KERNEL_ENTRIES = {
     "token_match_gather_split": ("token_match_gather_split", "bfloat16"),
     "group_norm": ("group_norm", None),
     "layer_norm": ("layer_norm", None),
+    "short_attention": ("short_attention", None),
     "flash_attention_f32": ("flash_attention", "float32"),
     "token_match_f32": ("token_match_gather", "float32"),
     "token_match_split_f32": ("token_match_gather_split", "float32"),
 }
 BF16_KERNELS = ("flash_attention", "token_match_gather", "token_match_gather_split",
-                "layer_norm")
+                "layer_norm", "short_attention")
 MATCH_KERNELS = ("token_match_gather", "token_match_gather_split")
 F32_KERNELS = ("flash_attention_f32", "token_match_f32", "token_match_split_f32")
 # the norms' kernels a CUDA stack launches by default: K4 and K5 in bf16,
 # K4 alone in fp32 (an fp32 LayerNorm stays on F.layer_norm)
 NORMS_BF16 = ("group_norm_bf16", "layer_norm")
+# the kernels every bf16 edit path launches: K1, K6 (the short-key
+# attention calls), K2 and the norms'
+PATH_BF16 = ("flash_attention", "short_attention", "token_match_gather") + NORMS_BF16
 NORMS_F32 = ("group_norm_f32",)
 
 
@@ -1567,10 +1667,13 @@ def zero_counts() -> None:
     mods = kernel_modules()
     for m in mods.values():
         m.launches = 0
-        m.launches_by_dtype.clear()
-    mods["flash_attention"].launches_by_head_dim.clear()
-    for name in ("flash_attention", "group_norm", "layer_norm"):
+        if m is not mods["short_attention"]:  # K6 is bf16 alone
+            m.launches_by_dtype.clear()
+    for name in ("flash_attention", "short_attention"):
+        mods[name].launches_by_head_dim.clear()
+    for name in ("flash_attention", "group_norm", "layer_norm", "short_attention"):
         mods[name].launches_by_shape.clear()
+    mods["short_attention"].launches_by_plan.clear()
     for name in MATCH_KERNELS:
         mods[name].launches_by_streams.clear()
 
@@ -1707,7 +1810,7 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         variants = {
             name: run_variant(
                 run_pnp, config, name, extra, edit_steps,
-                ("flash_attention", "token_match_gather") + NORMS_BF16,
+                PATH_BF16,
                 ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, k2_streams,
             )
             for name, extra, k2_streams in variants
@@ -1718,7 +1821,7 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         raise AssertionError(f"{tag}: K1 must launch at head dim 64 only, launched {dims}")
     if dtype == "bf16":
         check_launched(counts, "PnP 512^2",
-                       ("flash_attention", "token_match_gather") + NORMS_BF16,
+                       PATH_BF16,
                        ("token_match_gather_split", "group_norm_f32") + F32_KERNELS)
     else:
         check_launched(counts, "fp32 PnP 512^2",
@@ -1749,6 +1852,8 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
     }
     if "depth_seconds" in pre:
         report["depth_maps_seconds"] = pre["depth_seconds"]
+    if dtype == "bf16" and sd_version == "2.1":
+        report["k6_expected_per_step"] = K6_PER_STEP["pnp_512"]
     if variants:
         report["variants"] = variants
         report["steps_by_variant"] = compare_steps(tag, exact, variants)
@@ -1917,7 +2022,7 @@ def run_sdedit_path(root: str, dtype: str = "bf16", n_frames: int = 24,
             # the 96x96 level's table fits K2 and K3 must not launch
             variants["sdedit_approx"] = run_variant(
                 run_sdedit, config, "sdedit_approx", {"prop_approx": True}, n_steps,
-                ("flash_attention", "token_match_gather") + NORMS_BF16,
+                PATH_BF16,
                 ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, 2,
             )
     finally:
@@ -2349,7 +2454,7 @@ def run_controlnet_path(root: str) -> dict:
         edit = _edit_report(out_dir, edit_steps)
         variants = {"controlnet_approx": run_variant(
             run_controlnet, config, "controlnet_approx", {"prop_approx": True}, edit_steps,
-            ("flash_attention", "token_match_gather") + NORMS_BF16,
+            PATH_BF16,
             ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, 2,
         )}
     finally:
@@ -2364,7 +2469,7 @@ def run_controlnet_path(root: str) -> dict:
         raise AssertionError(f"ControlNet K1 shapes missing from K1_SD15_SHAPES: {missing}")
     if counts["token_match_gather"] <= 0:
         raise AssertionError("K2 was not launched on the ControlNet path")
-    check_launched(counts, "512^2 ControlNet", NORMS_BF16,
+    check_launched(counts, "512^2 ControlNet", NORMS_BF16 + ("short_attention",),
                    ("token_match_gather_split", "group_norm_f32") + F32_KERNELS)
     report = {
         "launches": counts,
@@ -2381,6 +2486,7 @@ def run_controlnet_path(root: str) -> dict:
             "edit": {str(s): n - pre_shapes.get(s, 0) for s, n in shapes.items()
                      if n > pre_shapes.get(s, 0)},
         },
+        "k6_expected_per_step": K6_PER_STEP["controlnet_512"],
         "residuals": residuals,
         "preprocess_seconds": t_pre,
         "inversion_seconds_per_step": pre["inversion_seconds"] / inv_steps,
@@ -3174,7 +3280,7 @@ def check_sharded_launches(ranks: list) -> None:
     for r in ranks:
         for name, k1_sharded in (("shard_pivotal", True), ("replicated_pivotal", False)):
             for prefix, want, not_want in (
-                    ("", ("flash_attention", "token_match_gather") + NORMS_BF16,
+                    ("", PATH_BF16,
                      F32_KERNELS + ("group_norm_f32",)),
                     ("f32_", ("flash_attention_f32", "token_match_f32") + NORMS_F32,
                      BF16_KERNELS + ("group_norm_bf16",))):
@@ -3425,7 +3531,7 @@ def run_fused_path(root: str, main_out_dir: str, two_pass: dict) -> dict:
     try:
         cli = run_variant(run_pnp, dict(config, pivot_indices=pivots.tolist()), "pnp_fused",
                           {"fused_step": True}, n_steps,
-                          ("flash_attention", "token_match_gather") + NORMS_BF16,
+                          PATH_BF16,
                           ("token_match_gather_split", "group_norm_f32") + F32_KERNELS, 3)
     finally:
         os.chdir(cwd)
@@ -3563,6 +3669,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with watchdog(K1_PHASE_SECONDS, "K1's checks"):
         kernels = [check_flash(gen)]
+    with watchdog(K1_PHASE_SECONDS, "K6's checks"):
+        kernels.append(check_short_attention(gen))
     with watchdog(K1_PHASE_SECONDS, "K1-f32's checks"):
         kernels.append(check_flash_f32(gen))
     kernels += [check_token_match(gen), check_token_match_split(gen),

@@ -20,7 +20,10 @@ once per GroupNorm site a call runs, K5 (LayerNorm) once per LayerNorm
 site; and the program's edit counters in the same window
 (``ops/editctx.py``): the edit sites the UNet calls visited (one per
 transformer block a call runs: 16 on SD, 70 on SD-XL) and the bytes of the
-pivotal caches they returned. The weights, the specs and the models come
+pivotal caches they returned; and K6's (short-key attention) launches in
+the same window by plan and by head dim, beside the CUDA short-key calls
+that took the plain version instead (``ops/attention.py::plain_on_cuda``,
+0 on every cell). The weights, the specs and the models come
 from the configuration's architecture module, as a benchmark run takes
 them. No reference runs: ``benchmark/run.py`` decides ``correct``.
 """
@@ -87,6 +90,24 @@ def edit_counters(record, counted: dict, steps: int) -> dict:
             "per_unet_call": {k: v / calls for k, v in counted.items()} if calls else None}
 
 
+def k6_counts() -> dict:
+    """K6's launches so far, in all, by plan and by head dim, and the CUDA
+    short-key calls that took the plain version."""
+    from tokenflow_torch.kernels import short_attention
+    from tokenflow_torch.ops import attention
+
+    return {"launches": short_attention.launches,
+            **{f"plan.{k}": v for k, v in short_attention.launches_by_plan.items()},
+            **{f"head_dim.{k}": v for k, v in short_attention.launches_by_head_dim.items()},
+            "plain_on_cuda": attention.plain_on_cuda}
+
+
+def k6_launches(before: dict, after: dict, steps: int) -> dict:
+    """The growth of ``k6_counts`` over a window, in all and per step."""
+    grown = {k: v - before.get(k, 0) for k, v in after.items()}
+    return {**grown, "per_step": {k: v / steps for k, v in grown.items()}}
+
+
 def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) -> dict:
     from tokenflow_torch import profiling
     from tokenflow_torch.kernels import group_norm, layer_norm
@@ -98,10 +119,12 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
     steps, window_s = harness.window(stage, seconds, False, cuda)
     before = {"group_norm": group_norm.launches, "layer_norm": layer_norm.launches}
     sites0, cache0 = editctx.sites_visited, editctx.pivotal_cache_bytes
+    k6_before = k6_counts()
     with profiling.spans() as record:
         steps_a, window_a = harness.window(stage, seconds, False, cuda)
     launched = {"group_norm": group_norm.launches - before["group_norm"],
                 "layer_norm": layer_norm.launches - before["layer_norm"]}
+    k6 = k6_launches(k6_before, k6_counts(), steps_a)
     counted = {"sites_visited": editctx.sites_visited - sites0,
                "pivotal_cache_bytes": editctx.pivotal_cache_bytes - cache0}
     reduced, steps_b = None, 0
@@ -119,6 +142,7 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
         "readings": sites.readings(cell.stage, record, reduced),
         "norm_launches": norm_launches(record, launched, steps_a),
         "edit_counters": edit_counters(record, counted, steps_a),
+        "k6_launches": k6,
     }
     if reduced is not None:
         out.update(coverage_pct=reduced.coverage, linked_pct=reduced.linked_share,

@@ -1,19 +1,23 @@
 // Hopper (sm_90a) primitives shared by the hand-written kernels: K1
-// (flash_attention.cu), the token-match core (token_match_core.cuh) and K4
-// (group_norm.cu).
+// (flash_attention.cu), the token-match core (token_match_core.cuh), K4
+// (group_norm.cu) and K6 (short_attention.cu).
 //   - shared-memory addresses, mbarrier init / arrive / expect-tx / wait;
 //   - the 1-D bulk copy (global -> shared, completing on an mbarrier) and
 //     thread-block cluster ranks, barriers and distributed shared-memory
 //     reads (K4);
 //   - the TMA tile load (cp.async.bulk.tensor, 4-D) completing on an
-//     mbarrier, and the host-side tensor-map encoder (cuTensorMapEncodeTiled
-//     reached through cudaGetDriverEntryPoint, so the library needs no
-//     -lcuda) with make_map, its one map shape;
+//     mbarrier, the TMA tile store (shared -> global, bulk async-groups,
+//     K6) with the proxy fence before it, and the host-side tensor-map
+//     encoder (cuTensorMapEncodeTiled reached through
+//     cudaGetDriverEntryPoint, so the library needs no -lcuda) with
+//     make_map, its one map shape;
 //   - wgmma shared-memory descriptors for the 128-byte swizzle, fences,
-//     commit / wait, and the mma_async products K1 and the match core use
-//     (m64n128k16 and m64n64k16 from shared memory; with A from registers
-//     and B MN-major, m64nNk16 at N = 40, 64, 80 and 160, K1's head dims);
-//   - setmaxnreg and the named barriers of K1's consumer turns.
+//     commit / wait, and the mma_async products K1, K6 and the match core
+//     use (m64n128k16, m64n80k16 and m64n64k16 from shared memory; with A
+//     from registers and B MN-major, m64nNk16 at N = 40, 64, 80 and 160,
+//     the attention kernels' head dims);
+//   - setmaxnreg, the named barriers of K1's consumer turns and those of
+//     one warpgroup (K6's staged stores).
 // Every tile row these helpers describe is 64 bf16 = 128 bytes, one row of
 // the 128-byte swizzle; tiles are 1024-byte aligned.
 #pragma once
@@ -121,6 +125,39 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// box of the 4-D map at (c0, c1, c2, c3) <- shared memory at src, as one
+// bulk async-group of the issuing thread: elements outside the tensor's
+// extent are not written
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// waits until at most N of this thread's bulk async-groups have not yet
+// read their shared memory (the source may then be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// waits until every bulk async-group of this thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// makes this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
 }
 
 // warp-specialised register split: the producer gives registers back, the
@@ -238,6 +275,18 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 80, fp32) = A (64 x 16, K-major smem) . B (16 x 80, K-major smem)
+// + (accumulate ? d : 0)
+__device__ __forceinline__ void wgmma_m64n80k16_ss(float (&d)[40], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, fp32) += A (64 x 16 bf16, registers) . B (16 x 64, MN-major
 // smem)
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
@@ -315,6 +364,12 @@ __device__ __forceinline__ void named_bar_sync(int id) {
 }
 __device__ __forceinline__ void named_bar_arrive(int id) {
   asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+// named barrier `id` among the `threads` threads (a multiple of 32) that
+// reach it: every one of them syncs
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

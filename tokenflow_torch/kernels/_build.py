@@ -49,6 +49,8 @@ SIGNATURES = {
     + [ctypes.c_float, _P, _P],
     "tf_flash_attention_f32_workspace": [_I] * 5,
     "tf_flash_attention_plan": [_I] * 5 + [ctypes.POINTER(_I)],
+    "tf_short_attention": [_I] + [_P] * 4 + [_I] * 4 + [_L] * 12
+    + [ctypes.c_float, _P],
     "tf_token_match": [_P] * 8 + [_I] * 5 + [_P],
     "tf_token_match_split": [_P] * 9 + [_I] * 5 + [_P],
     "tf_token_match_f32": [_P] * 9 + [_I] * 5 + [_P, _P],
