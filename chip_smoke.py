@@ -3136,31 +3136,33 @@ FUSED_SECONDS = 240
 
 
 def sharded_kernel_rows(group) -> dict:
-    """B3 on the card, on one rank: K1 through ``flash_attention_sharded`` on
-    the rank's query rows of the 512^2 pivotal pass's top level (2 streams,
-    5 keyframes x 4096 tokens, 5 heads of 64; this rank's keyframes of
+    """B3 on the card, on one rank, through the ops entries that take a
+    rank's share: K1 through the two-stream ``extended_attention`` with the
+    group on the rank's keyframes of the 512^2 pivotal pass's top level (5
+    keyframes x 4096 tokens, 5 heads of 64; this rank's keyframes of
     ``split_counts``) against the gathered K/V, and K2 through
-    ``token_match_gather_sharded`` on the rank's frames (F = 40, 4096 x 320,
-    5 pivots, separated inputs), each equal bit for bit to those rows of
-    the unsharded launch on the same seeded inputs."""
-    from tokenflow_torch.kernels import flash_attention as fa
-    from tokenflow_torch.kernels import token_match as tm
+    ``token_propagation`` on the rank's frames (F = 40, 4096 x 320, 5
+    pivots, separated inputs), each equal bit for bit to those rows of the
+    same call's unsharded launch on the same seeded inputs."""
+    from tokenflow_torch.ops.extended_attention import extended_attention
+    from tokenflow_torch.ops.propagation import token_propagation
     from tokenflow_torch.sharding import mesh
 
     gen = torch.Generator(device="cuda").manual_seed(0)  # the same on every rank
     kf, s, h, d = 5, 4096, 5, 64
-    q, k, v = (torch.randn((2, kf * s, h, d), generator=gen, device="cuda",
+    q, k, v = (torch.randn((2, kf, s, h * d), generator=gen, device="cuda",
                            dtype=torch.bfloat16) for _ in range(3))
     counts = mesh.split_counts(kf, group.world)
-    rows = slice(sum(counts[: group.rank]) * s, sum(counts[: group.rank + 1]) * s)
-    got = fa.flash_attention_sharded(q[:, rows], k[:, rows], v[:, rows], group=group,
-                                     kv_sizes=[c * s for c in counts], kv_block=1024)
-    want = fa.flash_attention_kernel(q, k, v)[:, rows]
+    mine = slice(sum(counts[: group.rank]), sum(counts[: group.rank + 1]))
+    rows = slice(mine.start * s, mine.stop * s)
+    got = extended_attention(q[:, mine], k[:, mine], v[:, mine], heads=h, kv_block=1024,
+                             group=group, kf_counts=counts)
+    want = extended_attention(q, k, v, heads=h, kv_block=1024)[:, mine]
     k1_equal = torch.equal(got, want)
     args = _match_inputs(gen, 4096, 320, "separated", 40, 5)
     local = [group.local(a) for a in (args[0], *args[3:])]
-    got = tm.token_match_gather_sharded(local[0], args[1], args[2], *local[1:])
-    want = tm.token_match_gather_kernel(*args)[:, group.frame_slice(40)]
+    got = token_propagation(local[0], args[1], args[2], *local[1:])
+    want = token_propagation(*args)[:, group.frame_slice(40)]
     k2_equal = torch.equal(got, want)
     if not (k1_equal and k2_equal):
         raise AssertionError(f"[sharded] rank {group.rank}: sharded rows differ from the "
@@ -3181,8 +3183,6 @@ def _sharded_rank(rank: int, spec: dict) -> None:
     from tokenflow_torch import runtime
     from tokenflow_torch.cli import common
     from tokenflow_torch.editing import pipeline
-    from tokenflow_torch.kernels import flash_attention as fa
-    from tokenflow_torch.kernels import token_match as tm
     from tokenflow_torch.profiling import PhaseMetrics
     from tokenflow_torch.sharding import mesh
 
@@ -3205,20 +3205,11 @@ def _sharded_rank(rank: int, spec: dict) -> None:
 
     def zero():
         zero_counts()
-        fa.launches_sharded = tm.launches_sharded = 0
-        fa.launches_sharded_by_shape.clear()
-        tm.launches_sharded_by_shape.clear()
         group.bytes_sent.clear()
 
     def counts(n):
         return {
             "launches": read_counts(),
-            "k1_launches_sharded": fa.launches_sharded,
-            "k1_sharded_sq_skv": {f"{a}x{b}": c for (a, b), c in
-                                  sorted(fa.launches_sharded_by_shape.items())},
-            "k2_launches_sharded": tm.launches_sharded,
-            "k2_sharded_f_s_d": {"x".join(map(str, k)): c for k, c in
-                                 sorted(tm.launches_sharded_by_shape.items())},
             "collective_bytes_per_step": {k: v / n for k, v in group.bytes_sent.items()},
         }
 
@@ -3274,22 +3265,23 @@ def _sharded_rank(rank: int, spec: dict) -> None:
 
 
 def check_sharded_launches(ranks: list) -> None:
-    """On every rank, in bf16 and fp32: with shard_pivotal K1 and K2 launched
-    through the sharded entries, without it K2 only (the pivotal pass is
-    whole); no kernel off the PnP 512^2 path or of the other dtype."""
+    """On every rank, in bf16 and fp32: K1 and K2 launched, and the pivotal
+    pass's K/V all-gathered (``kv_all_gather`` bytes) exactly with
+    shard_pivotal (without it the pivotal pass is whole); no kernel off the
+    PnP 512^2 path or of the other dtype."""
     for r in ranks:
-        for name, k1_sharded in (("shard_pivotal", True), ("replicated_pivotal", False)):
+        for name, shard in (("shard_pivotal", True), ("replicated_pivotal", False)):
             for prefix, want, not_want in (
                     ("", PATH_BF16,
                      F32_KERNELS + ("group_norm_f32",)),
                     ("f32_", ("flash_attention_f32", "token_match_f32") + NORMS_F32,
                      BF16_KERNELS + ("group_norm_bf16",))):
                 run = r[prefix + name]
-                if (run["k1_launches_sharded"] > 0) != k1_sharded or run["k2_launches_sharded"] <= 0:
+                kv_bytes = run["collective_bytes_per_step"].get("kv_all_gather", 0)
+                if (kv_bytes > 0) != shard:
                     raise AssertionError(
-                        f"[sharded] rank {r['rank']} {prefix}{name}: K1 and K2 launched "
-                        f"{run['k1_launches_sharded']} and {run['k2_launches_sharded']} times "
-                        f"through the sharded entries")
+                        f"[sharded] rank {r['rank']} {prefix}{name}: the pivotal pass "
+                        f"all-gathered {kv_bytes} K/V bytes a step with shard_pivotal {shard}")
                 check_launched(run["launches"], f"sharded rank {r['rank']} {prefix}{name}",
                                want, ("token_match_gather_split", "token_match_split_f32")
                                + not_want)
@@ -3342,11 +3334,12 @@ def run_sharded_path(root: str, main_out_dir: str) -> dict:
     a rank's frames so that each UNet call has a rank's batch), then spawns
     SHARDED_RANKS ranks of a gloo group (``file://`` init) that share
     cuda:0 (NCCL refuses two ranks on one GPU) and stage their collectives
-    through host memory. Each rank checks the sharded K1 and K2 entries bit
-    for bit against the unsharded launches (``sharded_kernel_rows``) and
-    runs the bf16 10-step edit with shard_pivotal (3 + 2 keyframes) and
-    without: both must launch through the sharded entries where they shard
-    (K2 on every rank, K1 with shard_pivotal), the edit without
+    through host memory. Each rank checks K1 and K2 through the ops entries
+    with its share bit for bit against the unsharded launches
+    (``sharded_kernel_rows``) and runs the bf16 10-step edit with
+    shard_pivotal (3 + 2 keyframes) and without: both must launch K1 and
+    K2, and all-gather the pivotal pass's K/V exactly with shard_pivotal
+    (``check_sharded_launches``), the edit without
     shard_pivotal must equal the reference bit for bit, and the one with it
     must read within SHARDED_BF16_REL_L2 (gross faults only: bf16 cannot
     hold the K/V gather, see the constant). The gather itself is held in
@@ -3442,11 +3435,12 @@ def run_sharded_path(root: str, main_out_dir: str) -> dict:
             steps = (f", s/step pivotal {run_['pivotal_seconds_per_step']:.4f} propagate "
                      f"{run_['propagate_seconds_per_step']:.4f}"
                      if "pivotal_seconds_per_step" in run_ else "")
-            print(f"[sharded] rank {r['rank']} {name}: K1 sharded launches "
-                  f"{run_['k1_launches_sharded']} (Sq x Skv {run_['k1_sharded_sq_skv']}), K2 "
-                  f"sharded launches {run_['k2_launches_sharded']} (F x S x D "
-                  f"{run_['k2_sharded_f_s_d']}){steps}, collective bytes/step "
-                  f"{run_['collective_bytes_per_step']}, transport {r['transport']}", flush=True)
+            n = run_["launches"]
+            print(f"[sharded] rank {r['rank']} {name}: K1 launches "
+                  f"{n['flash_attention'] + n['flash_attention_f32']}, K2 launches "
+                  f"{n['token_match_gather'] + n['token_match_f32']}{steps}, collective "
+                  f"bytes/step {run_['collective_bytes_per_step']}, transport "
+                  f"{r['transport']}", flush=True)
         print(f"[sharded] rank {r['rank']} kernel rows: {r['kernel_rows']}", flush=True)
     report["per_rank"] = ranks
     report["seconds"] = time.perf_counter() - t_phase

@@ -1,6 +1,7 @@
-"""The port's frame-axis sharding (``tokenflow_torch/sharding/mesh.py``, B3's
-``flash_attention_sharded`` / ``token_match_gather_sharded``) on gloo
-groups of 2 and 3 CPU processes, one case for each case of
+"""The port's frame-axis sharding (``tokenflow_torch/sharding/mesh.py``, and
+B3's two entries that take a rank's share: ``extended_attention`` with
+its K/V gather and ``token_propagation``) on gloo groups of 2 and 3 CPU
+processes, one case for each case of
 tests/test_sharding.py: the edit loop (pivotal pass whole on every rank),
 the vanilla loop, windows that straddle the ranks, the sharded pivotal pass
 at even and uneven pivot counts (and with fewer pivots than ranks),
@@ -31,6 +32,7 @@ import torch.multiprocessing as mp
 
 import torch_sharding_workers as W
 from tokenflow_torch.diffusion import ddim as tddim
+from tokenflow_torch.diffusion import inversion as tinv
 from tokenflow_torch.models.weights import state_dict_from_flax
 from tokenflow_torch.sharding import mesh
 from tokenflow_tpu import runtime as jruntime
@@ -182,7 +184,7 @@ def test_sharded_inversion_matches_single_device(setup, ranks, world):
     xj, trj = jax.jit(lambda x: jinv.ddim_inversion(jeps, x, sched, W.INV_STEPS)[:2])(
         jnp.asarray(inputs["x0"] * 0.3))
     with torch.inference_mode():
-        x_t, traj, _ = mesh.sharded_inversion(
+        x_t, traj, _ = tinv.segmented_inversion(
             W.inversion_eps_fn(setup["unet"], inputs), torch.from_numpy(inputs["x0"]) * 0.3,
             tddim.make_schedule(W.INV_STEPS), W.INV_STEPS)
     got_x, got_traj = ranks[world][0]["inversion"]
@@ -226,12 +228,12 @@ def test_segmented_checkpoint_resume_on_group(setup, ranks, world):
 @pytest.mark.parametrize("world", WORLDS)
 @pytest.mark.parametrize("entry", ["flash_sharded", "match_sharded"])
 def test_sharded_kernel_entries_plain_paths(ranks, world, entry):
-    """B3's entries on CPU tensors (the plain versions): a rank's query rows
-    of ``flash_attention_sharded`` (K/V gathered over uneven keyframe
-    blocks, the blockwise path: kv_block below Skv) and a rank's frames of
-    ``token_match_gather_sharded`` equal those rows of the unsharded
-    functions (rows and frames are independent; 1e-6 for the blockwise
-    attention's batch-dependent summation order)."""
+    """B3's entries on CPU tensors (the plain versions): a rank's keyframes
+    of the two-stream ``extended_attention`` with the group (K/V gathered
+    over uneven keyframe blocks, the blockwise path: kv_block below Skv)
+    and a rank's frames of ``token_propagation`` equal those rows of the
+    same calls without a group (rows and frames are independent; 1e-6 for
+    the blockwise attention's batch-dependent summation order)."""
     for r in ranks[world]:
         got, want = r[entry]
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)

@@ -104,11 +104,9 @@ def load_models(spec: dict):
 def run_rank(rank: int, spec: dict) -> None:
     """Every case on this rank of ``spec["world"]``; writes
     ``spec["out"]``/rank<r>.pt."""
-    from tokenflow_torch.diffusion import ddim
-    from tokenflow_torch.kernels import flash_attention as fa
-    from tokenflow_torch.kernels import token_match as tm
-    from tokenflow_torch.ops.attention import flash_attention
-    from tokenflow_torch.ops.propagation import propagation_indices
+    from tokenflow_torch.diffusion import ddim, inversion
+    from tokenflow_torch.ops.extended_attention import extended_attention
+    from tokenflow_torch.ops.propagation import propagation_indices, token_propagation
     from tokenflow_torch.sharding import mesh
 
     torch.set_num_threads(1)
@@ -126,9 +124,8 @@ def run_rank(rank: int, spec: dict) -> None:
         res["vanilla"] = mesh.gather_to_rank0(group, vanilla(unet, inputs, group))
 
         lat = group.local(torch.from_numpy(inputs["x0"]) * 0.3)
-        x_t, traj, _ = mesh.sharded_inversion(
-            inversion_eps_fn(unet, inputs), lat, ddim.make_schedule(INV_STEPS), INV_STEPS,
-            group)
+        x_t, traj, _ = inversion.segmented_inversion(
+            inversion_eps_fn(unet, inputs), lat, ddim.make_schedule(INV_STEPS), INV_STEPS)
         res["inversion"] = (mesh.gather_to_rank0(group, x_t),
                             mesh.gather_to_rank0(group, traj, axis=1))
 
@@ -139,26 +136,26 @@ def run_rank(rank: int, spec: dict) -> None:
 
         res["checkpoint"] = checkpoint_case(unet, inputs, group, spec["ckpt_dir"])
 
-        # B3's entries on their plain paths: the rank's query rows / frames
-        # against the unsharded functions on the same seeded inputs
+        # the group's two ops entries on their plain paths: the rank's
+        # keyframes / frames against the same call without a group on the
+        # same seeded inputs
         rng = np.random.default_rng(9)
         kf, s, h, d = 5, 16, 2, 8
-        q, k, v = (torch.from_numpy(rng.standard_normal((2, kf * s, h, d)).astype(np.float32))
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, kf, s, h * d)).astype(np.float32))
                    for _ in range(3))
         counts = mesh.split_counts(kf, world)
-        rows = slice(sum(counts[:rank]) * s, sum(counts[: rank + 1]) * s)
-        got = fa.flash_attention_sharded(q[:, rows], k[:, rows], v[:, rows], group=group,
-                                         kv_sizes=[c * s for c in counts], kv_block=24)
-        res["flash_sharded"] = (got, flash_attention(q, k, v, kv_block=24)[:, rows])
+        mine = slice(sum(counts[:rank]), sum(counts[: rank + 1]))
+        got = extended_attention(q[:, mine], k[:, mine], v[:, mine], heads=h, kv_block=24,
+                                 group=group, kf_counts=counts)
+        res["flash_sharded"] = (got, extended_attention(q, k, v, heads=h, kv_block=24)[:, mine])
         f, s, d = 12, 16, 8
         xq, ph = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                   for shape in ((f, s, d), (3, s, d)))
-        ph = ph / ph.norm(dim=-1, keepdim=True)
         table = torch.from_numpy(rng.standard_normal((3, 3, s, d)).astype(np.float32))
         pa, pb, w1 = (torch.as_tensor(a) for a in propagation_indices(f, 4))
-        got = tm.token_match_gather_sharded(group.local(xq), ph, table, group.local(pa),
-                                            group.local(pb), group.local(w1))
-        want = tm.token_match_gather_plain(xq, ph, table, pa, pb, w1)
+        got = token_propagation(group.local(xq), ph, table, group.local(pa),
+                                group.local(pb), group.local(w1))
+        want = token_propagation(xq, ph, table, pa, pb, w1)
         res["match_sharded"] = (got, group.local(want, 1))
         res["bytes_sent"] = dict(group.bytes_sent)
     torch.save(res, os.path.join(spec["out"], f"rank{rank}.pt"))

@@ -251,8 +251,8 @@ def run(opt) -> dict:
     utils.synchronize(device)
     mesh.barrier(group)
     with utils.Timer() as t_inv:
-        x_T, traj, save_ts = mesh.sharded_inversion(
-            eps_fn, lat, sched, opt.save_steps, group, segments=slices, checkpoint=ck)
+        x_T, traj, save_ts = inversion.segmented_inversion(
+            eps_fn, lat, sched, opt.save_steps, segments=slices, checkpoint=ck)
         utils.synchronize(device)
         mesh.barrier(group)
     print(f"[tokenflow-torch] inversion ({opt.steps} steps): {t_inv.seconds:.1f}s")

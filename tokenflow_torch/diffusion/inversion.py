@@ -68,6 +68,36 @@ def ddim_inversion(
     return x, traj, save_ts
 
 
+def segmented_inversion(eps_fn: EpsFn, latents: torch.Tensor, sched: ddim.DDIMSchedule,
+                        save_steps: int, *, segments=None, checkpoint=None):
+    """:func:`ddim_inversion` in ``segments`` (slices of the step indices,
+    default one), the counterpart of
+    ``tokenflow_tpu/sharding/mesh.py::sharded_inversion``. The segments run
+    in order on one carry, which ``checkpoint`` (a
+    ``cli.common.SegmentCheckpointer``, or None) resumes and saves at their
+    boundaries. Inversion is frame-parallel: over a frames group each rank
+    passes its own block of the frames as ``latents`` and needs no
+    communication. Returns x_T, the trajectory and the save grid;
+    ``sharding.mesh.gather_to_rank0`` collects a rank's for saving (x_T
+    along axis 0, the trajectory along axis 1)."""
+    segments = segments or [slice(None)]
+    traj = torch.zeros((save_steps, *latents.shape), dtype=latents.dtype,
+                       device=latents.device)
+    start, (x, traj) = (0, (latents, traj)) if checkpoint is None else \
+        checkpoint.resume((latents, traj), len(segments))
+    save_ts = inversion_xs(sched, save_steps)[1]
+    for i, steps in enumerate(segments):
+        if i < start:
+            continue
+        x, traj, save_ts = ddim_inversion(
+            eps_fn, latents, sched, save_steps, steps=steps, carry=(x, traj))
+        if checkpoint is not None:
+            checkpoint.save(i, len(segments), (x, traj))
+    if checkpoint is not None:
+        checkpoint.done()
+    return x, traj, save_ts
+
+
 @torch.inference_mode()
 def ddim_reconstruction(
     eps_fn: EpsFn, x_T: torch.Tensor, sched: ddim.DDIMSchedule

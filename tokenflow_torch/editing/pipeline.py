@@ -340,7 +340,7 @@ def tokenflow_sample_loop(
                     edit = editctx.UNetEdit(
                         mode=editctx.EditMode.FUSED, n_frames=f_local, n_pivots=n_windows,
                         pnp=pnp, qk_gate=qk_g, conv_gate=conv_g,
-                        prop_pa=pa, prop_pb=pb, prop_w1=w1, group=group,
+                        prop_pa=pa, prop_pb=pb, prop_w1=w1,
                     )
                     eps_all, _ = unet_apply(sample, t, embeds_fused, edit, **added_fused)
                     with span("tf.ddim"):
@@ -377,7 +377,6 @@ def tokenflow_sample_loop(
                         mode=editctx.EditMode.PROPAGATE, n_frames=chunk, pnp=pnp,
                         prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
                         cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
-                        group=group,
                     )
                     sample = streams(src[sl], x[sl], n_prop, part(depth, sl))
                     eps_c, _ = unet_apply(

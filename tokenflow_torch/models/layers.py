@@ -33,7 +33,7 @@ from tokenflow_torch.kernels.layer_norm import layer_norm_kernel
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.attention import flash_attention, merge_heads, split_heads
 from tokenflow_torch.ops.extended_attention import extended_attention, inject_source_qk
-from tokenflow_torch.ops.propagation import token_propagation, token_propagation_sharded
+from tokenflow_torch.ops.propagation import token_propagation
 from tokenflow_torch.profiling import span
 
 
@@ -261,19 +261,20 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm32(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def _keyframe_attention(self, hp, edit: editctx.BlockEdit, group=None,
-                            kf_counts=None) -> torch.Tensor:
+    def _keyframe_attention(self, hp, edit: editctx.BlockEdit) -> torch.Tensor:
         """Extended attention of the keyframes' normed states ``hp`` (ns, K,
         S, C), with the PnP q/k injection, through the output projection:
         kf_attn (ns, K, S, C). Projected stream-major, so kf_attn is
-        contiguous and its [1:] view reaches the match kernels uncopied."""
+        contiguous and its [1:] view reaches the match kernels uncopied.
+        A PIVOTAL directive over a frames group carries ``group`` and
+        ``kf_counts``, and the extended streams' K/V are gathered."""
         ns, kf, s, dim = hp.shape
         q, k, v = self.attn1.qkv(hp.reshape(ns * kf, s, dim))
         q3, k3, v3 = (t.reshape(ns, kf, s, t.shape[-1]) for t in (q, k, v))
         if edit.qk_inject_site:
             q3, k3 = inject_source_qk(q3, k3, edit.qk_gate)
         o3 = extended_attention(q3, k3, v3, heads=self.heads, kv_block=self.kv_block,
-                                group=group, kf_counts=kf_counts)
+                                group=edit.group, kf_counts=edit.kf_counts)
         return self.attn1.out(o3.reshape(ns * kf, s, o3.shape[-1])).reshape(ns, kf, s, dim)
 
     def forward(self, x, context, edit: Optional[editctx.BlockEdit] = None):
@@ -287,8 +288,7 @@ class BasicTransformerBlock(nn.Module):
         elif mode == editctx.EditMode.PIVOTAL:
             h3 = h_norm.reshape(edit.n_frames, edit.n_streams, s, dim)
             with span("tf.ext_attn"):
-                kf_attn = self._keyframe_attention(h3.transpose(0, 1), edit, edit.group,
-                                                   edit.kf_counts)
+                kf_attn = self._keyframe_attention(h3.transpose(0, 1), edit)
                 attn_out = kf_attn.transpose(0, 1).reshape(b, s, dim)
             cache = {
                 # stream 0's normed states drive the NN matching: the source
@@ -302,9 +302,8 @@ class BasicTransformerBlock(nn.Module):
                 cache["pivot_h_uncond"] = h3[:, 1]
         elif mode == editctx.EditMode.PROPAGATE:
             f, ns = edit.n_frames, edit.n_streams
-            propagate = token_propagation if edit.group is None else token_propagation_sharded
             with span("tf.propagation"):
-                o3 = propagate(
+                o3 = token_propagation(
                     h_norm.reshape(f, ns, s, dim)[:, 0],
                     edit.pivot_h, edit.kf_attn,
                     edit.prop_pa, edit.prop_pb, edit.prop_w1,
@@ -315,13 +314,13 @@ class BasicTransformerBlock(nn.Module):
             kf, f = edit.n_pivots, edit.n_frames
             h3 = h_norm.reshape(kf + f, 3, s, dim)
             hp = h3[:kf].transpose(0, 1)  # (3, K, S, C) view
-            # every rank of a group holds all the keyframes: no K/V gather
+            # every rank of a group holds all the keyframes, and the FUSED
+            # directive carries no group: no K/V gather
             with span("tf.ext_attn"):
                 kf_attn = self._keyframe_attention(hp, edit)
-            propagate = token_propagation if edit.group is None else token_propagation_sharded
             with span("tf.propagation"):
-                oq = propagate(h3[kf:, 0], hp[0], kf_attn,
-                               edit.prop_pa, edit.prop_pb, edit.prop_w1)
+                oq = token_propagation(h3[kf:, 0], hp[0], kf_attn,
+                                       edit.prop_pa, edit.prop_pb, edit.prop_w1)
             attn_out = torch.cat([
                 kf_attn.transpose(0, 1).reshape(3 * kf, s, dim),
                 oq.transpose(0, 1).reshape(3 * f, s, dim).to(x.dtype),

@@ -12,11 +12,12 @@ streams [source, uncond, cond] (tokenflow_tpu/ops/editctx.py:7-16), or
 [uncond, cond] where the pass is source-free. Stream 0 of a batch always
 drives the NN matching.
 
-Over a frames group (``sharding/mesh.py``) a directive carries ``group``:
-a PIVOTAL pass then holds this rank's block of the keyframes (``kf_counts``
-gives every rank's count) and gathers the extended streams' K/V, and a
-PROPAGATE pass holds this rank's frames against the replicated cache. A
-FUSED pass holds all the keyframes and this rank's frames.
+Over a frames group (``sharding/mesh.py``) only a PIVOTAL directive with
+split keyframes carries ``group``: the pass then holds this rank's block
+of the keyframes (``kf_counts`` gives every rank's count) and gathers the
+extended streams' K/V. A PROPAGATE directive holds this rank's frames
+against the replicated cache, and a FUSED one all the keyframes and this
+rank's frames; neither needs the group, so neither carries it.
 
 A site is one transformer block (``models/layers.py::block_sites``): SD has
 one block at each of its 16 attention sites, SD-XL 70 blocks at 11 sites,
@@ -79,8 +80,10 @@ class BlockEdit:
     prop_pa: Optional[torch.Tensor] = None  # (F,) own-window pivot index
     prop_pb: Optional[torch.Tensor] = None  # (F,) previous-window pivot index
     prop_w1: Optional[torch.Tensor] = None  # (F,) blend weight of prop_pa
-    group: Optional[Any] = None  # sharding.mesh.FramesGroup of a sharded pass
-    kf_counts: Optional[tuple] = None  # PIVOTAL: keyframes per rank, rank order
+    # PIVOTAL only: the sharding.mesh.FramesGroup the keyframes are split
+    # over, and the keyframes per rank in rank order
+    group: Optional[Any] = None
+    kf_counts: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +134,8 @@ class UNetEdit:
     prop_pa: Optional[torch.Tensor] = None
     prop_pb: Optional[torch.Tensor] = None
     prop_w1: Optional[torch.Tensor] = None
+    # PIVOTAL only: the frames group the keyframes are split over, and the
+    # keyframes per rank (BlockEdit's)
     group: Optional[Any] = None
     kf_counts: Optional[tuple] = None
 

@@ -4,16 +4,21 @@ PyTorch counterpart of ``tokenflow_tpu/ops/extended_attention.py``: the
 uncond and cond streams attend over the K/V of all keyframes at once, which
 is dense self-attention over the flattened (K * S) token sequence per
 stream; the source stream keeps per-frame self-attention. Over a frames
-group with the keyframes split across ranks, the two extended streams go
-through ``flash_attention_sharded``, which all-gathers their K/V.
+group with the keyframes split across ranks, the two extended streams'
+K and V are all-gathered along the sequence axis here (the JAX package's
+``_sharded_flash`` partitioning rule), and the rank's queries attend
+over them through the same :func:`flash_attention` call as without a
+group: the gather is the only difference, and it is exact because softmax
+rows are independent. This is the one place the frames group reaches
+attention.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tokenflow_torch.kernels.flash_attention import flash_attention_sharded
 from tokenflow_torch.ops.attention import flash_attention, merge_heads, split_heads
+from tokenflow_torch.sharding import mesh
 
 
 def inject_source_qk(
@@ -47,8 +52,9 @@ def extended_attention(
     cond attend over all K frames' keys/values jointly. With a frames
     ``group`` (``sharding/mesh.py``) the K here are this rank's keyframes,
     ``kf_counts`` every rank's count in rank order: uncond and cond attend
-    over all ranks' keyframes through ``flash_attention_sharded``, and the
-    source stream stays per frame and local.
+    over all ranks' keyframes, whose K and V are all-gathered
+    (``mesh.all_gather_along``, kind ``kv_all_gather``), and the source
+    stream stays per frame and local.
     """
     ns, kf, s, inner = q3.shape
     if ns not in (2, 3):
@@ -59,15 +65,11 @@ def extended_attention(
     def ext(t):
         return split_heads(t[ns - 2 :].reshape(2, kf * s, inner), heads)
 
-    if group is None:
-        out_ext = flash_attention(
-            ext(q3), ext(k3), ext(v3), scale=scale, kv_block=kv_block
-        )
-    else:
-        out_ext = flash_attention_sharded(
-            ext(q3), ext(k3), ext(v3), group=group,
-            kv_sizes=[c * s for c in kf_counts], scale=scale, kv_block=kv_block,
-        )
+    q_ext, k_ext, v_ext = ext(q3), ext(k3), ext(v3)
+    if group is not None:
+        k_ext, v_ext = (mesh.all_gather_along(group, t, 1, [c * s for c in kf_counts],
+                                              "kv_all_gather") for t in (k_ext, v_ext))
+    out_ext = flash_attention(q_ext, k_ext, v_ext, scale=scale, kv_block=kv_block)
     out_ext = merge_heads(out_ext).reshape(2, kf, s, inner)
     if ns == 2:
         return out_ext

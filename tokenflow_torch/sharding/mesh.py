@@ -4,9 +4,11 @@
 The parallelism model is the JAX package's (mesh.py:1-53). Frames are the
 batch axis, and each rank holds a contiguous block of ``F / world`` frames.
 
-- VAE encode/decode, DDIM inversion and reconstruction, the propagation
-  pass and the SDEdit vanilla loop run on the rank's own frames. They need
-  no communication beyond collecting results on rank 0, which alone writes.
+- VAE encode/decode, DDIM inversion
+  (``diffusion/inversion.py::segmented_inversion``) and reconstruction,
+  the propagation pass and the SDEdit vanilla loop run on the rank's own
+  frames. They need no communication beyond collecting results on rank 0,
+  which alone writes.
 - The pivotal pass is the coupling point. Pivots are global frame indices,
   so ``x[piv]`` and ``src[piv]`` (and ``depth[piv]``, the ControlNet's
   ``cond_image[piv]``) come from the rank that owns each pivot: every rank
@@ -18,16 +20,18 @@ batch axis, and each rank holds a contiguous block of ``F / world`` frames.
   (:func:`split_counts`: 5 over 2 is 3 and 2; with fewer keyframes than
   ranks a rank holds none). The uncond and cond streams attend over all
   keyframes, so each site all-gathers their K and V along the keyframe axis
-  and runs K1 on the rank's queries
-  (``kernels/flash_attention.py::flash_attention_sharded``; exact, softmax
-  rows are independent). The per-site cache is then all-gathered along the
-  keyframe axis, once per site per step (:func:`gather_cache`). Without
+  and attends the rank's queries over them
+  (``ops/extended_attention.py::extended_attention``, the one place the
+  group reaches attention; exact, softmax rows are independent). The
+  per-site cache is then all-gathered along the keyframe axis, once per
+  site per step (:func:`gather_cache`). Without
   ``shard_pivotal`` every rank runs the whole pivotal pass, and the cache is
   born replicated.
 - Propagation runs K2/K3 on the rank's frames against the replicated
-  keyframe tables (``kernels/token_match.py::token_match_gather_sharded``).
-  The pivot indices stay global, so windows that straddle a shard boundary
-  need no exchange, and :func:`check_divisible` only warns about them.
+  keyframe tables through the call a single process makes
+  (``ops/propagation.py::token_propagation``). The pivot indices stay
+  global, so windows that straddle a shard boundary need no exchange, and
+  :func:`check_divisible` only warns about them.
 
 The backend is NCCL for CUDA devices and gloo for the CPU unless the caller
 names one. gloo with CUDA tensors (two ranks on one card, where NCCL refuses
@@ -40,6 +44,9 @@ then leaves its tensor as it is.
 Unlike the JAX package's ``maybe_frames_mesh``, which falls back to one
 device when the frames do not divide, :func:`check_divisible` raises: under
 N processes a fallback would have every rank run the whole edit.
+
+The module imports nothing of the port: the layers that need the group
+(``editing``, ``ops``, the CLIs) import it.
 """
 
 from __future__ import annotations
@@ -320,34 +327,3 @@ def is_writer(group: Optional[FramesGroup]) -> bool:
     """Whether this process writes the outputs: rank 0, or the only one."""
     return group is None or group.rank == 0
 
-
-def sharded_inversion(eps_fn, latents: torch.Tensor, sched, save_steps: int,
-                      group: Optional[FramesGroup] = None, *, segments=None,
-                      checkpoint=None):
-    """DDIM inversion of the rank's frames ``latents``, the counterpart of
-    ``tokenflow_tpu/sharding/mesh.py::sharded_inversion``: inversion is
-    embarrassingly frame-parallel, so each rank inverts its own block with
-    no communication. ``segments`` (slices of the step indices, default
-    one) run in order on one carry, which ``checkpoint`` (a
-    ``cli.common.SegmentCheckpointer`` over ``group``, or None) resumes and
-    saves at their boundaries. Returns the rank's x_T and trajectory and the
-    save grid; :func:`gather_to_rank0` collects them for saving (x_T along
-    axis 0, the trajectory along axis 1)."""
-    from tokenflow_torch.diffusion import inversion
-
-    segments = segments or [slice(None)]
-    traj = torch.zeros((save_steps, *latents.shape), dtype=latents.dtype,
-                       device=latents.device)
-    start, (x, traj) = (0, (latents, traj)) if checkpoint is None else \
-        checkpoint.resume((latents, traj), len(segments))
-    save_ts = inversion.inversion_xs(sched, save_steps)[1]
-    for i, steps in enumerate(segments):
-        if i < start:
-            continue
-        x, traj, save_ts = inversion.ddim_inversion(
-            eps_fn, latents, sched, save_steps, steps=steps, carry=(x, traj))
-        if checkpoint is not None:
-            checkpoint.save(i, len(segments), (x, traj))
-    if checkpoint is not None:
-        checkpoint.done()
-    return x, traj, save_ts
