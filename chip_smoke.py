@@ -46,13 +46,19 @@ Phases (any failure raises, and the script exits non-zero):
      at F=24 9216x320 (the 768p top level, K2's under approx), K3 at F=24
      9216x320 (the kernel alone), and K2 on ``kf_attn[1:]`` of a
      three-stream table in the cache's stream-major order (passed as it is)
-     and in frame-major order (copied by the wrapper);
+     and in frame-major order (copied by the wrapper). K7 (the GEGLU's
+     projection and activation) runs at one row per shape family the paths
+     launch and a ragged one (K7_SHAPES) against its plain version in fp32
+     (K7_MAX_ULPS), two launches bit for bit, with its plan, device time by
+     events and by the profiler's record, its share of the bound, the
+     replaced bf16 path's time and F.linear's projection alone;
   3. zero the kernels' launch counters and drive the main path through the
      port's CLIs: 40 synthetic 512x512 frames, SD-2.1 with random weights
      in bf16, DDIM inversion + reconstruction, then a 10-step PnP edit with
-     5 pivots; check the output tree, finite frames, that K1, K2, K4, K5
-     and K6 were launched and that K3 was not (K6's launches a step are
-     reported beside the yardstick's count, K6_PER_STEP). ``[clip]`` (``check_clip``):
+     5 pivots; check the output tree, finite frames, that K1, K2, K4, K5,
+     K6 and K7 were launched and that K3 was not (K6's launches a step are
+     reported beside the yardstick's count, K6_PER_STEP; K7's must equal
+     K7_PER_STEP, one a transformer block a model call). ``[clip]`` (``check_clip``):
      a full-width ViT-L/14 CLIP checkpoint in HF layout with random
      weights from a seed (build/, removed after); the port's
      ``compare_outputs`` CLI (PSNR, CLIP temporal consistency and score)
@@ -409,6 +415,29 @@ LN_SHAPES = [
 # max(|ref|, GN_ULP_FLOOR) (fp32 sums in another order; the rounding to
 # bf16 of a result near a tie)
 LN_MAX_ULPS = 1
+# K7's rows (M, K, 2N): x (M, K) against the ff.net.0.proj weight (2N, K),
+# one per shape family the paths launch, and one ragged M that is a
+# multiple of neither plan's tile rows
+K7_SHAPES = [
+    (491520, 320, 2560),  # SD 512^2: the propagation pass's 64x64 level (120 images)
+    (122880, 640, 5120),  # SD 512^2: 32x32
+    (30720, 1280, 10240),  # SD 512^2: 16x16
+    (960, 1280, 10240),  # the pivotal pass's 8x8 mid block (15 images): the 64-row plan
+    (491520, 640, 5120),  # SD-XL 1024^2: 64x64
+    (122880, 1280, 10240),  # SD-XL 1024^2: 32x32
+    (1000, 320, 2560),  # ragged M
+]
+# K7 against its plain version in fp32 (TF32 off) on fp32 copies of the
+# same bf16 inputs: at most this many bf16 steps at max(|ref|,
+# GN_ULP_FLOOR). K7 rounds once to bf16 (half a step) after fp32 sums in
+# another order than cuBLAS's (about 1e-6 relative) and erff; the bf16
+# plain path, which rounds the projection, the GELU and the product, read
+# 5.7-6.8 steps at these rows on an H100
+K7_MAX_ULPS = 1
+# K7's launches a step on the main paths: one per transformer block a
+# model call runs (16 a UNet call, 7 a ControlNet call)
+K7_PER_STEP = {"pnp_512": {"inversion+reconstruction": 16, "edit": 32},
+               "controlnet_512": {"edit": 46}}
 # cluster sizes compared per row (sweep_group_norm_clusters)
 GN_CLUSTER_SWEEP = [
     ((9, 320, 96, 96), (2, 4, 8)), ((24, 640, 48, 48), (1, 2, 4)),
@@ -1490,6 +1519,93 @@ def check_layer_norm(gen: torch.Generator) -> dict:
     }
 
 
+def _geglu_rows_f32(x, w, b, rows: int = 1 << 16):
+    """The plain version in fp32 on fp32 copies of bf16 x, w and b, row
+    slice by row slice (the full fp32 projection would take 10 GB)."""
+    from tokenflow_torch.kernels.geglu import geglu_plain
+
+    wf, bf = w.float(), b.float()
+    for i in range(0, x.shape[0], rows):
+        yield i, geglu_plain(x[i:i + rows].float(), wf, bf)
+
+
+def check_geglu(gen: torch.Generator) -> dict:
+    """K7 against its plain version in fp32 (TF32 off) at K7_SHAPES (at
+    most K7_MAX_ULPS bf16 steps, ``bf16_ulps_floored``, and the relative
+    L2), two launches bit for bit; per row the plan, one launch's device
+    time by CUDA events and by the profiler's kernel record, the bound
+    (flops at 989 TFLOP/s or x + W + out bytes at 3.35 TB/s), the replaced
+    bf16 path (``geglu_plain``: F.linear, F.gelu and the product, the
+    library yardstick) and ``F.linear``'s projection alone."""
+    import torch.nn.functional as F
+
+    from tokenflow_torch.kernels import geglu as gg
+
+    rows = []
+    for m, k, n2 in K7_SHAPES:
+        n = n2 // 2
+        x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((n2, k), generator=gen, device="cuda") * k**-0.5).bfloat16()
+        b = (0.1 * torch.randn((n2,), generator=gen, device="cuda")).bfloat16()
+        tag = f"[K7] {m} x {k} -> {n2}"
+        out = gg.geglu_kernel(x, w, b)
+        again = gg.geglu_kernel(x, w, b)
+        torch.cuda.synchronize()
+        ulps, sq_err, sq_ref = 0.0, 0.0, 0.0
+        for i, ref in _geglu_rows_f32(x, w, b):
+            got = out[i:i + ref.shape[0]]
+            ulps = max(ulps, bf16_ulps_floored(got, ref))
+            sq_err += float((got.float() - ref).square().sum())
+            sq_ref += float(ref.square().sum())
+            del ref
+        rel = math.sqrt(sq_err / sq_ref)
+        bitwise = torch.equal(out, again)
+        if not (bool(torch.isfinite(out.float()).all()) and ulps <= K7_MAX_ULPS and bitwise):
+            raise AssertionError(f"{tag}: {ulps} bf16 steps from the fp32 plain version, "
+                                 f"rel L2 {rel:.3e}, two launches bitwise equal: {bitwise}")
+        head = x[:1 << 16]  # the replaced bf16 path's error, on the first rows
+        plain_ulps = bf16_ulps_floored(gg.geglu_plain(head, w, b),
+                                       gg.geglu_plain(head.float(), w.float(), b.float()))
+        del out, again
+        p = gg.plan(m, k, n)
+
+        def call():
+            return gg.geglu_kernel(x, w, b)
+
+        dev_ms = device_ms(call)
+        trace_ms = kernel_trace_ms(call, "geglu_gemm")
+        plain_ms = device_ms(lambda: gg.geglu_plain(x, w, b), runs=5)
+        linear_ms = device_ms(lambda: F.linear(x, w, b), runs=5)
+        flops = 2.0 * m * k * n2
+        bound_ms, bound_by = bound(2.0 * (m * k + n2 * k + m * n), flops)
+        print(f"{tag}: plan {p}, {ulps:.3f} bf16 steps (bf16 plain path {plain_ulps:.3f}), "
+              f"rel L2 {rel:.3e}, two launches bitwise equal; kernel {dev_ms:.4f} ms device "
+              f"({bound_ms / dev_ms:.1%} of the bound; profiler's kernel record "
+              f"{trace_ms:.4f} ms, {bound_ms / trace_ms:.1%}), plain bf16 path "
+              f"{plain_ms:.4f} ms, F.linear alone {linear_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by})", flush=True)
+        rows.append({"shape": [m, k, n2], "plan": p, "ulps": ulps, "rel_l2": rel,
+                     "plain_bf16_ulps": plain_ulps, "bitwise_repeat": True,
+                     "device_ms": dev_ms, "trace_ms": trace_ms, "plain_ms": plain_ms,
+                     "linear_ms": linear_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share_device": bound_ms / dev_ms})
+        del x, w, b, head
+        torch.cuda.empty_cache()
+    main = rows[0]
+    return {
+        "name": "geglu",
+        "route": "cuda",
+        "source": "tokenflow_torch/csrc/geglu_gemm.cu",
+        "replaces": "F.linear, F.gelu and the product on CUDA bf16 (no TPU kernel: XLA's)",
+        "max_ulps": max(r["ulps"] for r in rows),
+        "rel_l2": max(r["rel_l2"] for r in rows),
+        "ms": main["device_ms"],
+        **{key: main[key] for key in ("plain_ms", "bound_ms", "bound_by")},
+        "library_ms": main["plain_ms"],
+        "shapes": rows,
+    }
+
+
 def sweep_group_norm_clusters(gen: torch.Generator) -> list:
     """K4 at the GN_CLUSTER_SWEEP rows with each listed cluster size forced
     (the plan's override), without SiLU: one launch's device time and the
@@ -1625,6 +1741,7 @@ def kernel_modules() -> dict:
     """The wrapper module of each kernel, by its bf16 name in the kernels
     line."""
     from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.kernels import geglu as gg
     from tokenflow_torch.kernels import group_norm as gn
     from tokenflow_torch.kernels import layer_norm as ln
     from tokenflow_torch.kernels import short_attention as sa
@@ -1633,12 +1750,12 @@ def kernel_modules() -> dict:
 
     return {"flash_attention": fa, "token_match_gather": tm,
             "token_match_gather_split": tms, "group_norm": gn, "layer_norm": ln,
-            "short_attention": sa}
+            "short_attention": sa, "geglu": gg}
 
 
 # each entry of the kernels line: (its wrapper module in kernel_modules(),
 # the dtype of the launches it counts, or None for all: K4 is one source in
-# both dtypes, K5 is bf16 only)
+# both dtypes, K5, K6 and K7 are bf16 only)
 KERNEL_ENTRIES = {
     "flash_attention": ("flash_attention", "bfloat16"),
     "token_match_gather": ("token_match_gather", "bfloat16"),
@@ -1646,20 +1763,21 @@ KERNEL_ENTRIES = {
     "group_norm": ("group_norm", None),
     "layer_norm": ("layer_norm", None),
     "short_attention": ("short_attention", None),
+    "geglu": ("geglu", None),
     "flash_attention_f32": ("flash_attention", "float32"),
     "token_match_f32": ("token_match_gather", "float32"),
     "token_match_split_f32": ("token_match_gather_split", "float32"),
 }
 BF16_KERNELS = ("flash_attention", "token_match_gather", "token_match_gather_split",
-                "layer_norm", "short_attention")
+                "layer_norm", "short_attention", "geglu")
 MATCH_KERNELS = ("token_match_gather", "token_match_gather_split")
 F32_KERNELS = ("flash_attention_f32", "token_match_f32", "token_match_split_f32")
 # the norms' kernels a CUDA stack launches by default: K4 and K5 in bf16,
 # K4 alone in fp32 (an fp32 LayerNorm stays on F.layer_norm)
 NORMS_BF16 = ("group_norm_bf16", "layer_norm")
 # the kernels every bf16 edit path launches: K1, K6 (the short-key
-# attention calls), K2 and the norms'
-PATH_BF16 = ("flash_attention", "short_attention", "token_match_gather") + NORMS_BF16
+# attention calls), K2, K7 (the GEGLUs) and the norms'
+PATH_BF16 = ("flash_attention", "short_attention", "token_match_gather", "geglu") + NORMS_BF16
 NORMS_F32 = ("group_norm_f32",)
 
 
@@ -1667,13 +1785,14 @@ def zero_counts() -> None:
     mods = kernel_modules()
     for m in mods.values():
         m.launches = 0
-        if m is not mods["short_attention"]:  # K6 is bf16 alone
+        if m not in (mods["short_attention"], mods["geglu"]):  # K6 and K7 are bf16 alone
             m.launches_by_dtype.clear()
     for name in ("flash_attention", "short_attention"):
         mods[name].launches_by_head_dim.clear()
     for name in ("flash_attention", "group_norm", "layer_norm", "short_attention"):
         mods[name].launches_by_shape.clear()
     mods["short_attention"].launches_by_plan.clear()
+    mods["geglu"].launches_by_plan.clear()
     for name in MATCH_KERNELS:
         mods[name].launches_by_streams.clear()
 
@@ -1701,6 +1820,15 @@ def check_launched(counts: dict, path: str, want: tuple, not_want: tuple) -> Non
     for name in not_want:
         if counts[name] != 0:
             raise AssertionError(f"kernel {name} ran on the {path} path")
+
+
+def check_k7_per_step(tag: str, launches_per_step: dict, want: dict) -> dict:
+    """Raises unless K7 launched ``want[phase]`` times a step in each phase
+    (one launch per transformer block a model call runs); returns them."""
+    got = {phase: launches_per_step[phase]["geglu"] for phase in want}
+    if got != want:
+        raise AssertionError(f"{tag}: K7 launches a step {got}, expected {want}")
+    return got
 
 
 def read_match_streams() -> dict:
@@ -1854,6 +1982,7 @@ def run_main_path(root: str, dtype: str = "bf16", inv_steps: int = 20,
         report["depth_maps_seconds"] = pre["depth_seconds"]
     if dtype == "bf16" and sd_version == "2.1":
         report["k6_expected_per_step"] = K6_PER_STEP["pnp_512"]
+        check_k7_per_step(tag, report["launches_per_step"], K7_PER_STEP["pnp_512"])
     if variants:
         report["variants"] = variants
         report["steps_by_variant"] = compare_steps(tag, exact, variants)
@@ -2469,14 +2598,14 @@ def run_controlnet_path(root: str) -> dict:
         raise AssertionError(f"ControlNet K1 shapes missing from K1_SD15_SHAPES: {missing}")
     if counts["token_match_gather"] <= 0:
         raise AssertionError("K2 was not launched on the ControlNet path")
-    check_launched(counts, "512^2 ControlNet", NORMS_BF16 + ("short_attention",),
+    check_launched(counts, "512^2 ControlNet", NORMS_BF16 + ("short_attention", "geglu"),
                    ("token_match_gather_split", "group_norm_f32") + F32_KERNELS)
+    launches_per_step = per_step(
+        pre_counts, counts, {"inversion+reconstruction": 2 * inv_steps, "edit": edit_steps},
+    )
     report = {
         "launches": counts,
-        "launches_per_step": per_step(
-            pre_counts, counts, {"inversion+reconstruction": 2 * inv_steps,
-                                 "edit": edit_steps},
-        ),
+        "launches_per_step": launches_per_step,
         "k1_launches_by_head_dim": {
             "inversion+reconstruction": {str(d): n for d, n in pre_dims.items()},
             "edit": {str(d): n for d, n in edit_dims.items()},
@@ -2487,6 +2616,8 @@ def run_controlnet_path(root: str) -> dict:
                      if n > pre_shapes.get(s, 0)},
         },
         "k6_expected_per_step": K6_PER_STEP["controlnet_512"],
+        "k7_per_step": check_k7_per_step("[controlnet 512]", launches_per_step,
+                                         K7_PER_STEP["controlnet_512"]),
         "residuals": residuals,
         "preprocess_seconds": t_pre,
         "inversion_seconds_per_step": pre["inversion_seconds"] / inv_steps,
@@ -3668,7 +3799,8 @@ def main() -> int:
     with watchdog(K1_PHASE_SECONDS, "K1-f32's checks"):
         kernels.append(check_flash_f32(gen))
     kernels += [check_token_match(gen), check_token_match_split(gen),
-                *check_token_match_f32(gen), check_group_norm(gen), check_layer_norm(gen)]
+                *check_token_match_f32(gen), check_group_norm(gen), check_layer_norm(gen),
+                check_geglu(gen)]
 
     # phase 3: the paths through the CLIs, each with the counts zeroed
     # just before it and read just after

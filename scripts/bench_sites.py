@@ -23,9 +23,12 @@ transformer block a call runs: 16 on SD, 70 on SD-XL) and the bytes of the
 pivotal caches they returned; and K6's (short-key attention) launches in
 the same window by plan and by head dim, beside the CUDA short-key calls
 that took the plain version instead (``ops/attention.py::plain_on_cuda``,
-0 on every cell). The weights, the specs and the models come
-from the configuration's architecture module, as a benchmark run takes
-them. No reference runs: ``benchmark/run.py`` decides ``correct``.
+0 on every cell); and K7's (the GEGLU's projection and activation)
+launches in the same window by plan, with the CUDA GEGLU calls that took
+the plain version (``models/layers.py::GEGLU.plain_on_cuda``, 0 on every
+cell): one launch per transformer block a model call runs. The weights,
+the specs and the models come from the configuration's architecture
+module, as a benchmark run takes them. No reference runs: ``benchmark/run.py`` decides ``correct``.
 """
 
 from __future__ import annotations
@@ -102,8 +105,20 @@ def k6_counts() -> dict:
             "plain_on_cuda": attention.plain_on_cuda}
 
 
-def k6_launches(before: dict, after: dict, steps: int) -> dict:
-    """The growth of ``k6_counts`` over a window, in all and per step."""
+def k7_counts() -> dict:
+    """K7's launches so far, in all and by plan, and the CUDA GEGLU calls
+    that took the plain version."""
+    from tokenflow_torch.kernels import geglu
+    from tokenflow_torch.models.layers import GEGLU
+
+    return {"launches": geglu.launches,
+            **{f"plan.{k}": v for k, v in geglu.launches_by_plan.items()},
+            "plain_on_cuda": GEGLU.plain_on_cuda}
+
+
+def growth(before: dict, after: dict, steps: int) -> dict:
+    """The growth of counts (``k6_counts``, ``k7_counts``) over a window, in
+    all and per step."""
     grown = {k: v - before.get(k, 0) for k, v in after.items()}
     return {**grown, "per_step": {k: v / steps for k, v in grown.items()}}
 
@@ -119,12 +134,13 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
     steps, window_s = harness.window(stage, seconds, False, cuda)
     before = {"group_norm": group_norm.launches, "layer_norm": layer_norm.launches}
     sites0, cache0 = editctx.sites_visited, editctx.pivotal_cache_bytes
-    k6_before = k6_counts()
+    k6_before, k7_before = k6_counts(), k7_counts()
     with profiling.spans() as record:
         steps_a, window_a = harness.window(stage, seconds, False, cuda)
     launched = {"group_norm": group_norm.launches - before["group_norm"],
                 "layer_norm": layer_norm.launches - before["layer_norm"]}
-    k6 = k6_launches(k6_before, k6_counts(), steps_a)
+    k6 = growth(k6_before, k6_counts(), steps_a)
+    k7 = growth(k7_before, k7_counts(), steps_a)
     counted = {"sites_visited": editctx.sites_visited - sites0,
                "pivotal_cache_bytes": editctx.pivotal_cache_bytes - cache0}
     reduced, steps_b = None, 0
@@ -143,6 +159,7 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
         "norm_launches": norm_launches(record, launched, steps_a),
         "edit_counters": edit_counters(record, counted, steps_a),
         "k6_launches": k6,
+        "k7_launches": k7,
     }
     if reduced is not None:
         out.update(coverage_pct=reduced.coverage, linked_pct=reduced.linked_share,

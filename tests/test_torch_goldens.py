@@ -342,6 +342,37 @@ def test_geglu_ff_matches_torch():
     assert not np.allclose(torch_geglu_ff(x, swapped, p).numpy(), ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_port_geglu_ff_matches_jax(dtype):
+    """The port's GEGLUFeedForward on the CPU, the plain version that K7
+    replaces on a bf16 CUDA stack only: in fp32 it equals the JAX
+    GEGLUFeedForward on the same diffusers weights; in bf16 it equals its
+    own projection, split and exact GELU, bit for bit."""
+    from tokenflow_torch.kernels.geglu import geglu_plain
+    from tokenflow_torch.models.layers import GEGLUFeedForward as PortFF
+
+    dim = 16
+    sd = _SD(2)
+    p = "down_blocks.0.attentions.0.transformer_blocks.0"
+    sd.lin(f"{p}.ff.net.0.proj", dim, 8 * dim)
+    sd.lin(f"{p}.ff.net.2", 4 * dim, dim)
+    x = sd._t(2, 6, dim)
+    params = W.convert_unet_state_dict(_to_np(sd))["down_0_attn_0"]["block"]["ff"]
+    ref = np.asarray(GEGLUFeedForward(dim=dim).apply(
+        {"params": params}, jnp.asarray(x.numpy(), jnp.float32)))
+    port = PortFF(dim).to(dtype)
+    port.load_state_dict({k[len(p) + 4:]: v.to(dtype) for k, v in sd.items()
+                          if k.startswith(f"{p}.ff.")})
+    with torch.no_grad():
+        out = port(x.to(dtype))
+        if dtype == torch.float32:
+            np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+        else:
+            proj = port.net[0].proj
+            h = geglu_plain(x.to(dtype), proj.weight, proj.bias)
+            assert torch.equal(out, port.net[2](h))
+
+
 def test_basic_transformer_block_matches_torch():
     dim, ctx_dim, heads = 32, 24, 2
     sd = _SD(3)

@@ -9,7 +9,8 @@ row-major order; convolutions run on NCHW tensors inside the UNet/VAE.
 Dtype policy (as in JAX): weights and activations in the stack dtype (bf16
 on the GPU), normalization statistics and attention logits in fp32. On
 CUDA the norms keep their statistics on chip (K4, K5) and write no fp32
-copy of the activation.
+copy of the activation, and on a bf16 stack the GEGLU's projection and
+activation are one kernel (K7).
 
 Spans (``profiling.span``): ``tf.norm`` in both norms, casts included;
 inside a transformer block ``tf.self_attn``, ``tf.ext_attn`` (the
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tokenflow_torch.kernels.geglu import geglu_kernel, geglu_plain
 from tokenflow_torch.kernels.group_norm import group_norm_kernel, group_norm_plain
 from tokenflow_torch.kernels.layer_norm import layer_norm_kernel
 from tokenflow_torch.ops import editctx
@@ -208,13 +210,26 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
+    """``proj`` (diffusers ff.net.0.proj, [hidden | gate]) and hidden * the
+    exact (erf) GELU of the gate. A bf16 CUDA input launches K7
+    (``kernels/geglu.py``: the projection never leaves the chip); every
+    other input takes the plain version, and a CUDA one is counted in
+    ``plain_on_cuda``."""
+
+    # CUDA calls that took the plain version (reset by callers): 0 on the
+    # bf16 paths, where K7 takes every call
+    plain_on_cuda = 0
+
     def __init__(self, dim: int, inner: int):
         super().__init__()
         self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x):
-        h, gate = self.proj(x).chunk(2, dim=-1)
-        return h * F.gelu(gate)  # exact (erf) GELU
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            return geglu_kernel(x, self.proj.weight, self.proj.bias)
+        if x.is_cuda:
+            GEGLU.plain_on_cuda += 1
+        return geglu_plain(x, self.proj.weight, self.proj.bias)
 
 
 class GEGLUFeedForward(nn.Module):
