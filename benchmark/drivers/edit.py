@@ -6,8 +6,20 @@ the traffic's editor ("pnp": PnP injection under its gates; "sdedit": the
 schedule truncated at ``start``, no injection; "controlnet": the
 ControlNet's residuals on every UNet call, canny images at 100/200), its
 window, guidance and the program's defaults (two passes a step, exact
-propagation, GroupNorm kernel off). Steps run from the schedule's first;
+propagation; on the card the port's kernels, the GroupNorm kernel among
+them, as its editors run them). Steps run from the schedule's first;
 after its last the loop starts again from the same start latents.
+
+The schedule is the configuration's (``program.py``): the program's
+``ddim.make_schedule`` on the ``scheduler``'s betas, training timesteps,
+``steps_offset`` and ``set_alpha_to_one``, and its ``ddim.save_grid``
+over those training timesteps: the numbers the reference's tables are
+made of. A scheduler the reference does not follow is refused by key and
+value before anything is built. Where the ``prediction_type`` is not
+"epsilon" the loop is handed ``prediction_type=<value>`` (it holds the
+schedule's alphas, so it converts the model's output); a program whose
+loop does not take it fails in set-up with its own TypeError instead of
+sampling the model as eps. That is the program's contract.
 
 The inputs are the harness's: the start latents and a 50-slot source
 trajectory made from seeded clean latents with DDIM's forward formula (the
@@ -24,6 +36,7 @@ import torch
 
 import checks
 import inputs
+import program
 from reference import schedule, steps as ref_steps
 
 
@@ -34,6 +47,10 @@ class Stage:
 
         self.run, tr, arch = run, run.traffic, run.arch
         dev, dt = run.device, run.dtype
+        # the program's schedule on the configuration's scheduler, refused here,
+        # before anything is built, where the reference does not follow it
+        sched = program.ddim_schedule(run.sched_config, tr["timesteps"])
+        self.prediction_kw = program.prediction_kw(run.sched_config)
         self.unet = arch.program_model("unet", run.unet_spec, run.state["unet"])
         self.controlnet = (None if run.controlnet_spec is None else arch.program_model(
             "controlnet", run.controlnet_spec, run.state["controlnet"]))
@@ -43,11 +60,10 @@ class Stage:
         self.cond = None if self.controlnet is None else inputs.canny(frames).to(dt)
         del frames
 
-        # the program's schedule, as its editors build it
-        sched = ddim.make_schedule(tr["timesteps"])
         if tr.get("start") is not None:
             sched = ddim.truncate_schedule(sched, tr["start"])
-        save_ts = ddim.save_grid(tr["inversion_steps"], tr["save_steps"])[0]
+        save_ts = ddim.save_grid(tr["inversion_steps"], tr["save_steps"],
+                                 num_train_timesteps=run.sched_config["num_train_timesteps"])[0]
         pnp = tr["editor"] == "pnp"
         gates = dict(pnp_attn_t=tr["pnp_attn_t"], pnp_f_t=tr["pnp_f_t"]) if pnp else {}
         self.steps = pipeline.split_schedule(
@@ -76,7 +92,7 @@ class Stage:
             window_size=tr["window"], guidance_scale=tr["guidance_scale"],
             pnp=tr["editor"] == "pnp", pivot_indices=self.pivots[pos : pos + 1],
             phase=self.run.phase, controlnet_fn=self.controlnet, cond_image=self.cond,
-            **self.program_kw,
+            **self.program_kw, **self.prediction_kw,
         )
 
     def warm(self) -> None:

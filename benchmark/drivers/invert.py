@@ -7,7 +7,14 @@ configuration has one, and the architecture's further model inputs (its
 module, ``run.arch``, builds the models too). Steps run over the
 traffic's schedule from its first; after its last the loop starts again
 from the clean latents and an empty trajectory. Compared: the state after
-sampled steps, and the trajectory slots the window wrote."""
+sampled steps, and the trajectory slots the window wrote.
+
+The schedule is the configuration's, as in the edit stage
+(``drivers/edit.py``, ``program.py``): a scheduler the reference does not
+follow is refused before anything is built, and where the
+``prediction_type`` is not "epsilon" the inversion is handed
+``prediction_type=<value>``; a program whose inversion does not take it
+fails in set-up with its own TypeError. That is the program's contract."""
 
 from __future__ import annotations
 
@@ -15,16 +22,18 @@ import types
 
 import checks
 import inputs
+import program
 from reference import schedule, steps as ref_steps
 
 
 class Stage:
     def __init__(self, run):
         from tokenflow_torch.cli.preprocess import build_eps_fn
-        from tokenflow_torch.diffusion import ddim
 
         self.run, tr, arch = run, run.traffic, run.arch
         dev, dt = run.device, run.dtype
+        self.sched = program.ddim_schedule(run.sched_config, tr["timesteps"])
+        self.prediction_kw = program.prediction_kw(run.sched_config)
         self.unet = arch.program_model("unet", run.unet_spec, run.state["unet"])
         self.controlnet = (None if run.controlnet_spec is None else arch.program_model(
             "controlnet", run.controlnet_spec, run.state["controlnet"]))
@@ -39,7 +48,6 @@ class Stage:
         stack = types.SimpleNamespace(unet_apply=self.unet, dtype=dt)
         self.eps_fn = build_eps_fn(stack, self.embed, None, self.controlnet, self.cond,
                                    **program_kw)
-        self.sched = ddim.make_schedule(tr["timesteps"])
         self.tables = schedule.inversion_tables(run.sched_config, tr)
         self.carry = None
         self.sample = checks.Sample(run.seed, tr["compared_later_steps"])
@@ -50,7 +58,7 @@ class Stage:
 
         x, traj, _ = inversion.ddim_inversion(
             self.eps_fn, self.latents, self.sched, self.run.traffic["save_steps"],
-            steps=slice(pos, pos + 1), carry=carry)
+            steps=slice(pos, pos + 1), carry=carry, **self.prediction_kw)
         return x, traj
 
     def warm(self) -> None:

@@ -191,7 +191,8 @@ def run_cell(cell: manifest.Cell, args, t0: float, root: Path, device,
         print(f"[bench] kernel library {'built' if built else 'loaded'} in "
               f"{time.monotonic() - marks[-1][1]:.3f} s", flush=True)
     marks.append(("kernels", time.monotonic()))
-    state = {"unet": weights.random_state_dict(arch.reference_model("unet", cfg["unet"]),
+    denoiser = cfg[cell.denoiser_group]
+    state = {"unet": weights.random_state_dict(arch.reference_model("unet", denoiser),
                                                weights.sub_seed(args.seed, 1), device, dtype)}
     state["controlnet"] = None if cn_spec is None else weights.random_state_dict(
         arch.reference_model("controlnet", cfg["controlnet"]), weights.sub_seed(args.seed, 2),
@@ -246,7 +247,7 @@ def run_cell(cell: manifest.Cell, args, t0: float, root: Path, device,
         torch.cuda.empty_cache()
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    ref_unet = arch.reference_model("unet", cfg["unet"], state["unet"])
+    ref_unet = arch.reference_model("unet", denoiser, state["unet"])
     ref_cn = None if cn_spec is None else arch.reference_model("controlnet", cfg["controlnet"],
                                                                state["controlnet"])
     t_ref = time.monotonic()

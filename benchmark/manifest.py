@@ -17,6 +17,7 @@ from types import ModuleType
 
 HERE = Path(__file__).resolve().parent
 DEFAULT_ARCHITECTURE = "sd"
+DEFAULT_DENOISER_GROUP = "unet"
 
 
 @dataclasses.dataclass
@@ -33,6 +34,12 @@ class Cell:
     @property
     def stage(self) -> str:
         return self.traffic["stage"]
+
+    @property
+    def denoiser_group(self) -> str:
+        """The configuration's group of the denoiser's weights: the
+        architecture module's ``DENOISER_GROUP``, "unet" where it names none."""
+        return getattr(self.arch, "DENOISER_GROUP", DEFAULT_DENOISER_GROUP)
 
 
 def load_json(path: Path) -> dict:
@@ -101,7 +108,17 @@ def architecture(name: str, root: Path = HERE) -> ModuleType:
     - ``model_inputs(spec, prompts, seed, device, dtype)``: (keyword arguments
       for the program's calls, for the reference's) beyond the ``prompts``
       prompt embeddings, made from the seed, one row per prompt;
-    - ``inject_sites(spec)``: the PnP sites under the reference's names."""
+    - ``inject_sites(spec)``: the PnP sites under the reference's names;
+    - optionally ``DENOISER_GROUP``: the configuration's group that holds
+      the denoiser's config.json ("transformer" for a DiT; "unet" where the
+      module names none), handed to ``reference_model("unet", ...)``.
+
+    The configuration's ``scheduler`` is the harness's, not the module's:
+    both sides run DDIM on it, and ``reference/schedule.py`` lists the keys
+    followed (scaled-linear betas with any start, end, training timesteps,
+    ``steps_offset`` and ``set_alpha_to_one``; ``prediction_type`` epsilon
+    or v_prediction; ``timestep_spacing`` leading) and refuses the rest by
+    name."""
     path = root / "architectures" / f"{name}.py"
     if not path.exists():
         raise FileNotFoundError(f"architecture {name!r}: no module {path}")

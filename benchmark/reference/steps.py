@@ -4,7 +4,15 @@ architecture's reference modules (``architectures/<name>.py::reference_model``),
 called as ``unet(P, sample, t, context, edit, down_residuals, mid_residual,
 **model_kw)`` and ``controlnet(P, sample, t, context, cond, **model_kw)``;
 ``model_kw`` holds the architecture's inputs beyond the prompt embeddings,
-one row per prompt, batched as the embeddings are."""
+one row per prompt, batched as the embeddings are.
+
+The model's output is what the tables' ``prediction_type`` says. Guidance
+combines the outputs as they are (it is affine in them, and the guided
+streams share x, so guiding v and converting equals guiding eps); the
+DDIM update then reads eps and x0 from the guided output at the level the
+sample sits at: an edit step's ``alpha_t``, an inversion step's
+``alpha_prev`` (diffusers' DDIMInverseScheduler). For v-prediction
+x0 = sqrt(a) x - sqrt(1 - a) v and eps = sqrt(a) v + sqrt(1 - a) x."""
 
 from __future__ import annotations
 
@@ -23,11 +31,18 @@ def _streams(*parts):
     return torch.stack(parts, dim=1).reshape(-1, *parts[0].shape[1:])
 
 
-def _ddim(x, eps, alpha_t, alpha_prev):
-    a_t = torch.tensor(float(alpha_t), dtype=torch.float32, device=x.device)
-    a_p = torch.tensor(float(alpha_prev), dtype=torch.float32, device=x.device)
-    x0 = (x - torch.sqrt(1 - a_t) * eps) / torch.sqrt(a_t)
-    return torch.sqrt(a_p) * x0 + torch.sqrt(1 - a_p) * eps
+def _ddim(x, out, alpha_from, alpha_to, prediction: str):
+    """DDIM (eta 0) from the level ``alpha_from`` that ``x`` sits at to
+    ``alpha_to``, on the model's output ``out`` of kind ``prediction``."""
+    a_f = torch.tensor(float(alpha_from), dtype=torch.float32, device=x.device)
+    a_to = torch.tensor(float(alpha_to), dtype=torch.float32, device=x.device)
+    if prediction == "v_prediction":
+        eps = torch.sqrt(a_f) * out + torch.sqrt(1 - a_f) * x
+        x0 = torch.sqrt(a_f) * x - torch.sqrt(1 - a_f) * out
+    else:
+        eps = out
+        x0 = (x - torch.sqrt(1 - a_f) * eps) / torch.sqrt(a_f)
+    return torch.sqrt(a_to) * x0 + torch.sqrt(1 - a_to) * eps
 
 
 def _residuals(P, controlnet, sample, t, ctx, cond, kw):
@@ -67,7 +82,7 @@ def edit_step(P: Precision, unet, controlnet, x, src, embeds3, tables: dict, i: 
     res = _residuals(P, controlnet, sample, t, ctx,
                      None if cond is None else cond[piv].repeat_interleave(3, dim=0), kw)
     _, cache = unet(P, sample, t, ctx, M.Edit("pivotal", k, 3, **gates), **res, **kw)
-    eps = []
+    out = []
     for c0 in range(0, f, FRAMES_PER_CALL):
         sl = slice(c0, c0 + FRAMES_PER_CALL)
         n = len(x[sl])
@@ -80,28 +95,26 @@ def edit_step(P: Precision, unet, controlnet, x, src, embeds3, tables: dict, i: 
                       **gates)
         e, _ = unet(P, sample, t, ctx, edit, **res, **kw)
         e3 = e.reshape(n, 3, *e.shape[1:])
-        eps.append(e3[:, 1] + traffic["guidance_scale"] * (e3[:, 2] - e3[:, 1]))
-    return _ddim(x, torch.cat(eps), tables["alpha_t"][i], tables["alpha_prev"][i])
+        out.append(e3[:, 1] + traffic["guidance_scale"] * (e3[:, 2] - e3[:, 1]))
+    return _ddim(x, torch.cat(out), tables["alpha_t"][i], tables["alpha_prev"][i],
+                 tables["prediction_type"])
 
 
 @torch.no_grad()
 def inversion_step(P: Precision, unet, controlnet, x, cond_embed, tables: dict, i: int,
                    cond=None, model_kw=None):
-    """x after inversion step ``i`` (fp32): conditional-only eps on the
-    inversion prompt's embedding ``cond_embed`` (1, 77, C)."""
+    """x after inversion step ``i`` (fp32): the conditional-only output on
+    the inversion prompt's embedding ``cond_embed`` (1, 77, C)."""
     x = x.float()
     model_kw = model_kw or {}
     t = int(tables["t"][i])
-    eps = []
+    out = []
     for c0 in range(0, x.shape[0], FRAMES_PER_CALL):
         xs = x[c0 : c0 + FRAMES_PER_CALL]
         ctx = cond_embed.float().expand(len(xs), -1, -1)
         kw = _repeat(model_kw, len(xs))
         res = _residuals(P, controlnet, xs, t, ctx,
                          None if cond is None else cond[c0 : c0 + FRAMES_PER_CALL], kw)
-        eps.append(unet(P, xs, t, ctx, **res, **kw)[0])
-    eps = torch.cat(eps)
-    a_t, a_p = (torch.tensor(float(tables[k][i]), dtype=torch.float32, device=x.device)
-                for k in ("alpha_t", "alpha_prev"))
-    x0 = (x - torch.sqrt(1 - a_p) * eps) / torch.sqrt(a_p)
-    return torch.sqrt(a_t) * x0 + torch.sqrt(1 - a_t) * eps
+        out.append(unet(P, xs, t, ctx, **res, **kw)[0])
+    return _ddim(x, torch.cat(out), tables["alpha_prev"][i], tables["alpha_t"][i],
+                 tables["prediction_type"])
