@@ -154,6 +154,7 @@ kernel class for one 768p SDEdit edit step) and
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -411,6 +412,26 @@ LN_SHAPES = [
     (92160, 320), (737280, 320),  # SDEdit 768^2: 5 pivots x 2 streams, 40 frames x 2, 96^2
     (154, 1024), (77, 1024), (154, 768), (77, 768),  # CLIP text: OpenCLIP-H, CLIP-L
 ]
+# HunyuanDiT v1.2 at 1024^2 (64^2 = 4096 tokens a frame, 16 heads of 88,
+# 1408 wide, a 333-token context), 5 keyframes, 40 frames, 3 streams: K1's
+# rows (B, Sq, Skv, H, D) at D = 88, the pivotal pass's extended attention
+# over 5 keyframes, its source stream per frame, and the inversion's self
+# attention over 40 frames; K6's, the cross attention of the pivotal pass
+# and of the propagation pass (120 images); each against sdp_attention on
+# fp32 copies (K1's limits)
+DIT_K1_SHAPES = [(2, 20480, 20480, 16, 88), (5, 4096, 4096, 16, 88),
+                 (40, 4096, 4096, 16, 88), (2, 1000, 3000, 16, 88)]
+DIT_K6_SHAPES = [(15, 4096, 333, 16, 88), (120, 4096, 333, 16, 88), (3, 1000, 333, 16, 88)]
+# the propagation's match (S, D, F, K): K3 at the DiT's 64^2 tokens, 1408
+# wide (C = 1, 3 stages), every flip a near tie of the fp32 plain version
+DIT_MATCH = (4096, 1408, 40, 5)
+# K5's DiT rows (rows, C): the blocks' norms at 1408 over the pivotal and
+# propagation passes, the per-head QK norm at 88 and the long skips' norm
+# at 2816
+DIT_LN_SHAPES = [(61440, 1408), (491520, 1408), (983040, 88), (7864320, 88),
+                 (491520, 2816)]
+# the DiT cell's checks end the run if they take longer (a hung kernel)
+DIT_PHASE_SECONDS = 600
 # K5 against its plain version: at most this many bf16 steps at
 # max(|ref|, GN_ULP_FLOOR) (fp32 sums in another order; the rounding to
 # bf16 of a result near a tie)
@@ -1527,6 +1548,163 @@ def _geglu_rows_f32(x, w, b, rows: int = 1 << 16):
     wf, bf = w.float(), b.float()
     for i in range(0, x.shape[0], rows):
         yield i, geglu_plain(x[i:i + rows].float(), wf, bf)
+
+
+def _sdp_f32_sliced(q, k, v, rows: int = 1 << 28) -> torch.Tensor:
+    """sdp_attention on fp32 copies of bf16 q, k, v (B, S, H, D), one
+    (batch, head) slice of its logits at a time under ``rows`` elements."""
+    from tokenflow_torch.ops.attention import sdp_attention
+
+    b, sq, h, _ = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    per = max(1, rows // (sq * k.shape[1]))
+    for i in range(b):
+        for h0 in range(0, h, per):
+            hs = slice(h0, h0 + per)
+            out[i : i + 1, :, hs] = sdp_attention(q[i : i + 1, :, hs].float(),
+                                                  k[i : i + 1, :, hs].float(),
+                                                  v[i : i + 1, :, hs].float())
+    return out
+
+
+def _dit_attention_row(kernel, plan, b, sq, skv, h, d, gen) -> dict:
+    """One D = 88 attention row: the kernel against sdp_attention in fp32
+    (K1's limits), two launches bit for bit, the device time and the share
+    of the bound."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    q, k, v = randn(b, sq, h, d), randn(b, skv, h, d), randn(b, skv, h, d)
+    out, again = kernel(q, k, v), kernel(q, k, v)
+    ref = _sdp_f32_sliced(q, k, v)
+    torch.cuda.synchronize()
+    m = k1_mismatch(out, ref)
+    bitwise = torch.equal(out, again)
+    tag = f"B={b} Sq={sq} Skv={skv} H={h} D={d}"
+    del out, again, ref
+    if not (k1_within_limits(m) and bitwise):
+        raise AssertionError(f"{tag}: {m}, two launches bitwise equal: {bitwise}")
+    dev_ms = device_ms(lambda: kernel(q, k, v))
+    flops = 4.0 * b * h * sq * skv * d
+    bound_ms, bound_by = bound(2 * d * b * h * (2 * sq + 2 * skv), flops)
+    print(f"{tag}: plan {plan}, max|err|={m['max_abs_err']:.3e} (limit "
+          f"{m['max_abs_limit']:.3e}) rel L2 {m['rel_l2']:.3e} against sdp_attention in fp32, "
+          f"two launches bitwise equal; {dev_ms:.4f} ms device, bound {bound_ms:.4f} ms "
+          f"({bound_by}), {bound_ms / dev_ms:.1%} of it", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"shape": [b, sq, skv, h, d], "plan": plan, **m, "device_ms": dev_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share_device": bound_ms / dev_ms}
+
+
+def check_dit_kernels(gen: torch.Generator) -> dict:
+    """What HunyuanDiT v1.2 adds to the kernels: K1 and K6 at D = 88
+    (DIT_K1_SHAPES, DIT_K6_SHAPES) against sdp_attention in fp32; K3 and K2
+    at DIT_MATCH, 1408 wide, in the separated and random modes against the
+    plain version (fp32 products of the bf16 tables), every flip a near tie
+    (``flip_gaps`` within REF_TIE_TOL |x|), K3 bitwise equal to K2; K5 at
+    DIT_LN_SHAPES (88, 1408, 2816) against its plain version (LN_MAX_ULPS),
+    two launches bit for bit. Each row prints its plan and its device time
+    against the bound."""
+    from tokenflow_torch.kernels import flash_attention as fa
+    from tokenflow_torch.kernels import layer_norm as ln
+    from tokenflow_torch.kernels import short_attention as sa
+    from tokenflow_torch.kernels import token_match as tm
+
+    out = {"k1": [], "k6": [], "match": [], "k5": []}
+    for b, sq, skv, h, d in DIT_K1_SHAPES:
+        plan, waves = k1_plan(b, sq, h, d)
+        print(f"[K1 D=88] waves {waves:.2f}", end=" ", flush=True)
+        out["k1"].append(_dit_attention_row(fa.flash_attention_kernel, plan, b, sq, skv, h, d,
+                                            gen))
+    for b, sq, skv, h, d in DIT_K6_SHAPES:
+        print("[K6 D=88]", end=" ", flush=True)
+        out["k6"].append(_dit_attention_row(sa.short_attention_kernel, sa.plan(skv), b, sq,
+                                            skv, h, d, gen))
+    s, d, f, k = DIT_MATCH
+    for mode in ("separated", "random"):
+        args = _match_inputs(gen, s, d, mode, f, k)
+
+        def near_ties(o, idx, args=args):
+            ref, ref_idx = _k3_plain(*args)
+            gaps = flip_gaps(args[0], args[1], args[3], args[4], idx, ref_idx)
+            if gaps.numel() and float(gaps.max()) > REF_TIE_TOL:
+                raise AssertionError(f"a flip {float(gaps.max()):.3e} |x| from a tie")
+            line = _k2_equal(args)(o, idx)
+            return line + f", {gaps.numel()} flips, each a near tie"
+
+        out["match"].append(_match_row("[K3 D=1408]", _k3_kernel, _k3_plain, _k3_launch, args,
+                                       mode, f, s, d, k, extra=near_ties))
+        del args
+        torch.cuda.empty_cache()
+    for n, c in DIT_LN_SHAPES:
+        x, w, b = gn_inputs(gen, (n, c))
+        got, again = ln.layer_norm_kernel(x, w, b, 1e-6), ln.layer_norm_kernel(x, w, b, 1e-6)
+        ref = ln.layer_norm_plain(x, w, b, 1e-6)
+        torch.cuda.synchronize()
+        ulps = bf16_ulps_floored(got, ref)
+        if not (bool(torch.isfinite(got.float()).all()) and ulps <= LN_MAX_ULPS
+                and torch.equal(got, again)):
+            raise AssertionError(f"[K5] ({n}, {c}): {ulps} bf16 steps, or launches differ")
+        del got, again, ref
+        p = ln.plan(c)
+        kernel_ms = device_ms(lambda: ln.layer_norm_kernel(x, w, b, 1e-6))
+        bound_ms, _ = bound(2.0 * x.element_size() * x.numel(), 0.0)
+        print(f"[K5] ({n}, {c}): ulps={ulps:.3f}, plan {p.lanes} lanes x {p.vecs} vectors, "
+              f"two launches bitwise equal; {kernel_ms:.4f} ms device, bound {bound_ms:.4f} "
+              f"ms, {bound_ms / kernel_ms:.0%} of it", flush=True)
+        out["k5"].append({"shape": [n, c], "ulps": ulps, "lanes": p.lanes, "vecs": p.vecs,
+                          "device_ms": kernel_ms, "bound_ms": bound_ms,
+                          "bound_share": bound_ms / kernel_ms})
+        del x, w, b
+        torch.cuda.empty_cache()
+    return {"name": "dit_kernels", **out}
+
+
+def check_dit_cell(seed: int = 2147483901, steps: int = 2) -> dict:
+    """The benchmark cell ``hunyuandit_sdedit1024_edit``'s program, set up
+    and warmed as ``scripts/bench_sites.py`` makes it (a benchmark run's
+    set-up), for ``steps`` steps with the
+    launch counts zeroed: K1, K6, K3 (and no K2) and K5 launches a step
+    against the yardstick's (``architectures/hunyuan_dit.py::step_ops``:
+    K1 and K6 calls, matches), the edit sites visited (40 a model call),
+    the pivotal cache bytes a step and no CUDA attention call off the
+    kernels (``plain_on_cuda``)."""
+    sys.path[:0] = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")]
+    import bench_sites
+    import manifest
+    import yardstick as Y
+
+    from tokenflow_torch.ops import attention, editctx
+
+    cell = manifest.cell("hunyuandit_sdedit1024_edit")
+    spec, _ = cell.arch.specs(cell.config)
+    stage = bench_sites.stage_for(cell, seed, manifest.HERE, torch.device("cuda"))
+    torch.cuda.synchronize()
+    zero_counts()
+    attention.plain_on_cuda = 0
+    sites0, cache0 = editctx.sites_visited, editctx.pivotal_cache_bytes
+    for i in range(steps):
+        stage.step(i, check=False)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    counts = {k: v / steps for k, v in launches.items() if v}
+    ops = cell.arch.step_ops(cell.stage, spec, None, cell.traffic)
+    due = {"flash_attention": sum(isinstance(o, Y.Attn) and o.k1 for o in ops),
+           "short_attention": sum(isinstance(o, Y.Attn) and not o.k1 for o in ops),
+           "token_match_gather_split": sum(isinstance(o, Y.Match) for o in ops)}
+    sites = (editctx.sites_visited - sites0) / steps
+    cache = (editctx.pivotal_cache_bytes - cache0) / steps
+    print(f"[dit cell] launches a step {counts}, due {due}; sites visited a step {sites} "
+          f"(2 model calls x 40), pivotal cache {cache / 1e9:.3f} GB a step, plain_on_cuda "
+          f"{attention.plain_on_cuda}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB", flush=True)
+    bad = [k for k, v in due.items() if counts.get(k, 0) != v]
+    if bad or counts.get("token_match_gather") or sites != 80 or attention.plain_on_cuda:
+        raise AssertionError(f"[dit cell] launches {counts} against {due}, sites {sites}")
+    stage.release()
+    return {"launches": launches, "launches_per_step": counts, "due": due,
+            "sites_per_step": sites, "pivotal_cache_bytes_per_step": cache}
 
 
 def check_geglu(gen: torch.Generator) -> dict:
@@ -3801,6 +3979,8 @@ def main() -> int:
     kernels += [check_token_match(gen), check_token_match_split(gen),
                 *check_token_match_f32(gen), check_group_norm(gen), check_layer_norm(gen),
                 check_geglu(gen)]
+    with watchdog(DIT_PHASE_SECONDS, "the DiT's kernel checks"):
+        dit_kernels = check_dit_kernels(gen)
 
     # phase 3: the paths through the CLIs, each with the counts zeroed
     # just before it and read just after
@@ -3825,6 +4005,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_depth_") as root:
         depth = run_depth_path(root)
     depth["reference"] = check_small_reference("depth", modes=(("exact", 3),))
+    with watchdog(DIT_PHASE_SECONDS, "the DiT cell's steps"):
+        dit_cell = check_dit_cell()
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"[pnp 512 depth] {card}: " + json.dumps({
         k: depth[k] for k in (
             "inversion_seconds_per_step", "reconstruction_seconds_per_step",
@@ -3844,7 +4028,7 @@ def main() -> int:
                "controlnet_512": controlnet["launches"], "pnp_512_depth": depth["launches"],
                "pnp_512_f32": pnp_f32["launches"], "sdedit_768_f32": sdedit_f32["launches"],
                "pnp_512_sharded_2_ranks": sharded["launches"],
-               "pnp_512_fused": fused["launches"]}
+               "pnp_512_fused": fused["launches"], "hunyuandit_1024": dit_cell["launches"]}
     for path in (report, sdedit, controlnet, depth):  # the approximate edits
         by_path.update({name: v["launches"] for name, v in path["variants"].items()})
     for entry in kernels:
@@ -3858,8 +4042,9 @@ def main() -> int:
                       "controlnet_path": controlnet, "depth_path": depth,
                       "pnp_f32_path": pnp_f32,
                       "sdedit_f32_path": sdedit_f32, "clip": clip,
-                      "resume": resume, "sharded": sharded, "fused": fused}), flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+                      "resume": resume, "sharded": sharded, "fused": fused,
+                      "hunyuandit_cell": dit_cell}), flush=True)
+    print(json.dumps({"kernels": kernels, "dit_kernels": dit_kernels}), flush=True)
     print(f"{card}", flush=True)
     print(json.dumps({
         "ok": True,

@@ -14,21 +14,24 @@ table; the last line of standard output is a JSON object with the
 windows' steps and step seconds, the spans' cost and the readings of
 ``sites.readings``. On a machine without a card window (b) is left out and
 the device numbers are null. The line also gives the norm kernels'
-launches in window (a) beside the model calls (``tf.unet``,
+launches in window (a) beside the model calls (``tf.unet``, ``tf.dit``,
 ``tf.controlnet`` spans) they ran in: on the card K4 (GroupNorm) launches
 once per GroupNorm site a call runs, K5 (LayerNorm) once per LayerNorm
 site; and the program's edit counters in the same window
-(``ops/editctx.py``): the edit sites the UNet calls visited (one per
-transformer block a call runs: 16 on SD, 70 on SD-XL) and the bytes of the
-pivotal caches they returned; and K6's (short-key attention) launches in
+(``ops/editctx.py``): the edit sites the denoiser's calls visited (one per
+transformer block a call runs: 16 on SD, 70 on SD-XL, 40 on HunyuanDiT)
+and the bytes of the pivotal caches they returned; and K6's (short-key attention) launches in
 the same window by plan and by head dim, beside the CUDA short-key calls
 that took the plain version instead (``ops/attention.py::plain_on_cuda``,
 0 on every cell); and K7's (the GEGLU's projection and activation)
 launches in the same window by plan, with the CUDA GEGLU calls that took
 the plain version (``models/layers.py::GEGLU.plain_on_cuda``, 0 on every
-cell): one launch per transformer block a model call runs. The weights,
-the specs and the models come from the configuration's architecture
-module, as a benchmark run takes them. No reference runs: ``benchmark/run.py`` decides ``correct``.
+cell): one launch per transformer block a model call runs. The weights
+(of the configuration's denoiser group, ``Cell.denoiser_group``: "unet",
+or a DiT's "transformer"), the specs and the models come from the
+configuration's architecture module, as a benchmark run takes them, and
+the stage driver builds the program's schedule from the configuration's
+scheduler (``program.ddim_schedule``). No reference runs: ``benchmark/run.py`` decides ``correct``.
 """
 
 from __future__ import annotations
@@ -62,8 +65,9 @@ def stage_for(cell: manifest.Cell, seed: int, root: Path, device):
     unet_spec, cn_spec = arch.specs(cfg)
     if device.type == "cuda":
         program.build_kernels()
-    state = {"unet": weights.random_state_dict(arch.reference_model("unet", cfg["unet"]),
-                                               weights.sub_seed(seed, 1), device, dtype)}
+    state = {"unet": weights.random_state_dict(
+        arch.reference_model("unet", cfg[cell.denoiser_group]), weights.sub_seed(seed, 1),
+        device, dtype)}
     state["controlnet"] = None if cn_spec is None else weights.random_state_dict(
         arch.reference_model("controlnet", cfg["controlnet"]), weights.sub_seed(seed, 2),
         device, dtype)
@@ -74,20 +78,24 @@ def stage_for(cell: manifest.Cell, seed: int, root: Path, device):
     return stage
 
 
+# the spans of one denoiser call: a UNet's, a DiT's
+MODEL_SPANS = ("tf.unet", "tf.dit")
+
+
 def norm_launches(record, launched: dict, steps: int) -> dict:
     """K4's and K5's launches (``launched``) and the model calls of the
     span ``record``, in all and per step."""
     calls = {name: sum(1 for s in record.spans if s is not None and s.name == f"tf.{name}")
-             for name in ("unet", "controlnet")}
+             for name in ("unet", "dit", "controlnet")}
     counts = {**{f"{k}_calls": v for k, v in calls.items()}, **launched}
     return {**counts, "per_step": {k: v / steps for k, v in counts.items()}}
 
 
 def edit_counters(record, counted: dict, steps: int) -> dict:
     """The edit counters' growth over a window (``counted``: sites visited,
-    pivotal cache bytes), in all, per step and per UNet call of the span
-    ``record``."""
-    calls = sum(1 for s in record.spans if s is not None and s.name == "tf.unet")
+    pivotal cache bytes), in all, per step and per denoiser call (``tf.unet``
+    or ``tf.dit`` span) of the span ``record``."""
+    calls = sum(1 for s in record.spans if s is not None and s.name in MODEL_SPANS)
     return {**counted, "unet_calls": calls,
             "per_step": {k: v / steps for k, v in counted.items()},
             "per_unet_call": {k: v / calls for k, v in counted.items()} if calls else None}

@@ -101,9 +101,11 @@ def test_flash_plain_bf16_is_close_to_fp32():
                 (64, torch.float16)],
 )
 def test_kernel_wrapper_rejects_other_head_dims_and_dtypes(d, dtype):
-    """K1 is instantiated for bf16 and fp32 at D = 40, 64, 80, 160; anything
-    else (another head dim, fp16) raises before a launch (no fallback)."""
-    assert tfa.HEAD_DIMS == (40, 64, 80, 160)
+    """K1 is instantiated for bf16 at D = 40, 64, 80, 88, 160 and for fp32
+    at D = 40, 64, 80, 160; anything else (another head dim, fp16) raises
+    before a launch (no fallback)."""
+    assert tfa.HEAD_DIMS == (40, 64, 80, 88, 160)
+    assert tfa.HEAD_DIMS_F32 == (40, 64, 80, 160)
     q = torch.zeros(1, 8, 1, d, dtype=dtype)
     with pytest.raises(NotImplementedError, match="head dim"):
         tfa.flash_attention_kernel(q, q, q)

@@ -158,7 +158,7 @@ def test_plan_covers_each_row(c):
             1024: (32, 4)}.get(c, tuple(p)) == tuple(p)
 
 
-@pytest.mark.parametrize("c", [0, 100, 321, 2056, 4096])
+@pytest.mark.parametrize("c", [0, 100, 321, 2824, 4096])
 def test_plan_refuses_widths_the_kernel_lacks(c):
     with pytest.raises(NotImplementedError, match="multiple of 8"):
         tln.plan(c)

@@ -1,5 +1,5 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in/out, head dims 40,
-// 64, 80 and 160.
+// 64, 80, 88 and 160.
 //
 // Replaces the Pallas TPU kernel tokenflow_tpu/kernels/flash_attention.py
 // (flash_attention_bhsd / _flash_kernel): softmax(Q K^T * scale) V with an
@@ -21,12 +21,13 @@
 //     into boxes of 64 columns (one TMA load each, box b at column 64 b).
 //     The tensor map's extent along D is the true head dim: TMA zero-fills
 //     a box's columns past it in shared memory (D = 40: columns 40-63;
-//     D = 80: 80-127; D = 160: 160-191) and reads only the head's own D
-//     columns from device memory;
+//     D = 80: 80-127; D = 88: 88-127; D = 160: 160-191) and reads only the
+//     head's own D columns from device memory;
 //   - S = Q K^T runs as ceil(D / 16) wgmma.mma_async k-steps per tile, both
 //     operands from shared memory (K is K-major as it lies in memory); the
 //     descriptor steps 32 bytes inside a box and moves to the next box every
 //     four k-steps. D = 40 takes three k-steps: columns 40-47 are zeros;
+//     D = 88 six, the last reading the zero columns 88-95;
 //   - the softmax runs on the accumulator registers: row max and sum with
 //     quad shuffles, scale * log2 e applied in the exp2 domain. The
 //     m64nNk16 accumulator layout is the register A-operand layout of the
@@ -38,7 +39,7 @@
 //     boxes are its swizzle atoms along N, a leading offset of one box
 //     apart, and the product reads only the first D columns: the last atom
 //     in part (D = 40: 40 of one atom's 64; 80: one and 16 of the next;
-//     160: two and 32 of the third). O is D columns wide, D / 2 fp32
+//     88: one and 24, m64n88k16; 160: two and 32 of the third). O is D columns wide, D / 2 fp32
 //     registers a thread, and no zero column is ever multiplied into it;
 //   - schedule: the consumers take turns (named barriers) to start Q K^T of
 //     tile j and P V of tile j - 1, so the tensor cores work through one
@@ -53,7 +54,9 @@
 // thread (O takes 20 or 32 of them, S 64 and P 32). D = 80 has two (128
 // rows) with 240 registers and three stages of 128-token two-box tiles
 // (225 KB of shared memory): three consumers fit only with 64- or 96-token
-// tiles or two stages, and were 2-77% slower at 2 x 5120 rows. D = 160
+// tiles or two stages, and were 2-77% slower at 2 x 5120 rows. D = 88
+// (HunyuanDiT's 16 heads over 1408) takes D = 80's plan: its K and V tiles
+// are the same two boxes, and O's 44 registers fit the 240. D = 160
 // takes 64-token tiles in three stages of three-box K and V and has two
 // plans, three consumers (217 KB) and two (193 KB); the launcher takes the
 // one whose grid ends first counting waves of one block per SM times a
@@ -481,7 +484,7 @@ int write_plan(int* plan) {
 
 }  // namespace
 
-// Launches on `stream` for head dim 40, 64, 80 or 160; returns 0 on
+// Launches on `stream` for head dim 40, 64, 80, 88 or 160; returns 0 on
 // success, a cudaError_t of the launch, or a negative code for a refused
 // tensor map or another head dim (tf_error_string).
 extern "C" int tf_flash_attention(
@@ -500,6 +503,7 @@ extern "C" int tf_flash_attention(
     case 40: return launch<40, 3>(TF_FLASH_ARGS);
     case 64: return launch<64, 3>(TF_FLASH_ARGS);
     case 80: return launch<80, 2>(TF_FLASH_ARGS);
+    case 88: return launch<88, 2>(TF_FLASH_ARGS);
     case 160:
       return d160_two_consumers(batch, heads, sq, sm_count(dev))
                  ? launch<160, 2>(TF_FLASH_ARGS)
@@ -509,7 +513,7 @@ extern "C" int tf_flash_attention(
 #undef TF_FLASH_ARGS
 }
 
-// The tile plan a launch at head dim 40, 64, 80 or 160 over (batch, heads,
+// The tile plan a launch at head dim 40, 64, 80, 88 or 160 over (batch, heads,
 // sq) query rows takes on a card of `sms` SMs, into plan[5]: query rows per
 // block, KV tokens per tile, ring stages, consumer warpgroups and the
 // dynamic shared memory bytes (chip_smoke.py prints it beside each row);
@@ -520,6 +524,7 @@ extern "C" int tf_flash_attention_plan(int head_dim, int batch, int heads, int s
     case 40: return write_plan<40, 3>(plan);
     case 64: return write_plan<64, 3>(plan);
     case 80: return write_plan<80, 2>(plan);
+    case 88: return write_plan<88, 2>(plan);
     case 160:
       return d160_two_consumers(batch, heads, sq, sms) ? write_plan<160, 2>(plan)
                                                        : write_plan<160, 3>(plan);

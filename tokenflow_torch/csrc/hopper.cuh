@@ -15,7 +15,7 @@
 //     commit / wait, and the mma_async products K1, K6, K7 and the match
 //     core use (m64n256k16, m64n128k16, m64n80k16 and m64n64k16 from shared
 //     memory; with A from registers and B MN-major, m64nNk16 at N = 40, 64,
-//     80 and 160, the attention kernels' head dims);
+//     80, 88 and 160, the attention kernels' head dims);
 //   - setmaxnreg, the named barriers of K1's consumer turns and those of
 //     one warpgroup (K6's staged stores).
 // Every tile row these helpers describe is 64 bf16 = 128 bytes, one row of
@@ -192,7 +192,7 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
 // atoms `atom_bytes` apart (the leading offset). A product N columns wide
 // reads ceil(N / 64) atoms, the last one only as far as it needs: N = 40
 // reads columns 0-39 of one atom, N = 80 one atom and 16 columns of the
-// next
+// next, N = 88 one atom and 24
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t atom_bytes) {
   return sw128_desc(addr, atom_bytes, 8 * kSwizzleRowBytes);
 }
@@ -345,6 +345,19 @@ __device__ __forceinline__ void wgmma_m64n80k16_rs(float (&d)[40],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 88, fp32) += A (64 x 16 bf16, registers) . B (16 x 88, MN-major
+// smem): HunyuanDiT's head dim, one 64-column atom and 24 columns of the next
+__device__ __forceinline__ void wgmma_m64n88k16_rs(float (&d)[44],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %49, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n88k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, {%44, %45, %46, %47}, %48, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 160, fp32) += A (64 x 16 bf16, registers) . B (16 x 160, MN-major
 // smem)
 __device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80],
@@ -362,10 +375,12 @@ __device__ __forceinline__ void wgmma_m64n160k16_rs(float (&d)[80],
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  static_assert(N == 40 || N == 64 || N == 80 || N == 160, "bf16 wgmma width (rs)");
+  static_assert(N == 40 || N == 64 || N == 80 || N == 88 || N == 160,
+                "bf16 wgmma width (rs)");
   if constexpr (N == 40) wgmma_m64n40k16_rs(d, a, db);
   if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, db);
   if constexpr (N == 80) wgmma_m64n80k16_rs(d, a, db);
+  if constexpr (N == 88) wgmma_m64n88k16_rs(d, a, db);
   if constexpr (N == 160) wgmma_m64n160k16_rs(d, a, db);
 }
 

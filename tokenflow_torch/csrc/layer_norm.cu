@@ -1,9 +1,10 @@
 // K5: LayerNorm over the last axis for Hopper (sm_90a): bf16 rows and affine
 // parameters, fp32 statistics and affine arithmetic, bf16 output.
 //
-// The port's transformer blocks (UNet, ControlNet: C = 320, 640, 1280) and
-// CLIP text towers (C = 768, 1024) normalise (B, S, C) activations row by
-// row:
+// The port's transformer blocks (UNet, ControlNet: C = 320, 640, 1280;
+// HunyuanDiT: 1408, its per-head QK norm at 88 and its long-skip norm at
+// 2816) and CLIP text towers (C = 768, 1024) normalise (B, S, C)
+// activations row by row:
 //   mean = sum(x) / C, var = sum((x - mean)^2) / C (two passes over the
 //   row held in registers: no E[x^2] - E[x]^2 cancellation),
 //   y = (x - mean) * rsqrt(var + eps) * gamma + beta, rounded to bf16 once.
@@ -18,7 +19,8 @@
 //     loads, so a warp's load instruction reads whole 128-byte lines of its
 //     rows; the wrapper's plan (kernels/layer_norm.py::plan) picks the
 //     fewest lanes whose vectors per lane stay at five or under (C = 320:
-//     8 lanes x 5, 640: 16 x 5, 1280: 32 x 5, 768: 32 x 3, 1024: 32 x 4);
+//     8 lanes x 5, 640: 16 x 5, 1280: 32 x 5, 768: 32 x 3, 1024: 32 x 4,
+//     88: 4 x 3, 1408: 32 x 6, 2816: 32 x 11);
 //   - the row's sums reduce over the segment by xor shuffles, in one fixed
 //     order (deterministic);
 //   - gamma and beta are loaded once per CTA, widened to fp32 in shared
@@ -41,7 +43,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxVecs = 8;  // 16-byte vectors a lane holds: C <= 32 * 8 * 8
+// 16-byte vectors a lane holds: 8 at any lanes, 11 at 32 (C <= 32 * 11 * 8)
+constexpr int kMaxVecs = 11;
 // CTAs an SM should hold: four (at most 64 registers a thread) while a
 // lane's row takes at most 20 registers (five vectors), else two
 template <int kVecs>
@@ -157,13 +160,24 @@ Kernel kernel_for_vecs(int vecs) {
   }
 }
 
+// 32 lanes also hold 9-11 vectors (the plan takes fewer lanes only at five
+// or under)
+Kernel kernel_for_wide(int vecs) {
+  switch (vecs) {
+    case 9: return layer_norm_kernel<32, 9>;
+    case 10: return layer_norm_kernel<32, 10>;
+    case 11: return layer_norm_kernel<32, 11>;
+    default: return kernel_for_vecs<32>(vecs);
+  }
+}
+
 // the instantiation for (lanes, vecs); nullptr for a plan it lacks
 Kernel kernel_for(int lanes, int vecs) {
   switch (lanes) {
     case 4: return kernel_for_vecs<4>(vecs);
     case 8: return kernel_for_vecs<8>(vecs);
     case 16: return kernel_for_vecs<16>(vecs);
-    case 32: return kernel_for_vecs<32>(vecs);
+    case 32: return kernel_for_wide(vecs);
     default: return nullptr;
   }
 }

@@ -1,5 +1,5 @@
 // K6: short-key attention forward for Hopper (sm_90a), bf16 in/out, head
-// dims 40, 64, 80 and 160, for the attention calls whose keys fit the
+// dims 40, 64, 80, 88 and 160, for the attention calls whose keys fit the
 // UNet's kv_block (1024): every cross-attention call (77 text tokens), the
 // source stream's own self attention at the 32^2, 16^2 and 8^2 levels, the
 // 8^2 mid block's extended attention and, on passes without an edit, the
@@ -28,10 +28,10 @@
 //     so its set-up (barriers, tensor-map fetches) is paid once per SM. In
 //     the one-tile plan block i takes the i-th contiguous share of the
 //     steps, in the order all steps of a head, then the next head: a block
-//     loads a head's K and V once for many steps. At D = 40 and 80 a head's
-//     row (80 or 160 bytes) is not a whole number of 64-byte bursts, and
-//     its neighbours' rows share its bursts, so there the steps run the
-//     heads of one row block one after another instead (K and V loaded
+//     loads a head's K and V once for many steps. At D = 40, 80 and 88 a
+//     head's row (80, 160 or 176 bytes) is not a whole number of 64-byte
+//     bursts, and its neighbours' rows share its bursts, so there the steps
+//     run the heads of one row block one after another instead (K and V loaded
 //     each step, from L2): at (120, 4096, 77, 8, 40) 0.889 -> 0.446 ms, at
 //     (120, 1024, 77, 8, 80) 0.247 -> 0.207, where D = 64 and 160 lost
 //     1-9% to that order (H100, 700 W). In the streamed plan block i takes
@@ -608,7 +608,7 @@ int dispatch(int dev, const void* q, const void* k, const void* v, void* o, int 
 
 }  // namespace
 
-// Launches on `stream` for head dim 40, 64, 80 or 160 and any key length
+// Launches on `stream` for head dim 40, 64, 80, 88 or 160 and any key length
 // (the wrapper sends it those at or under the UNet's kv_block); returns 0
 // on success, a cudaError_t of the launch, or a negative code for a refused
 // tensor map or another head dim (tf_error_string).
@@ -625,6 +625,7 @@ extern "C" int tf_short_attention(
     case 40: return dispatch<40>(TF_SHORT_ARGS);
     case 64: return dispatch<64>(TF_SHORT_ARGS);
     case 80: return dispatch<80>(TF_SHORT_ARGS);
+    case 88: return dispatch<88>(TF_SHORT_ARGS);
     case 160: return dispatch<160>(TF_SHORT_ARGS);
     default: return tf::kErrHeadDim;
   }

@@ -44,8 +44,11 @@
 // Query rows per block: the resident tile costs 128 C D bytes, so C falls
 // with D to fit the 227 KB of shared memory beside the ring: C = 3 (192
 // rows, 6 stages) for D <= 320, C = 2 (128 rows, 4 stages) for D <= 640,
-// C = 1 (64 rows, 4 stages) for D <= 1280. More rows per block means fewer
-// pivot bytes read from L2 per product: each pivot box serves 64 C rows.
+// C = 1 (64 rows, 4 stages) for D <= 1280, and C = 1 with 3 stages for
+// 1280 < D <= 1408 (HunyuanDiT's 1408: a 180,224-byte query tile, 229,376
+// bytes with three 16 KB stages, where four do not fit). More rows per
+// block means fewer pivot bytes read from L2 per product: each pivot box
+// serves 64 C rows.
 // Bound: 4 S^2 D flops per frame at the bf16 tensor-core rate (the tables
 // are read once from HBM at 2 S D bytes per frame and pivot, thousands of
 // flops per byte; the gather moves 3 ns S D bytes per frame, a few percent
@@ -60,7 +63,9 @@ namespace {
 constexpr int kCoreBZ = 128;  // pivot tokens per box (the wgmma N)
 constexpr int kCoreChunk = 64;  // dims per box: one 128-byte swizzle row
 constexpr uint32_t kCoreBoxBytes = kCoreBZ * tf::kSwizzleRowBytes;  // 16 KB
-constexpr int kCoreMaxD = 1280;
+constexpr int kCoreMaxD = 1408;
+constexpr int kCoreFourStageMaxD = 1280;  // the widest D beside a 4-stage ring
+constexpr int kCoreWideStages = 3;  // the ring of 1280 < D <= kCoreMaxD
 constexpr int kCoreProducerRegs = 24;
 
 template <int C>
@@ -83,11 +88,14 @@ inline int core_consumers(int d) { return d <= 320 ? 3 : d <= 640 ? 2 : 1; }
 
 // query-tile bytes, the ring, the barriers (bar_q, full[], empty[]) and the
 // slack that aligns the base to 1024 bytes
-template <int C>
+template <int C, int kStages>
 constexpr uint32_t core_smem_bytes(int nd) {
-  return nd * 64 * C * tf::kSwizzleRowBytes + CoreShape<C>::kStages * kCoreBoxBytes +
-         8 * (1 + 2 * CoreShape<C>::kStages) + 1024;
+  return nd * 64 * C * tf::kSwizzleRowBytes + kStages * kCoreBoxBytes + 8 * (1 + 2 * kStages) +
+         1024;
 }
+static_assert(core_smem_bytes<1, 4>(kCoreFourStageMaxD / 64) <= 232448, "C = 1, 4 stages");
+static_assert(core_smem_bytes<1, kCoreWideStages>(kCoreMaxD / 64) <= 232448,
+              "C = 1, 3 stages");
 
 // One z tile of similarities (columns z0 .. z0 + 127 of this thread's rows
 // g and g + 8) folded into their running first maxima. kMasked: columns
@@ -173,7 +181,7 @@ __device__ __forceinline__ void gather_rows(
 // tp: of p_hat (K, S, D) as (D, S, 1, K), boxes of kCoreBZ tokens.
 // Writes out_a[f * s_len + s], out_b[f * s_len + s] and, unless out is
 // null, out (ns, F, S, D) from kf (ns, K, S, D).
-template <int C>
+template <int C, int kStages>
 __global__ void __launch_bounds__(128 * (1 + C), 1)
 match_core(const __grid_constant__ CUtensorMap tx,
            const __grid_constant__ CUtensorMap tp, const int* __restrict__ pa,
@@ -181,7 +189,6 @@ match_core(const __grid_constant__ CUtensorMap tx,
            int* __restrict__ out_b, const __nv_bfloat16* __restrict__ kf,
            const float* __restrict__ w1, __nv_bfloat16* __restrict__ out, int ns,
            int n_piv, int s_len, int d, int nd) {
-  constexpr int kStages = CoreShape<C>::kStages;
   constexpr uint32_t kQChunkBytes = 64 * C * tf::kSwizzleRowBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (tf::smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -306,7 +313,7 @@ match_core(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-template <int C>
+template <int C, int kStages = CoreShape<C>::kStages>
 int launch_core(tf::EncodeTiledFn encode, const void* x, const void* phat,
                 const int* pa, const int* pb, int* out_a, int* out_b, const void* kf,
                 const float* w1, void* out, int ns, int f_total, int n_piv, int s_len,
@@ -318,12 +325,12 @@ int launch_core(tf::EncodeTiledFn encode, const void* x, const void* phat,
     rc = tf::make_map(&tp, encode, phat, d, s_len, 1, n_piv, plane, d, plane, kCoreBZ);
   if (rc != 0) return rc;
   const int nd = (d + kCoreChunk - 1) / kCoreChunk;
-  const uint32_t smem = core_smem_bytes<C>(nd);
+  const uint32_t smem = core_smem_bytes<C, kStages>(nd);
   const cudaError_t attr = cudaFuncSetAttribute(
-      match_core<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      match_core<C, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((s_len + 64 * C - 1) / (64 * C), f_total);
-  match_core<C><<<grid, 128 * (1 + C), smem, stream>>>(
+  match_core<C, kStages><<<grid, 128 * (1 + C), smem, stream>>>(
       tx, tp, pa, pb, out_a, out_b, static_cast<const __nv_bfloat16*>(kf), w1,
       static_cast<__nv_bfloat16*>(out), ns, n_piv, s_len, d, nd);
   return static_cast<int>(cudaGetLastError());
@@ -349,6 +356,9 @@ inline int launch_match_core(const void* x, const void* phat, const void* kf,
       return launch_core<2>(encode, x, phat, pa, pb, out_a, out_b, kf, w1, out, ns,
                             f_total, n_piv, s_len, d, st);
     default:
+      if (d > kCoreFourStageMaxD)
+        return launch_core<1, kCoreWideStages>(encode, x, phat, pa, pb, out_a, out_b, kf, w1,
+                                               out, ns, f_total, n_piv, s_len, d, st);
       return launch_core<1>(encode, x, phat, pa, pb, out_a, out_b, kf, w1, out, ns,
                             f_total, n_piv, s_len, d, st);
   }

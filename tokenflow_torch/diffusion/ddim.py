@@ -12,6 +12,14 @@ Math parity targets (Stable Diffusion scheduler config): scaled-linear
 betas 0.00085..0.012 over 1000 steps, "leading" spacing with
 steps_offset=1, final_alpha_cumprod = alphas_cumprod[0], epsilon
 prediction, no clipping.
+
+The update rules take the model's output as eps (``prediction_type``
+"epsilon", the default, the SD models') or as v ("v_prediction",
+HunyuanDiT's): v is turned into eps and x0 in fp32 at the level the sample
+sits at, x0 = sqrt(a) x - sqrt(1 - a) v and eps = sqrt(a) v + sqrt(1 - a) x
+(Salimans & Ho, 2022; diffusers' DDIMScheduler), and the eps path is the
+same operations as before. Guidance is affine in the output, so the loops
+guide the raw output and convert after.
 """
 
 from __future__ import annotations
@@ -121,14 +129,17 @@ def get_timesteps(sched: DDIMSchedule, strength: float) -> tuple[np.ndarray, int
 
 
 def save_grid(
-    inversion_steps: int, save_steps: int, num_train_timesteps: int = 1000
+    inversion_steps: int, save_steps: int, num_train_timesteps: int = 1000,
+    steps_offset: int = 1,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(save_timesteps ascending, per-inversion-step save mask, per-step
     slot) of the trajectory save grid (reference preprocess.py:227-229,
-    297-301)."""
-    toy = make_schedule(save_steps, num_train_timesteps=num_train_timesteps).timesteps[::-1]
+    297-301), both grids at the scheduler's ``steps_offset`` (SD's 1 by
+    default), so an edit's timesteps lie on it at any offset."""
+    toy = make_schedule(save_steps, num_train_timesteps=num_train_timesteps,
+                        steps_offset=steps_offset).timesteps[::-1]
     inv = make_schedule(
-        inversion_steps, num_train_timesteps=num_train_timesteps
+        inversion_steps, num_train_timesteps=num_train_timesteps, steps_offset=steps_offset
     ).timesteps[::-1]
     save_set = {int(t): i for i, t in enumerate(toy)}
     mask = np.asarray([int(t) in save_set for t in inv])
@@ -149,6 +160,24 @@ def _alpha(a, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.float32, device=like.device)
 
 
+PREDICTION_TYPES = ("epsilon", "v_prediction")
+
+
+def check_prediction_type(prediction_type: str) -> None:
+    if prediction_type not in PREDICTION_TYPES:
+        raise ValueError(f"prediction_type {prediction_type!r} is not one of {PREDICTION_TYPES}")
+
+
+def v_to_x0_eps(x_t, v, alpha):
+    """(x0, eps) of a v-prediction ``v`` for the sample ``x_t`` at level
+    ``alpha``, in fp32: x0 = sqrt(a) x - sqrt(1-a) v, eps = sqrt(a) v +
+    sqrt(1-a) x."""
+    x_t, v = _f32(x_t), _f32(v)
+    a = _alpha(alpha, x_t)
+    sa, s1 = torch.sqrt(a), torch.sqrt(1.0 - a)
+    return sa * x_t - s1 * v, sa * v + s1 * x_t
+
+
 def pred_x0_from_eps(x_t, eps, alpha_t):
     """x0 estimate: (x_t - sqrt(1-a_t) eps) / sqrt(a_t)."""
     x_t, eps = _f32(x_t), _f32(eps)
@@ -156,17 +185,28 @@ def pred_x0_from_eps(x_t, eps, alpha_t):
     return (x_t - torch.sqrt(1.0 - a) * eps) / torch.sqrt(a)
 
 
-def ddim_step(x_t, eps, alpha_t, alpha_prev):
+def ddim_step(x_t, eps, alpha_t, alpha_prev, prediction_type: str = "epsilon"):
     """One deterministic DDIM denoising step (diffusers DDIMScheduler.step,
-    reference run_tokenflow_pnp.py:217)."""
-    x0 = pred_x0_from_eps(x_t, eps, alpha_t)
+    reference run_tokenflow_pnp.py:217); ``eps`` is the model's (guided)
+    output of kind ``prediction_type``, read at ``alpha_t``."""
+    check_prediction_type(prediction_type)
+    if prediction_type == "v_prediction":
+        x0, eps = v_to_x0_eps(x_t, eps, alpha_t)
+    else:
+        x0 = pred_x0_from_eps(x_t, eps, alpha_t)
     a_prev = _alpha(alpha_prev, x0)
     return torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * _f32(eps)
 
 
-def ddim_invert_step(x_t, eps, alpha_t, alpha_prev):
+def ddim_invert_step(x_t, eps, alpha_t, alpha_prev, prediction_type: str = "epsilon"):
     """One closed-form DDIM inversion step, ascending t (reference
-    preprocess.py:217-225)."""
+    preprocess.py:217-225); ``eps`` is the model's output of kind
+    ``prediction_type`` for ``x_t``, which sits at ``alpha_prev``."""
+    check_prediction_type(prediction_type)
+    if prediction_type == "v_prediction":
+        x0, eps = v_to_x0_eps(x_t, eps, alpha_prev)
+        a = _alpha(alpha_t, x0)
+        return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * eps
     x_t, eps = _f32(x_t), _f32(eps)
     a, a_prev = _alpha(alpha_t, x_t), _alpha(alpha_prev, x_t)
     x0 = (x_t - torch.sqrt(1.0 - a_prev) * eps) / torch.sqrt(a_prev)

@@ -22,8 +22,10 @@ def inversion_xs(
 ) -> tuple[tuple[np.ndarray, ...], np.ndarray]:
     """Per-step tables ((alpha_t, alpha_prev, t_asc, save_mask, save_slot),
     save_ts), as tokenflow_tpu/diffusion/inversion.py:47-57."""
+    # the grid's smallest timestep is the schedule's offset
     save_ts, save_mask, save_slot = ddim.save_grid(
-        sched.num_inference_steps, save_steps, sched.num_train_timesteps
+        sched.num_inference_steps, save_steps, sched.num_train_timesteps,
+        steps_offset=int(sched.timesteps[-1]),
     )
     alpha_t, alpha_prev = sched.inversion_alphas()
     t_asc = np.ascontiguousarray(sched.timesteps[::-1]).astype(np.int32)
@@ -39,6 +41,7 @@ def ddim_inversion(
     *,
     steps: Optional[slice] = None,
     carry: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    prediction_type: str = "epsilon",
 ) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Invert clean latents to noise, recording the save-grid trajectory
     (reference preprocess.py:198-230, conditional-only embedding).
@@ -50,7 +53,12 @@ def ddim_inversion(
     one call computes. A save slot that is not on the inversion grid keeps
     its zero row.
 
+    ``prediction_type``: what ``eps_fn`` returns, "epsilon" or
+    "v_prediction" (converted at the level the step's sample sits at,
+    ``alpha_prev``: ``ddim.ddim_invert_step``).
+
     Returns (x_T, trajectory (n_save, F, h, w, 4) ascending, save_ts)."""
+    ddim.check_prediction_type(prediction_type)
     (alpha_t, alpha_prev, t_asc, mask, slot), save_ts = inversion_xs(sched, save_steps)
     if carry is None:
         x = latents
@@ -62,7 +70,8 @@ def ddim_inversion(
         with span("tf.step"):
             eps = eps_fn(x, int(t_asc[i]))
             with span("tf.ddim"):
-                x = ddim.ddim_invert_step(x, eps, alpha_t[i], alpha_prev[i]).to(x.dtype)
+                x = ddim.ddim_invert_step(x, eps, alpha_t[i], alpha_prev[i],
+                                          prediction_type).to(x.dtype)
             if mask[i]:
                 traj[int(slot[i])] = x
     return x, traj, save_ts

@@ -18,8 +18,10 @@ both passes as one UNet call a step (``EditMode.FUSED``), save where the
 JAX loop falls back to two (:func:`fused_fallback`). With per-frame
 ``depth`` maps (the 5-channel depth UNet), every stream of both passes
 carries its frame's map as a fifth channel. SD-XL's ``added_cond`` (the
-pooled text embedding and time ids, one row per prompt) is batched as the
-prompt embeddings are. Over a frames group (``sharding/mesh.py``) both
+pooled text embedding and time ids, one row per prompt) and HunyuanDiT's
+(the T5 states and text masks) are batched as the prompt embeddings are,
+and a v-predicting model's output is converted in the DDIM update
+(``prediction_type``). Over a frames group (``sharding/mesh.py``) both
 loops run on the rank's block of the frames.
 
 Spans (``profiling.span``): ``tf.step`` per denoising step; inside it
@@ -197,11 +199,13 @@ def tokenflow_sample_loop(
     group: Optional[mesh.FramesGroup] = None,
     shard_pivotal: bool = True,
     fused: bool = False,
-    added_cond: Optional[dict] = None,  # SD-XL: text_embeds (3, P), time_ids (3, 6)
+    added_cond: Optional[dict] = None,  # SD-XL's or the DiT's per-prompt inputs (3, ...)
+    prediction_type: str = "epsilon",
 ) -> torch.Tensor:
     """Run the TokenFlow edit; returns the denoised latents (F, h, w, 4) in
-    x_init's dtype. ``phase(name)`` wraps each "pivotal" and "propagate"
-    pass, or each "fused" step (a timing hook). ``controlnet_fn`` adds its
+    x_init's dtype (fp32 under v-prediction, below). ``phase(name)`` wraps
+    each "pivotal" and "propagate" pass, or each "fused" step (a timing
+    hook). ``controlnet_fn`` adds its
     residuals to every UNet call: the pivotal pass on
     ``cond_image[pivots]``, the propagation pass on its chunk's frames,
     each image repeated for the pass's streams frame-major
@@ -240,15 +244,27 @@ def tokenflow_sample_loop(
     cache is gathered and ``shard_pivotal`` does not apply.
 
     ``added_cond`` (SD-XL's added conditioning: ``text_embeds``,
-    ``time_ids``, one row per prompt [inversion | uncond | cond]) goes to
-    every UNet call, its rows repeated frame-major for the call's frames as
-    ``embeds3``'s are. PnP's sites and the ControlNet are SD's: with
-    ``added_cond`` both raise, and so does a frames ``group`` (SD-XL over a
-    frames group is not held to one process yet).
+    ``time_ids``; HunyuanDiT's T5 states and text masks; one row per prompt
+    [inversion | uncond | cond]) goes to every model call, its rows repeated
+    frame-major for the call's frames as ``embeds3``'s are. PnP's sites and
+    the ControlNet are SD's: with ``added_cond`` both raise, and so does a
+    frames ``group`` (neither model over a frames group is held to one
+    process yet).
+
+    ``prediction_type``: what the model outputs, "epsilon" (SD) or
+    "v_prediction" (HunyuanDiT). Guidance runs on the output as it is, and
+    the DDIM update converts v at the step's ``alpha_t``
+    (``ddim.ddim_step``). Under v the state is held in fp32 from step to
+    step and each model call sees it in ``embeds3``'s dtype: on HunyuanDiT's
+    betas (to 0.03) a step at t = 861-821 moves x by 0.4-0.6% of the guided
+    output, the order of the 0.17% a bf16 state loses to rounding each
+    step. The state comes back in fp32, so one call a step runs what one
+    call over the schedule runs.
 
     ``propagate_chunk`` must divide the (rank's) frames; unlike the JAX
     loop's, it need not be a multiple of the window, since every frame's
     pivot indices are global (the CLIs keep the JAX rule on the YAML key)."""
+    ddim.check_prediction_type(prediction_type)
     if added_cond is not None and (pnp or controlnet_fn is not None):
         raise ValueError(
             "SD-XL is edited with SDEdit: PnP's injection sites are SD's four-level up path "
@@ -322,21 +338,23 @@ def tokenflow_sample_loop(
         """Rows ``piv`` of a frame-indexed input, this rank's block of them."""
         return None if a is None else mesh.take_frames(group, a, piv)[kf_block]
 
-    x = x_init
+    v_state = prediction_type == "v_prediction"
+    x = x_init.float() if v_state else x_init
     for i in range(n_steps):
         with span("tf.step"):
             t = int(schedule.timesteps[i])
             qk_g, conv_g = bool(schedule.qk_gate[i]), bool(schedule.conv_gate[i])
             src = src_traj[int(schedule.src_slot[i])]
             piv = pivots[i]
+            xm = x.to(embeds3.dtype) if v_state else x  # the model's view of the state
 
             if fused:
                 with phase("fused"), span("tf.fused"):
                     def take(a):
                         return None if a is None else mesh.take_frames(group, a, piv)
 
-                    sample = torch.cat([streams(take(src), take(x), 3, take(depth)),
-                                        streams(src, x, 3, depth)])
+                    sample = torch.cat([streams(take(src), take(xm), 3, take(depth)),
+                                        streams(src, xm, 3, depth)])
                     edit = editctx.UNetEdit(
                         mode=editctx.EditMode.FUSED, n_frames=f_local, n_pivots=n_windows,
                         pnp=pnp, qk_gate=qk_g, conv_gate=conv_g,
@@ -348,7 +366,7 @@ def tokenflow_sample_loop(
                         eps = ddim.classifier_free_guidance(eps3[:, 1], eps3[:, 2],
                                                             guidance_scale)
                         x = ddim.ddim_step(
-                            x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
+                            x, eps, schedule.alpha_t[i], schedule.alpha_prev[i], prediction_type
                         ).to(x.dtype)
                 continue
 
@@ -361,7 +379,7 @@ def tokenflow_sample_loop(
                 # the pivot eps is discarded; only the cache matters (reference
                 # run_tokenflow_pnp.py:227)
                 sample = streams(keyframes(src, piv) if n_piv == 3 else None,
-                                 keyframes(x, piv), n_piv, keyframes(depth, piv))
+                                 keyframes(xm, piv), n_piv, keyframes(depth, piv))
                 _, cache = unet_apply(
                     sample, t, embeds_piv, edit_piv,
                     **residuals(sample, t, embeds_piv, keyframes(cond_image, piv), n_piv),
@@ -378,7 +396,7 @@ def tokenflow_sample_loop(
                         prop_approx=prop_approx, qk_gate=qk_g, conv_gate=conv_g,
                         cache=cache, prop_pa=pa[sl], prop_pb=pb[sl], prop_w1=w1[sl],
                     )
-                    sample = streams(src[sl], x[sl], n_prop, part(depth, sl))
+                    sample = streams(src[sl], xm[sl], n_prop, part(depth, sl))
                     eps_c, _ = unet_apply(
                         sample, t, embeds_prop, edit,
                         **residuals(sample, t, embeds_prop, part(cond_image, sl), n_prop),
@@ -392,7 +410,7 @@ def tokenflow_sample_loop(
                     u, c = (0, 1) if prop_approx else (1, 2)
                     eps = ddim.classifier_free_guidance(eps3[:, u], eps3[:, c], guidance_scale)
                     x = ddim.ddim_step(
-                        x, eps, schedule.alpha_t[i], schedule.alpha_prev[i]
+                        x, eps, schedule.alpha_t[i], schedule.alpha_prev[i], prediction_type
                     ).to(x.dtype)
     return x
 
@@ -406,7 +424,8 @@ def vanilla_sample_loop(
     *,
     guidance_scale: float,
     frame_chunk: Optional[int] = None,
-    added_cond: Optional[dict] = None,  # SD-XL: text_embeds (2, P), time_ids (2, 6)
+    added_cond: Optional[dict] = None,  # SD-XL's or the DiT's per-prompt inputs (2, ...)
+    prediction_type: str = "epsilon",
 ) -> torch.Tensor:
     """Per-frame SDEdit baseline (no TokenFlow): 2-stream [uncond|cond] CFG
     sampling over chunks of ``frame_chunk`` frames (the JAX ``lax.map``
@@ -414,21 +433,25 @@ def vanilla_sample_loop(
     denoised latents in x_init's dtype. Every frame is independent, so over
     a frames group each rank passes its block of the frames (the JAX
     package's sharded vanilla loop, ``tests/test_sharding.py``) and no rank
-    talks to another. ``added_cond`` (SD-XL) has one row per prompt
-    [uncond | cond], batched as ``embeds2``."""
+    talks to another. ``added_cond`` (SD-XL, the DiT) has one row per
+    prompt [uncond | cond], batched as ``embeds2``; ``prediction_type`` is
+    :func:`tokenflow_sample_loop`'s, its fp32 state under v too."""
+    ddim.check_prediction_type(prediction_type)
     f_total = x_init.shape[0]
     chunk = frame_chunk or f_total
     if f_total % chunk:
         raise ValueError(f"frame_chunk {chunk} must divide {f_total} frames")
     embeds = embeds2.repeat(chunk, 1, 1)  # frame-major [uncond, cond]
     added = _per_prompt(added_cond, slice(None), chunk)
-    x = x_init
+    v_state = prediction_type == "v_prediction"
+    x = x_init.float() if v_state else x_init
     for i in range(len(schedule.timesteps)):
         with span("tf.step"):
             t = int(schedule.timesteps[i])
+            xm = x.to(embeds2.dtype) if v_state else x
             eps = []
             for c0 in range(0, f_total, chunk):
-                x_c = x[c0 : c0 + chunk]
+                x_c = xm[c0 : c0 + chunk]
                 eps2, _ = unet_apply(_stack_streams(x_c, x_c), t, embeds, None, **added)
                 eps2 = eps2.reshape(chunk, 2, *eps2.shape[1:])
                 with span("tf.ddim"):
@@ -436,6 +459,7 @@ def vanilla_sample_loop(
                                                              guidance_scale))
             with span("tf.ddim"):
                 x = ddim.ddim_step(
-                    x, torch.cat(eps), schedule.alpha_t[i], schedule.alpha_prev[i]
+                    x, torch.cat(eps), schedule.alpha_t[i], schedule.alpha_prev[i],
+                    prediction_type,
                 ).to(x.dtype)
     return x

@@ -8,9 +8,9 @@ header comment gives the design (TMA loads into an mbarrier ring, wgmma
 products, a producer warpgroup and two or three consumer warpgroups). Each
 head dim has its own tile plan (``Cfg<D, kCons>`` there; the library
 reports a launch's plan through ``tf_flash_attention_plan``): Q K^T runs
-ceil(D / 16) k-steps deep and P V exactly D columns wide, so D = 40, 80
-and 160 multiply no zero-padded columns into O; D = 40 and 64 take 192
-query rows a block, D = 80 128, and D = 160 whichever of 192 and 128 ends
+ceil(D / 16) k-steps deep and P V exactly D columns wide, so D = 40, 80,
+88 and 160 multiply no zero-padded columns into O; D = 40 and 64 take 192
+query rows a block, D = 80 and 88 128, and D = 160 whichever of 192 and 128 ends
 its grid first on the card's SMs (128 on one-wave grids such as 4
 keyframes at 512^2, 192 at 5). Bound on the H100: compute (4 Sq Skv D
 flops against (Sq + 2 Skv) D bf16 bytes per head). Measured by device
@@ -32,9 +32,11 @@ positive multiples of 16, so a tensor whose strides are not positive
 multiples of 8 elements (a broadcast ``expand`` view has stride 0) or whose
 base is not 16-byte aligned is first copied into a new contiguous tensor
 (``kernels/_operands.py``, the rule the token-match core shares).
-Instantiated for bf16 and for fp32 at ``HEAD_DIMS``: D = 64 (every SD-2.x
-site) and D = 40, 80, 160 (SD-1.5's 8 heads over 320, 640 and 1280
-channels). fp32 (the stack's ``dtype: f32``) launches its own kernel,
+Instantiated for bf16 at ``HEAD_DIMS``: D = 64 (every SD-2.x site), D =
+40, 80, 160 (SD-1.5's 8 heads over 320, 640 and 1280 channels) and D = 88
+(HunyuanDiT's 16 heads over 1408: Q K^T six k-steps deep, the last over
+the zero-filled columns 88-95, P V at m64n88k16); for fp32 at
+``HEAD_DIMS_F32``, SD's four. fp32 (the stack's ``dtype: f32``) launches its own kernel,
 ``tokenflow_torch/csrc/flash_attention_f32.cu``: the same function with
 both products on the tensor cores as 3xTF32 splits, fp32-class error
 (relative L2 at most 1.1e-6 against the plain version in fp32 at the
@@ -65,8 +67,10 @@ launches_by_head_dim: dict[int, int] = {}
 launches_by_dtype: dict[str, int] = {}
 # launches by (B, Sq, Skv, H, D), the same launches as ``launches``
 launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
-# the head dims the CUDA kernels are instantiated for, in both dtypes
-HEAD_DIMS = (40, 64, 80, 160)
+# the head dims the CUDA kernels are instantiated for: bf16 (HunyuanDiT's 88
+# besides SD's) and fp32
+HEAD_DIMS = (40, 64, 80, 88, 160)
+HEAD_DIMS_F32 = (40, 64, 80, 160)
 # the C entry point of each dtype's kernel
 ENTRY_POINTS = {torch.bfloat16: "tf_flash_attention", torch.float32: "tf_flash_attention_f32"}
 DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
@@ -121,8 +125,8 @@ def flash_attention_kernel(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Launch K1 on CUDA tensors q (B, Sq, H, D), k/v (B, Skv, H, D), all
-    bf16 or all fp32 on one device, D in ``HEAD_DIMS``. Returns a new (B,
-    Sq, H, D) tensor in their dtype."""
+    bf16 (D in ``HEAD_DIMS``) or all fp32 (D in ``HEAD_DIMS_F32``) on one
+    device. Returns a new (B, Sq, H, D) tensor in their dtype."""
     global launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
@@ -134,11 +138,12 @@ def flash_attention_kernel(
     if kb != b or kh != h or kd != d:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
     dtype = q.dtype
-    if d not in HEAD_DIMS or dtype not in ENTRY_POINTS or k.dtype != dtype or v.dtype != dtype:
+    dims = HEAD_DIMS_F32 if dtype == torch.float32 else HEAD_DIMS
+    if d not in dims or dtype not in ENTRY_POINTS or k.dtype != dtype or v.dtype != dtype:
         raise NotImplementedError(
-            "the CUDA flash-attention kernels are instantiated for bf16 and fp32 "
-            f"(q, k, v alike) with head dims {HEAD_DIMS}; got {q.dtype}, "
-            f"{k.dtype}, {v.dtype}, head dim {d}"
+            "the CUDA flash-attention kernels are instantiated for bf16 (head dims "
+            f"{HEAD_DIMS}) and fp32 (head dims {HEAD_DIMS_F32}), q, k, v alike; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}, head dim {d}"
         )
     device = q.device
     if device.type != "cuda" or k.device != device or v.device != device:

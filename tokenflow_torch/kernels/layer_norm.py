@@ -11,7 +11,7 @@ the mean of squared deviations), so rows far from zero lose nothing to an
 ``tokenflow_torch/csrc/layer_norm.cu`` (its header gives the design: a row
 per segment of a warp, held in registers, one row group per warp);
 :func:`plan` picks the segment from C alone. Instantiated for bf16 (x, weight and bias
-alike) with C a multiple of 8 up to 2048; another dtype or width on CUDA
+alike) with C a multiple of 8 up to 2816; another dtype or width on CUDA
 raises.
 """
 
@@ -32,7 +32,10 @@ launches_by_dtype: dict[str, int] = {}
 launches_by_shape: dict[tuple[int, int], int] = {}
 
 LANES = (4, 8, 16, 32)  # lanes a row can take (csrc/layer_norm.cu)
-MAX_VECS = 8  # 16-byte vectors a lane can hold
+# 16-byte vectors a lane can hold (at 32 lanes: the plan gives fewer lanes
+# at most 5): C up to 2816, HunyuanDiT's long-skip norm of two 1408-wide
+# states
+MAX_VECS = 11
 _VECS_TARGET = 5  # the plan's most vectors a lane, below 32 lanes
 MAX_CHANNELS = 32 * MAX_VECS * 8
 _WARPS = 8  # warps a CTA
@@ -51,7 +54,8 @@ def plan(c: int) -> Plan:
     """The fewest lanes whose vectors per lane stay at ``_VECS_TARGET`` or
     under, else 32 lanes: rows held in registers with the most independent
     loads a lane that keep registers low (C = 320: 8 x 5, 640: 16 x 5,
-    1280: 32 x 5, 768: 32 x 3, 1024: 32 x 4)."""
+    1280: 32 x 5, 768: 32 x 3, 1024: 32 x 4; HunyuanDiT's 88: 4 x 3,
+    1408: 32 x 6, 2816: 32 x 11)."""
     if c <= 0 or c % 8 or c > MAX_CHANNELS:
         raise NotImplementedError(
             f"the CUDA LayerNorm kernel takes C a multiple of 8 up to {MAX_CHANNELS}, not {c}"

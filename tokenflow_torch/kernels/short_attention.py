@@ -1,7 +1,8 @@
 """K6: short-key attention, the hand-written CUDA kernel.
 
 softmax(Q K^T scale) V for the attention calls whose keys fit the UNet's
-``kv_block`` (1024): every cross-attention call (77 text tokens), the source
+``kv_block`` (1024): every cross-attention call (77 text tokens; HunyuanDiT's
+333 CLIP and mT5 tokens at head dim 88), the source
 stream's own self attention at the 32^2, 16^2 and 8^2 levels, the 8^2 mid
 block's extended attention and, on passes without an edit (the inversion,
 the ControlNet), the plain self attention at those levels.
@@ -44,8 +45,9 @@ launches_by_head_dim: dict[int, int] = {}
 launches_by_shape: dict[tuple[int, int, int, int, int], int] = {}
 # launches by plan ("one_tile", "streamed"), the same launches as ``launches``
 launches_by_plan: dict[str, int] = {}
-# the head dims the CUDA kernel is instantiated for (K1's)
-HEAD_DIMS = (40, 64, 80, 160)
+# the head dims the CUDA kernel is instantiated for (K1's bf16 ones: SD's
+# and HunyuanDiT's 88)
+HEAD_DIMS = (40, 64, 80, 88, 160)
 # the UNet's kv_block: the longest key sequence the kernel is sent
 KV_BLOCK = 1024
 # the most keys the one-tile plan takes (csrc/short_attention.cu, dispatch)

@@ -49,8 +49,11 @@ DTYPES = (torch.bfloat16, torch.float32)
 
 # largest head width the match cores take: the bf16 core's resident query
 # tile of 64 rows (128 D bytes) beside a 4-stage ring in 227 KB of shared
-# memory (the fp32 core, which sums over D in chunks, keeps the same limit)
-MAX_D = 1280
+# memory up to 1280, beside a 3-stage ring up to 1408 (HunyuanDiT's width;
+# csrc/token_match_core.cuh); the fp32 core, which sums over D in chunks,
+# keeps 1280, the widest it is checked at
+MAX_D = 1408
+MAX_D_F32 = 1280
 _PLAIN_FRAMES = 8  # frames per plain-version chunk: bounds the (f, S, S) sims
 
 
@@ -108,7 +111,8 @@ def prepare_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
     """The checks shared by the token-match wrappers (K2 and K3): three bf16
     or three fp32 tables (NotImplementedError otherwise), one CUDA device
     (pa and pb on it or on the host),
-    agreeing shapes, D % 8 == 0 and D <= MAX_D, pivot indices in [0, K)
+    agreeing shapes, D % 8 == 0 and D <= MAX_D (MAX_D_F32 for fp32 tables),
+    pivot indices in [0, K)
     (IndexError; the kernels address the tables with them directly).
     Returns tables a TMA tensor map accepts, contiguous and 16-byte aligned
     (``_operands.tma_operand``: a misaligned or strided table is cloned),
@@ -141,9 +145,10 @@ def check_operands(name, norm_h, p_hat, kf_attn, pa, pb, w1):
         )
     if pa.shape != (f_total,) or pb.shape != (f_total,) or w1.shape != (f_total,):
         raise ValueError("pa, pb and w1 must have one entry per frame")
-    if d % 8 or d > MAX_D:
+    max_d = MAX_D_F32 if norm_h.dtype == torch.float32 else MAX_D
+    if d % 8 or d > max_d:
         raise NotImplementedError(
-            f"{name} needs D % 8 == 0 and D <= {MAX_D}, got {d}"
+            f"{name} needs D % 8 == 0 and D <= {max_d} for {norm_h.dtype} tables, got {d}"
         )
     if f_total > 65535:
         raise ValueError(f"{f_total} frames exceed the grid limit")

@@ -25,8 +25,8 @@ from tokenflow_torch.kernels.flash_attention import (
 from tokenflow_torch.profiling import span
 
 # CUDA calls of :func:`flash_attention` that took :func:`sdp_attention`
-# (reset by callers): 0 on the UNet's and ControlNet's bf16 paths, where K6
-# takes every short-key call
+# (reset by callers): 0 on the UNet's, ControlNet's and DiT's bf16 paths,
+# where K6 takes every short-key call
 plain_on_cuda = 0
 
 
