@@ -430,6 +430,17 @@ DIT_MATCH = (4096, 1408, 40, 5)
 # at 2816
 DIT_LN_SHAPES = [(61440, 1408), (491520, 1408), (983040, 88), (7864320, 88),
                  (491520, 2816)]
+# K5's rotary entry at the DiT's rotated q and k (tokens, heads, head dim):
+# the propagation pass's cross-attention q (120 images of 64^2 tokens) and
+# the pivotal pass's q and k (15 images), against the two launches it
+# replaces (K5, then apply_rope in fp32) within LN_MAX_ULPS
+DIT_ROPE_SHAPES = [(491520, 16, 88), (61440, 16, 88)]
+DIT_ROPE_GRID = 64  # the token grid at 1024^2: 4096 tokens an image
+# the DiT cell's launches a step of the rotary entry (40 blocks x 4 rotated
+# tensors: the pivotal pass's self-attention q and k, both passes'
+# cross-attention q) and of K5's plain entry (the other norms)
+DIT_ROPE_PER_STEP = 160
+DIT_K5_PER_STEP = 360
 # the DiT cell's checks end the run if they take longer (a hung kernel)
 DIT_PHASE_SECONDS = 600
 # K5 against its plain version: at most this many bf16 steps at
@@ -1604,7 +1615,8 @@ def check_dit_kernels(gen: torch.Generator) -> dict:
     plain version (fp32 products of the bf16 tables), every flip a near tie
     (``flip_gaps`` within REF_TIE_TOL |x|), K3 bitwise equal to K2; K5 at
     DIT_LN_SHAPES (88, 1408, 2816) against its plain version (LN_MAX_ULPS),
-    two launches bit for bit. Each row prints its plan and its device time
+    two launches bit for bit; K5's rotary entry at DIT_ROPE_SHAPES
+    (``_dit_rope_row``). Each row prints its plan and its device time
     against the bound."""
     from tokenflow_torch.kernels import flash_attention as fa
     from tokenflow_torch.kernels import layer_norm as ln
@@ -1658,7 +1670,58 @@ def check_dit_kernels(gen: torch.Generator) -> dict:
                           "bound_share": bound_ms / kernel_ms})
         del x, w, b
         torch.cuda.empty_cache()
+    out["k5_rope"] = [_dit_rope_row(tokens, h, d, gen) for tokens, h, d in DIT_ROPE_SHAPES]
     return {"name": "dit_kernels", **out}
+
+
+def _dit_rope_row(tokens: int, h: int, d: int, gen: torch.Generator) -> dict:
+    """K5's rotary entry on (tokens / 4096, 4096, h, d) bf16 with the DiT's
+    64 x 64 RoPE tables: within LN_MAX_ULPS bf16 steps of the two launches
+    it replaces (K5, then ``apply_rope`` in fp32) and the share of elements
+    that differ; the steps from the all-plain version (``layer_norm_rope_plain``:
+    K5's own one-step differences, carried through the rotation); two
+    launches bit for bit; device time against the 4-byte-an-element bound,
+    and the two launches' device time."""
+    from tokenflow_torch.kernels import layer_norm as ln
+    from tokenflow_torch.models.hunyuan_dit import apply_rope, rope_tables
+
+    s = DIT_ROPE_GRID * DIT_ROPE_GRID
+    x, w, b = gn_inputs(gen, (tokens * h, d))
+    x = x.reshape(tokens // s, s, h, d)
+    cos, sin = rope_tables(d, DIT_ROPE_GRID, DIT_ROPE_GRID, 32, "cuda")
+    tag = f"[K5 rope] ({tokens}, {h}, {d})"
+    got = ln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin)
+    again = ln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin)
+    two = apply_rope(ln.layer_norm_kernel(x, w, b, 1e-6), cos, sin)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps_floored(got, two)
+    differ = float((got != two).float().mean())
+    bitwise = torch.equal(got, again)
+    del again, two
+    plain_ulps = max(bf16_ulps_floored(got[i:i + 8], ln.layer_norm_rope_plain(
+        x[i:i + 8], w, b, 1e-6, cos, sin)) for i in range(0, x.shape[0], 8))
+    if not (bool(torch.isfinite(got.float()).all()) and ulps <= LN_MAX_ULPS and bitwise):
+        raise AssertionError(f"{tag}: {ulps} bf16 steps from K5 + apply_rope, two launches "
+                             f"bitwise equal: {bitwise}")
+    del got
+    p = ln.rope_plan(d)
+    kernel_ms = device_ms(lambda: ln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin))
+    trace_ms = kernel_trace_ms(lambda: ln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin),
+                               "layer_norm_rope")
+    two_ms = device_ms(lambda: apply_rope(ln.layer_norm_kernel(x, w, b, 1e-6), cos, sin))
+    bound_ms, _ = bound(2.0 * x.element_size() * x.numel(), 0.0)
+    print(f"{tag}: {ulps:.3f} bf16 steps from K5 + apply_rope ({differ:.3e} of elements "
+          f"differ), {plain_ulps:.3f} from the all-plain version, plan {p.lanes} lanes x "
+          f"{p.vecs} vectors, two launches bitwise equal; {kernel_ms:.4f} ms device "
+          f"({bound_ms / kernel_ms:.1%} of the bound; by the profiler's kernel record "
+          f"{trace_ms:.4f} ms, {bound_ms / trace_ms:.1%}), bound {bound_ms:.4f} ms; K5 + "
+          f"apply_rope {two_ms:.4f} ms", flush=True)
+    del x, w, b
+    torch.cuda.empty_cache()
+    return {"shape": [tokens, h, d], "ulps": ulps, "differ_share": differ,
+            "plain_ulps": plain_ulps, "lanes": p.lanes, "vecs": p.vecs, "device_ms": kernel_ms,
+            "trace_ms": trace_ms, "two_launch_ms": two_ms, "bound_ms": bound_ms,
+            "bound_share": bound_ms / kernel_ms}
 
 
 def check_dit_cell(seed: int = 2147483901, steps: int = 2) -> dict:
@@ -1667,14 +1730,17 @@ def check_dit_cell(seed: int = 2147483901, steps: int = 2) -> dict:
     set-up), for ``steps`` steps with the
     launch counts zeroed: K1, K6, K3 (and no K2) and K5 launches a step
     against the yardstick's (``architectures/hunyuan_dit.py::step_ops``:
-    K1 and K6 calls, matches), the edit sites visited (40 a model call),
-    the pivotal cache bytes a step and no CUDA attention call off the
-    kernels (``plain_on_cuda``)."""
+    K1 and K6 calls, matches), K5's rotary and plain launches a step
+    (DIT_ROPE_PER_STEP, DIT_K5_PER_STEP), the edit sites visited (40 a
+    model call), the pivotal cache bytes a step and no CUDA attention call
+    or q/k rotation off the kernels (``plain_on_cuda``,
+    ``plain_rope_on_cuda``)."""
     sys.path[:0] = [os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")]
     import bench_sites
     import manifest
     import yardstick as Y
 
+    from tokenflow_torch.models import hunyuan_dit
     from tokenflow_torch.ops import attention, editctx
 
     cell = manifest.cell("hunyuandit_sdedit1024_edit")
@@ -1682,7 +1748,7 @@ def check_dit_cell(seed: int = 2147483901, steps: int = 2) -> dict:
     stage = bench_sites.stage_for(cell, seed, manifest.HERE, torch.device("cuda"))
     torch.cuda.synchronize()
     zero_counts()
-    attention.plain_on_cuda = 0
+    attention.plain_on_cuda = hunyuan_dit.plain_rope_on_cuda = 0
     sites0, cache0 = editctx.sites_visited, editctx.pivotal_cache_bytes
     for i in range(steps):
         stage.step(i, check=False)
@@ -1692,15 +1758,17 @@ def check_dit_cell(seed: int = 2147483901, steps: int = 2) -> dict:
     ops = cell.arch.step_ops(cell.stage, spec, None, cell.traffic)
     due = {"flash_attention": sum(isinstance(o, Y.Attn) and o.k1 for o in ops),
            "short_attention": sum(isinstance(o, Y.Attn) and not o.k1 for o in ops),
-           "token_match_gather_split": sum(isinstance(o, Y.Match) for o in ops)}
+           "token_match_gather_split": sum(isinstance(o, Y.Match) for o in ops),
+           "layer_norm_rope": DIT_ROPE_PER_STEP, "layer_norm": DIT_K5_PER_STEP}
     sites = (editctx.sites_visited - sites0) / steps
     cache = (editctx.pivotal_cache_bytes - cache0) / steps
     print(f"[dit cell] launches a step {counts}, due {due}; sites visited a step {sites} "
           f"(2 model calls x 40), pivotal cache {cache / 1e9:.3f} GB a step, plain_on_cuda "
-          f"{attention.plain_on_cuda}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          "GiB", flush=True)
+          f"{attention.plain_on_cuda}, plain rotations {hunyuan_dit.plain_rope_on_cuda}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     bad = [k for k, v in due.items() if counts.get(k, 0) != v]
-    if bad or counts.get("token_match_gather") or sites != 80 or attention.plain_on_cuda:
+    if (bad or counts.get("token_match_gather") or sites != 80 or attention.plain_on_cuda
+            or hunyuan_dit.plain_rope_on_cuda):
         raise AssertionError(f"[dit cell] launches {counts} against {due}, sites {sites}")
     stage.release()
     return {"launches": launches, "launches_per_step": counts, "due": due,
@@ -1969,6 +2037,7 @@ def zero_counts() -> None:
         mods[name].launches_by_head_dim.clear()
     for name in ("flash_attention", "group_norm", "layer_norm", "short_attention"):
         mods[name].launches_by_shape.clear()
+    mods["layer_norm"].rope_launches = 0
     mods["short_attention"].launches_by_plan.clear()
     mods["geglu"].launches_by_plan.clear()
     for name in MATCH_KERNELS:
@@ -1977,7 +2046,7 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     """Launches of each entry of the kernels line since the counts were
-    zeroed, and K4's by dtype."""
+    zeroed, K4's by dtype and K5's rotary entry's."""
     mods = kernel_modules()
     counts = {
         name: mods[m].launches if dt is None else mods[m].launches_by_dtype.get(dt, 0)
@@ -1986,6 +2055,7 @@ def read_counts() -> dict:
     gn = mods["group_norm"].launches_by_dtype
     counts["group_norm_bf16"] = gn.get("bfloat16", 0)
     counts["group_norm_f32"] = gn.get("float32", 0)
+    counts["layer_norm_rope"] = mods["layer_norm"].rope_launches
     return counts
 
 

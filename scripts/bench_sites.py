@@ -26,7 +26,11 @@ that took the plain version instead (``ops/attention.py::plain_on_cuda``,
 0 on every cell); and K7's (the GEGLU's projection and activation)
 launches in the same window by plan, with the CUDA GEGLU calls that took
 the plain version (``models/layers.py::GEGLU.plain_on_cuda``, 0 on every
-cell): one launch per transformer block a model call runs. The weights
+cell): one launch per transformer block a model call runs; and K5's
+rotary entry's launches (HunyuanDiT's rotated q and k: 4 a block a step,
+160 on the DiT, 0 on the UNets; K5's plain launches in ``norm_launches``
+leave them out) with the CUDA q/k transforms that took the plain norm and
+rotation (``models/hunyuan_dit.py::plain_rope_on_cuda``, 0). The weights
 (of the configuration's denoiser group, ``Cell.denoiser_group``: "unet",
 or a DiT's "transformer"), the specs and the models come from the
 configuration's architecture module, as a benchmark run takes them, and
@@ -124,9 +128,19 @@ def k7_counts() -> dict:
             "plain_on_cuda": GEGLU.plain_on_cuda}
 
 
+def k5_rope_counts() -> dict:
+    """K5's rotary entry's launches so far, and the CUDA q/k transforms that
+    took the plain norm and rotation."""
+    from tokenflow_torch.kernels import layer_norm
+    from tokenflow_torch.models import hunyuan_dit
+
+    return {"launches": layer_norm.rope_launches,
+            "plain_on_cuda": hunyuan_dit.plain_rope_on_cuda}
+
+
 def growth(before: dict, after: dict, steps: int) -> dict:
-    """The growth of counts (``k6_counts``, ``k7_counts``) over a window, in
-    all and per step."""
+    """The growth of counts (``k6_counts``, ``k7_counts``,
+    ``k5_rope_counts``) over a window, in all and per step."""
     grown = {k: v - before.get(k, 0) for k, v in after.items()}
     return {**grown, "per_step": {k: v / steps for k, v in grown.items()}}
 
@@ -142,13 +156,14 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
     steps, window_s = harness.window(stage, seconds, False, cuda)
     before = {"group_norm": group_norm.launches, "layer_norm": layer_norm.launches}
     sites0, cache0 = editctx.sites_visited, editctx.pivotal_cache_bytes
-    k6_before, k7_before = k6_counts(), k7_counts()
+    k6_before, k7_before, rope_before = k6_counts(), k7_counts(), k5_rope_counts()
     with profiling.spans() as record:
         steps_a, window_a = harness.window(stage, seconds, False, cuda)
     launched = {"group_norm": group_norm.launches - before["group_norm"],
                 "layer_norm": layer_norm.launches - before["layer_norm"]}
     k6 = growth(k6_before, k6_counts(), steps_a)
     k7 = growth(k7_before, k7_counts(), steps_a)
+    rope = growth(rope_before, k5_rope_counts(), steps_a)
     counted = {"sites_visited": editctx.sites_visited - sites0,
                "pivotal_cache_bytes": editctx.pivotal_cache_bytes - cache0}
     reduced, steps_b = None, 0
@@ -168,6 +183,7 @@ def measure(cell: manifest.Cell, seed: int, seconds: float, root: Path, device) 
         "edit_counters": edit_counters(record, counted, steps_a),
         "k6_launches": k6,
         "k7_launches": k7,
+        "k5_rope_launches": rope,
     }
     if reduced is not None:
         out.update(coverage_pct=reduced.coverage, linked_pct=reduced.linked_share,

@@ -28,10 +28,11 @@ helpers (so both trees are measured alike):
     ``group_norm_kernel``, held to its plain version by
     ``chip_smoke.gn_verdict``: the wrapper's time (``median_ms``) and one
     call's device time with host work hidden (``device_ms``);
-  - sass: ``cuobjdump -sass`` of K1's (``flash_fwd``) and the match core's
-    (``match_core``) bf16 functions (not the fp32 ``flash_fwd_f32`` and
-    ``match_core_f32``, nor an older tree's ``match_f32``) in the two
-    trees' libraries, compared line by
+  - sass: ``cuobjdump -sass`` of K1's (``flash_fwd``), the match core's
+    (``match_core``) and K5's (``layer_norm_kernel``, not its rotary
+    entry ``layer_norm_rope_kernel``) bf16 functions (not the fp32
+    ``flash_fwd_f32`` and ``match_core_f32``, nor an older tree's
+    ``match_f32``) in the two trees' libraries, compared line by
     line (both listings written to ``sass_{parent,change}.txt``); K1's
     functions are matched by head dim (``flash_fwd_d64`` of a tree from
     before K1 took D as a template parameter is ``flash_fwd<64>``);
@@ -58,7 +59,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 ORDER = ("parent", "change", "change", "parent")
-SASS_FUNCTIONS = ("flash_fwd", "match_core")
+SASS_FUNCTIONS = ("flash_fwd", "match_core", "layer_norm_kernel")
 # the fp32 kernels (flash_fwd_f32, match_core_f32) are not the bf16 functions
 # the comparison holds
 SASS_SKIP = ("_f32",)
@@ -189,7 +190,7 @@ def run_one(what: str, tree: str) -> None:
 
 
 def _sass(tree: Path) -> dict:
-    """{function name: SASS lines} of the K1 and match-core functions in the
+    """{function name: SASS lines} of the K1, match-core and K5 functions in the
     tree's kernel library (built here if the tree has none yet). The names
     drop the per-file hashes of their anonymous namespace, which differ
     between checkouts."""

@@ -18,7 +18,11 @@ the benchmark's.
   what it was; the save grid at offsets 0 and 1;
 - the kernel plans the DiT adds: K1 and K6 at D = 88, the match core at
   1408 wide (three stages), K5 at 88, 1408 and 2816, with the plans of the
-  existing shapes unchanged; CUDA rows skip without a card.
+  existing shapes unchanged; CUDA rows skip without a card;
+- the q/k transform: on the CPU the norms and ``apply_rope`` bit for bit;
+  with the norms' path forced to "kernel", every rotated q and k (4 a block
+  an edit step) goes to K5's rotary entry and the cross attention's k to
+  ``norm_k``.
 
 Tolerances: fp32 on both sides with the same operations in another order
 (blocked attention and matches in the reference, einsums in the port): 1e-4
@@ -31,6 +35,8 @@ few products).
 
 from __future__ import annotations
 
+import copy
+import functools
 import re
 import sys
 from pathlib import Path
@@ -370,6 +376,80 @@ def test_the_dit_s_spans(models):
                if s.name in ("tf.rope", "tf.skip", "tf.dit_embed")}
     assert parents["tf.skip"] == "tf.block:5" and parents["tf.dit_embed"] == "tf.dit"
     assert parents["tf.rope"] in ("tf.cross_attn", "tf.self_attn", "tf.ext_attn")
+
+
+def _attention(port, self_attention: bool, dtype):
+    blk = port.blocks[0]
+    return copy.deepcopy(blk.attn1 if self_attention else blk.attn2).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rotate_k", [True, False], ids=["self", "cross"])
+def test_the_cpu_qk_transform_is_unchanged(models, rotate_k, dtype):
+    """On the CPU (and for any input K5 does not take) ``qk_transform`` is
+    the norms, then ``apply_rope`` on q and, in self attention, on k, bit
+    for bit; nothing is counted as a plain rotation on CUDA."""
+    port, _ = models
+    a = _attention(port, rotate_k, dtype)
+    gen = torch.Generator().manual_seed(11)
+    q, k = (torch.randn((2, 16, CFG.num_attention_heads, CFG.head_dim), generator=gen)
+            .to(dtype) for _ in range(2))
+    rope = port.rope(4, 4, "cpu")
+    plain_before = H.plain_rope_on_cuda
+    got_q, got_k = a.qk_transform(q, k, rope, rotate_k=rotate_k)
+    want_q, want_k = H.apply_rope(a.norm_q(q), *rope), a.norm_k(k)
+    if rotate_k:
+        want_k = H.apply_rope(want_k, *rope)
+    assert torch.equal(got_q, want_q) and torch.equal(got_k, want_k)
+    assert H.plain_rope_on_cuda == plain_before
+
+
+def test_rotated_q_and_k_take_the_rotary_entry(models, monkeypatch):
+    """With the norms' path forced to "kernel" (no card here), every rotated
+    tensor goes to K5's rotary entry with its own norm's weight, bias and
+    eps and the call's tables: q and k in self attention, q alone in cross
+    attention, whose k takes ``norm_k`` (``LayerNorm32``, K5 on the card).
+    An edit step's two calls make 4 rotary calls a block (160 a step at 40
+    blocks): the pivotal pass's self-attention q and k and both passes'
+    cross-attention q."""
+    port, ref = models
+    calls = []
+
+    def rotary(x, w, b, eps, cos, sin):
+        calls.append((w, b, eps, x.shape[1], cos.shape[0]))
+        return tln.layer_norm_rope_plain(x, w, b, eps, cos, sin)
+
+    monkeypatch.setattr(H, "layer_norm_path", lambda device, dtype: "kernel")
+    monkeypatch.setattr(H, "layer_norm_rope_kernel", rotary)
+    normed = {"q": 0, "k": 0}  # LayerNorm32 calls of the norm_q / norm_k modules
+
+    def count(which, module, args):
+        normed[which] += 1
+
+    hooks = [mod.register_forward_pre_hook(functools.partial(count, name[-1]))
+             for name, mod in port.named_modules() if name.endswith((".norm_q", ".norm_k"))]
+    try:
+        rope = port.rope(4, 4, "cpu")
+        q, k = (torch.randn((2, 16, CFG.num_attention_heads, CFG.head_dim)) for _ in range(2))
+        for a, rotated in ((port.blocks[0].attn1, ("norm_q", "norm_k")),
+                           (port.blocks[0].attn2, ("norm_q",))):
+            calls.clear()
+            k_before = normed["k"]
+            a.qk_transform(q, k, rope, rotate_k=len(rotated) == 2)
+            want = [getattr(a, n) for n in rotated]
+            assert [(w, b, eps) for w, b, eps, *_ in calls] == [
+                (n.weight, n.bias, n.eps) for n in want]
+            assert all(s == t == 16 for *_, s, t in calls)
+            assert normed["k"] - k_before == (len(rotated) == 1)
+        calls.clear()
+        normed.update(q=0, k=0)
+        x3, ctx, added = _inputs(3 * F_, 7)
+        _edit_calls(port, ref, x3, ctx, added)
+        assert len(calls) == 4 * CFG.num_layers
+        assert normed == {"q": 0, "k": 2 * CFG.num_layers}
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 def test_pnp_a_controlnet_and_the_fused_step_are_refused(models):

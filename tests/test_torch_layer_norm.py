@@ -283,3 +283,135 @@ def test_kernel_matches_plain_on_cuda():
         assert _bf16_steps(got.cpu(), tln.layer_norm_plain(x, w, b, 1e-5).cpu()) <= 1.0
     with pytest.raises(NotImplementedError, match="bf16"):
         tln.layer_norm_kernel(x.float(), w, b, 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the rotary entry: HunyuanDiT's per-head q/k norm and 2-D RoPE in one launch
+
+
+def _rope_inputs(b, s_grid, heads, d, seed, dtype=torch.bfloat16):
+    """x (b, S, heads, d) with S = s_grid^2 tokens, per-head weights, and
+    the model's RoPE tables for an s_grid x s_grid token grid."""
+    from tokenflow_torch.models.hunyuan_dit import rope_tables
+
+    g = torch.Generator().manual_seed(seed)
+    s = s_grid * s_grid
+    x = torch.randn((b, s, heads, d), generator=g) + torch.randn((b, s, heads, 1), generator=g)
+    w = 1 + 0.5 * torch.randn((d,), generator=g)
+    bias = 0.5 * torch.randn((d,), generator=g)
+    cos, sin = rope_tables(d, s_grid, s_grid, 32, "cpu")
+    return x.to(dtype), w.to(dtype), bias.to(dtype), cos, sin
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_plain_is_apply_rope_of_the_plain_norm(dtype):
+    """The rotary entry's plain version is the two steps it fuses, bit for
+    bit: K5's plain version, then the model's ``apply_rope``."""
+    from tokenflow_torch.models.hunyuan_dit import apply_rope
+
+    x, w, b, cos, sin = _rope_inputs(2, 4, 3, 88, seed=1, dtype=dtype)
+    got = tln.layer_norm_rope_plain(x, w, b, 1e-6, cos, sin)
+    want = apply_rope(tln.layer_norm_plain(x, w, b, 1e-6), cos, sin)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def _emulate_rope_rows(x, w, b, eps, cos, sin, heads, seq):
+    """The rotary kernel's rows in plain PyTorch: x viewed as (rows, D),
+    row r normed and rotated by the tables' row (r / heads) % seq, the
+    launcher's ``heads`` and ``seq``."""
+    d = x.shape[-1]
+    rows = x.reshape(-1, d)
+    pos = (torch.arange(rows.shape[0]) // heads) % seq
+    y = tln.layer_norm_plain(rows, w, b, eps).float()
+    pairs = y.unflatten(-1, (-1, 2))
+    rot = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+    out = y * cos[pos]
+    out.addcmul_(rot, sin[pos])
+    return out.to(x.dtype).reshape(x.shape)
+
+
+@pytest.mark.parametrize("fault", [None, "heads_left_out", "heads_and_seq_swapped"])
+@pytest.mark.parametrize("layout", ["batch", "pivotal"])
+def test_emulated_row_positions_match_apply_rope(layout, fault):
+    """Row r of the (B S H, D) view sits at token (r / H) % S of its own
+    image: at B = 3 images, and on the pivotal pass's (ns K, S, H, D)
+    reshape of 2 streams x 3 keyframes, the emulated rows equal
+    ``apply_rope`` of the plain norm bit for bit; a launcher given 1 head,
+    or heads and seq swapped, does not."""
+    from tokenflow_torch.models.hunyuan_dit import apply_rope
+
+    heads, d = 4, 88
+    if layout == "batch":
+        x, w, b, cos, sin = _rope_inputs(3, 4, heads, d, seed=2)
+    else:  # the keyframes' q (ns, K, S, H D), joined into ns K images as the DiT joins them
+        x, w, b, cos, sin = _rope_inputs(6, 4, heads, d, seed=3)
+        x = x.reshape(2, 3, 16, heads * d).reshape(2 * 3, 16, heads, d)
+    s = x.shape[1]
+    launch = {None: (heads, s), "heads_left_out": (1, s),
+              "heads_and_seq_swapped": (s, heads)}[fault]
+    got = _emulate_rope_rows(x, w, b, 1e-6, cos, sin, *launch)
+    want = apply_rope(tln.layer_norm_plain(x, w, b, 1e-6), cos, sin)
+    assert torch.equal(got, want) == (fault is None)
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 88, 128, 160])
+def test_rope_plan_takes_the_head_dims_of_four_lanes(d):
+    """The rotary entry runs K5's plan at the head dim: 4 lanes a row, 88
+    at 4 x 3, every head dim up to 160."""
+    p = tln.rope_plan(d)
+    assert p == tln.plan(d) and p.lanes == tln.ROPE_LANES and p.vecs <= tln.ROPE_MAX_VECS
+    assert {88: (4, 3)}.get(d, tuple(p)) == tuple(p)
+
+
+@pytest.mark.parametrize("d", [168, 320, 1408])
+def test_rope_plan_refuses_wider_heads(d):
+    with pytest.raises(NotImplementedError, match="head dims up to 160"):
+        tln.rope_plan(d)
+
+
+def test_rope_plan_constants_match_the_cuda_source():
+    """``ROPE_LANES`` and ``ROPE_MAX_VECS`` are the source's, whose launcher
+    table instantiates every vector count up to the most; the library's
+    signature has the launcher's 14 arguments."""
+    from tokenflow_torch.kernels import _build
+
+    src = (Path(tln.__file__).resolve().parents[1] / "csrc" / "layer_norm.cu").read_text()
+    assert int(re.search(r"constexpr int kRopeLanes = (\d+);", src).group(1)) == tln.ROPE_LANES
+    assert int(re.search(r"constexpr int kRopeMaxVecs = (\d+);", src).group(1)) == (
+        tln.ROPE_MAX_VECS)
+    table = re.search(r"RopeKernel rope_kernel_for\(int vecs\) \{(.*?)\n\}", src, re.S).group(1)
+    assert re.findall(r"case (\d+): return layer_norm_rope_kernel<(\d+)>;", table) == [
+        (str(v), str(v)) for v in range(1, tln.ROPE_MAX_VECS + 1)]
+    launcher = re.search(r'extern "C" int tf_layer_norm_rope\((.*?)\)', src, re.S).group(1)
+    assert len(launcher.split(",")) == len(_build.SIGNATURES["tf_layer_norm_rope"]) == 14
+
+
+def test_rope_wrapper_refuses_what_the_kernel_lacks():
+    x, w, b, cos, sin = _rope_inputs(1, 2, 2, 88, seed=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin)
+    with pytest.raises(ValueError, match=r"\(4, 88\)"):
+        tln.layer_norm_rope_kernel(x, w, b, 1e-6, cos[:3], sin[:3])
+    with pytest.raises(ValueError, match="B, S, H, D"):
+        tln.layer_norm_rope_kernel(x[0], w, b, 1e-6, cos, sin)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_matches_the_two_launch_path_on_cuda():
+    """The rotary entry at a DiT shape (2 images of 64^2 tokens, 16 heads of
+    88) against the path it replaces, K5 then ``apply_rope`` in fp32:
+    within 1 bf16 step (FMA contraction alone differs); two launches bit
+    for bit; the counters. Against the all-plain version K5's own
+    1-step differences pass through the rotation's cancellations, so the
+    two-launch path is the yardstick (skips without a GPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from tokenflow_torch.models.hunyuan_dit import apply_rope
+
+    x, w, b, cos, sin = (t.cuda() for t in _rope_inputs(2, 64, 16, 88, seed=5))
+    before, k5 = tln.rope_launches, tln.launches
+    got = tln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin)
+    assert tln.rope_launches == before + 1 and tln.launches == k5
+    assert torch.equal(got, tln.layer_norm_rope_kernel(x, w, b, 1e-6, cos, sin))
+    two = apply_rope(tln.layer_norm_kernel(x, w, b, 1e-6), cos, sin)
+    assert _bf16_steps(got.cpu(), two.cpu()) <= 1.0

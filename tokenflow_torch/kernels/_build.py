@@ -59,6 +59,7 @@ SIGNATURES = {
     + [ctypes.c_float, _I, _P],
     "tf_group_norm_occupancy": [_I] * 3 + [_L, _I] + [_L] * 2 + [_P] * 2,
     "tf_layer_norm": [_P] * 4 + [_L] + [_I] * 3 + [ctypes.c_float, _P],
+    "tf_layer_norm_rope": [_P] * 6 + [_L] + [_I] * 5 + [ctypes.c_float, _P],
     "tf_geglu_gemm": [_P] * 4 + [_I] * 4 + [_P],
 }
 # return types other than int: the workspace sizes in bytes

@@ -13,6 +13,15 @@ per segment of a warp, held in registers, one row group per warp);
 :func:`plan` picks the segment from C alone. Instantiated for bf16 (x, weight and bias
 alike) with C a multiple of 8 up to 2816; another dtype or width on CUDA
 raises.
+
+The rotary entry (:func:`layer_norm_rope_kernel`, ``tf_layer_norm_rope``)
+is HunyuanDiT's per-head q/k norm and 2-D RoPE in one launch: each head of
+each token of a (B, S, H, D) tensor normed as K5 norms it and rounded to
+bf16, then rotated on interleaved pairs by the fp32 (S, D) cos / sin
+tables at the token's position and rounded again, as
+:func:`layer_norm_rope_plain` computes it. Its plan is :func:`plan`'s at D
+(``ROPE_LANES`` lanes a row, D up to ``ROPE_MAX_HEAD_DIM``); it counts its
+launches apart from K5's (``rope_launches``).
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ launches = 0
 launches_by_dtype: dict[str, int] = {}
 # launches by (rows, C), the same launches as ``launches``
 launches_by_shape: dict[tuple[int, int], int] = {}
+# launches made by :func:`layer_norm_rope_kernel` (not in ``launches``)
+rope_launches = 0
 
 LANES = (4, 8, 16, 32)  # lanes a row can take (csrc/layer_norm.cu)
 # 16-byte vectors a lane can hold (at 32 lanes: the plan gives fewer lanes
@@ -39,6 +50,11 @@ MAX_VECS = 11
 _VECS_TARGET = 5  # the plan's most vectors a lane, below 32 lanes
 MAX_CHANNELS = 32 * MAX_VECS * 8
 _WARPS = 8  # warps a CTA
+# the rotary entry's lanes a row and most vectors a lane (csrc/layer_norm.cu
+# kRopeLanes, kRopeMaxVecs): the head dims whose plan takes 4 lanes
+ROPE_LANES = 4
+ROPE_MAX_VECS = 5
+ROPE_MAX_HEAD_DIM = ROPE_LANES * ROPE_MAX_VECS * 8
 
 
 class Plan(NamedTuple):
@@ -113,16 +129,22 @@ def launch(ops, out: torch.Tensor, eps: float, p: Plan) -> None:
     its launches."""
     x, weight, bias = ops
     c = x.shape[-1]
+    _call("tf_layer_norm", x, "LayerNorm launch", x.data_ptr(), weight.data_ptr(),
+          bias.data_ptr(), out.data_ptr(), x.numel() // c, c, p.lanes, p.vecs, float(eps))
+
+
+def _call(name: str, x: torch.Tensor, what: str, *args) -> None:
+    """Call the library's launcher ``name`` with ``args`` and x's current
+    raw stream, on x's device; raise on a CUDA error."""
     lib = _build.load_library()
-    args = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            x.numel() // c, c, p.lanes, p.vecs, float(eps),
-            torch._C._cuda_getCurrentRawStream(x.device.index))
+    fn = getattr(lib, name)
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
     if x.device.index == torch.cuda.current_device():
-        rc = lib.tf_layer_norm(*args)
+        rc = fn(*args, stream)
     else:
         with torch.cuda.device(x.device):
-            rc = lib.tf_layer_norm(*args)
-    _build.check(lib, rc, "LayerNorm launch")
+            rc = fn(*args, stream)
+    _build.check(lib, rc, what)
 
 
 def grid(rows: int, p: Plan) -> int:
@@ -151,4 +173,68 @@ def layer_norm_kernel(
     launches += 1
     launches_by_dtype["bfloat16"] = launches_by_dtype.get("bfloat16", 0) + 1
     launches_by_shape[(rows, c)] = launches_by_shape.get((rows, c), 0) + 1
+    return out
+
+
+def layer_norm_rope_plain(
+    x: torch.Tensor,  # (B, S, H, D)
+    weight: torch.Tensor,  # (D,)
+    bias: torch.Tensor,  # (D,)
+    eps: float,
+    cos: torch.Tensor,  # (S, D) fp32
+    sin: torch.Tensor,  # (S, D) fp32
+) -> torch.Tensor:
+    """The rotary entry in plain PyTorch: :func:`layer_norm_plain` over each
+    head, rounded to x's dtype, then in fp32 ``y cos + rot(y) sin`` with
+    rot(y)_{2k, 2k+1} = (-y_{2k+1}, y_{2k}), the tables' row s for token s,
+    rounded to x's dtype again."""
+    y = layer_norm_plain(x, weight, bias, eps).float()
+    pairs = y.unflatten(-1, (-1, 2))
+    rot = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+    out = y * cos[:, None, :]
+    out.addcmul_(rot, sin[:, None, :])
+    return out.to(x.dtype)
+
+
+def rope_plan(d: int) -> Plan:
+    """:func:`plan` at head dim d, which the rotary entry must take whole:
+    ``ROPE_LANES`` lanes a row (d up to ``ROPE_MAX_HEAD_DIM``)."""
+    p = plan(d)
+    if p.lanes != ROPE_LANES:
+        raise NotImplementedError(
+            f"the rotary LayerNorm kernel takes head dims up to {ROPE_MAX_HEAD_DIM}, not {d}")
+    return p
+
+
+def layer_norm_rope_kernel(
+    x: torch.Tensor,  # (B, S, H, D) bf16
+    weight: torch.Tensor,  # (D,) bf16
+    bias: torch.Tensor,  # (D,) bf16
+    eps: float,
+    cos: torch.Tensor,  # (S, D) fp32
+    sin: torch.Tensor,  # (S, D) fp32
+) -> torch.Tensor:
+    """Launch the rotary entry on CUDA tensors; returns a new (B, S, H, D)
+    bf16 tensor."""
+    global rope_launches
+    if x.dim() != 4:
+        raise ValueError(f"the rotary LayerNorm takes x (B, S, H, D), not {tuple(x.shape)}")
+    _, s, h, d = x.shape
+    if cos.shape != (s, d) or sin.shape != (s, d):
+        raise ValueError(f"cos and sin must be ({s}, {d}), one row a token of x")
+    if not (cos.dtype == sin.dtype == torch.float32) or cos.device != x.device \
+            or sin.device != x.device:
+        raise ValueError("cos and sin must be fp32 on x's device")
+    p = rope_plan(d)
+    x, weight, bias = prepare_operands(x, weight, bias)
+    cos, sin = (t.contiguous() for t in (cos, sin))
+    cos, sin = (t.clone() if t.data_ptr() % 16 else t for t in (cos, sin))
+    out = torch.empty_like(x)
+    rows = x.numel() // d
+    if rows == 0:
+        return out
+    _call("tf_layer_norm_rope", x, "rotary LayerNorm launch", x.data_ptr(), weight.data_ptr(),
+          bias.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), rows, d, p.lanes,
+          p.vecs, h, s, float(eps))
+    rope_launches += 1
     return out

@@ -53,9 +53,10 @@ the FUSED mode raises NotImplementedError.
 Departures from diffusers: the timestep reaches the sinusoids exactly
 (diffusers' pipeline casts it to the latents' dtype first); the pool runs
 in fp32. On CUDA every attention call goes through ``ops/attention.py``
-(K1 above 1024 keys, K6 at or under), the norms through K5, the matches
-through K2/K3; the pool's one-query attention is not an attention site and
-stays off ``ops/attention.py``.
+(K1 above 1024 keys, K6 at or under), the norms through K5 (each rotated
+q or k through K5's rotary entry, the norm and the rotation in one
+launch), the matches through K2/K3; the pool's one-query attention is not
+an attention site and stays off ``ops/attention.py``.
 
 Spans (``profiling.span``): ``tf.dit`` over a call, ``tf.dit_embed`` (patch
 embedding, conditioning, pool, text projection and padding), one
@@ -73,8 +74,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tokenflow_torch.kernels.layer_norm import layer_norm_rope_kernel
 from tokenflow_torch.kernels.short_attention import KV_BLOCK
-from tokenflow_torch.models.layers import LayerNorm32, TimestepEmbedding, timestep_embedding
+from tokenflow_torch.models.layers import (
+    LayerNorm32,
+    TimestepEmbedding,
+    layer_norm_path,
+    timestep_embedding,
+)
 from tokenflow_torch.ops import editctx
 from tokenflow_torch.ops.attention import flash_attention, merge_heads
 from tokenflow_torch.ops.extended_attention import extended_attention
@@ -82,6 +89,9 @@ from tokenflow_torch.ops.propagation import token_propagation
 from tokenflow_torch.profiling import span
 
 ROPE_THETA = 10000.0
+# CUDA q/k transforms that took the plain norm and rotation (reset by
+# callers): 0 on the bf16 paths, where the rotary K5 entry takes every call
+plain_rope_on_cuda = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,6 +186,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     out = xf * cos[:, None, :]
     out.addcmul_(rot, sin[:, None, :])
     return out.to(x.dtype)
+
+
+def norm_rope(norm: LayerNorm32, x: torch.Tensor, rope: tuple) -> torch.Tensor:
+    """``apply_rope(norm(x), *rope)`` for x (B, S, H, D): where ``norm``
+    would launch K5 (a bf16 CUDA tensor), the rotary K5 entry does both in
+    one launch (``kernels/layer_norm.py::layer_norm_rope_kernel``, within 1
+    bf16 step of the two); every other input takes the norm and
+    :func:`apply_rope`, and a CUDA one is counted in ``plain_rope_on_cuda``."""
+    global plain_rope_on_cuda
+    if layer_norm_path(x.device, x.dtype) == "kernel":
+        return layer_norm_rope_kernel(x, norm.weight, norm.bias, norm.eps, *rope)
+    if x.is_cuda:
+        plain_rope_on_cuda += 1
+    return apply_rope(norm(x), *rope)
 
 
 def _silu_f32(x: torch.Tensor) -> torch.Tensor:
@@ -298,12 +322,11 @@ class DiTAttention(nn.Module):
 
     def qk_transform(self, q, k, rope, rotate_k: bool):
         """The per-head norms of q and k, then RoPE on q (and on k when
-        ``rotate_k``); (B, S, H, D) in, (B, S, H, D) out."""
+        ``rotate_k``); (B, S, H, D) in, (B, S, H, D) out. A k left unrotated
+        takes ``norm_k`` alone."""
         with span("tf.rope"):
-            q, k = self.norm_q(q), self.norm_k(k)
-            q = apply_rope(q, *rope)
-            if rotate_k:
-                k = apply_rope(k, *rope)
+            q = norm_rope(self.norm_q, q, rope)
+            k = norm_rope(self.norm_k, k, rope) if rotate_k else self.norm_k(k)
         return q, k
 
     def out(self, o):
