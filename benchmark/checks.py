@@ -39,15 +39,24 @@ class Sample:
                                                                      key=lambda it: it[0])
 
 
-def step_numbers(x_out: torch.Tensor, x_ref: torch.Tensor) -> dict:
+def step_numbers(x_out: torch.Tensor, x_ref: torch.Tensor, x_in=None) -> dict:
     """The program's state after a step against the reference's from the
     same state before it: the relative L2 gap over the whole latent
-    (``state_rel_l2``) and in the worst frame (``frame_rel_l2``)."""
+    (``state_rel_l2``) and in the worst frame (``frame_rel_l2``). Given the
+    state before, ``x_in`` (a flow step's), also the gap of the step's
+    increment x_out - x_in against the reference's x_ref - x_in over the
+    whole latent (``step_rel_l2``): a flow step moves the state by a small
+    share of the guided velocity, and its increment is that velocity
+    scaled."""
     x_out, x_ref = (t.double().flatten(1) for t in (x_out, x_ref))
     err = (x_out - x_ref).norm(dim=1)
     ref = x_ref.norm(dim=1)
-    return {"state_rel_l2": float(err.norm() / ref.norm()),
-            "frame_rel_l2": float((err / ref).max())}
+    numbers = {"state_rel_l2": float(err.norm() / ref.norm()),
+               "frame_rel_l2": float((err / ref).max())}
+    if x_in is not None:
+        step = (x_ref - x_in.double().flatten(1)).norm()
+        numbers["step_rel_l2"] = float(err.norm() / step)
+    return numbers
 
 
 def judge(per_step: list, limits: dict) -> tuple[dict, int]:

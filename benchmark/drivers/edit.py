@@ -10,25 +10,37 @@ propagation; on the card the port's kernels, the GroupNorm kernel among
 them, as its editors run them). Steps run from the schedule's first;
 after its last the loop starts again from the same start latents.
 
-The schedule is the configuration's (``program.py``): the program's
-``ddim.make_schedule`` on the ``scheduler``'s betas, training timesteps,
-``steps_offset`` and ``set_alpha_to_one``, and its ``ddim.save_grid``
-over those training timesteps: the numbers the reference's tables are
-made of. A scheduler the reference does not follow is refused by key and
-value before anything is built. Where the ``prediction_type`` is not
-"epsilon" the loop is handed ``prediction_type=<value>`` (it holds the
-schedule's alphas, so it converts the model's output); a program whose
-loop does not take it fails in set-up with its own TypeError instead of
-sampling the model as eps. That is the program's contract.
+The schedule is the configuration's (``program.py``), of the family its
+``scheduler`` names (``reference/schedule.py``), and a scheduler or a
+traffic the reference does not follow is refused by key and value before
+anything is built. Under DDIM: the program's ``ddim.make_schedule`` on the
+``scheduler``'s betas, training timesteps, ``steps_offset`` and
+``set_alpha_to_one``, ``ddim.truncate_schedule`` at ``start`` and
+``ddim.save_grid`` over those training timesteps: the numbers the
+reference's tables are made of. Under rectified flow (a
+``FlowMatchEulerDiscreteScheduler``): the port's
+``flow.make_schedule(steps, num_train_timesteps=N, shift=s)``,
+``flow.truncate_schedule(schedule, start)`` and
+``flow.save_grid(save_steps, num_train_timesteps=N, shift=s)`` in
+``tokenflow_torch/diffusion/flow.py``, called with the reference's
+``flow_parameters``; their schedule and save grid then go to
+``pipeline.make_edit_schedule`` as DDIM's do. Where the
+``prediction_type`` is not "epsilon" the loop is handed
+``prediction_type=<value>`` ("v_prediction"; "flow" for the velocity,
+which the loop steps by Euler from sigma to sigma_next); a program whose
+loop does not take it, or that has no flow entries, fails in set-up with
+its own error (TypeError; ModuleNotFoundError) instead of sampling the
+model as eps. That is the program's contract.
 
 The inputs are the harness's: the start latents and a 50-slot source
-trajectory made from seeded clean latents with DDIM's forward formula (the
-edit costs the same whatever made its trajectory), the embeddings, the
-architecture's further model inputs, the pivot frames and the conditioning
-images. The models, those inputs and the PnP sites come from the
-architecture's module (``run.arch``). The program's own schedule tables
-come from its ``ddim`` and ``pipeline`` functions; the reference works them
-out again."""
+trajectory made from seeded clean latents with DDIM's forward formula, or
+flow's (1 - sigma) x0 + sigma eps (the edit costs the same whatever made
+its trajectory), the embeddings, the architecture's further model inputs,
+the pivot frames and the conditioning images. The models, those inputs and
+the PnP sites come from the architecture's module (``run.arch``). The
+program's own schedule tables come from its ``ddim`` (or ``flow``) and
+``pipeline`` functions; the reference works them out again. A flow step is
+also compared by its increment (``checks.step_numbers``' ``step_rel_l2``)."""
 
 from __future__ import annotations
 
@@ -47,9 +59,20 @@ class Stage:
 
         self.run, tr, arch = run, run.traffic, run.arch
         dev, dt = run.device, run.dtype
-        # the program's schedule on the configuration's scheduler, refused here,
-        # before anything is built, where the reference does not follow it
-        sched = program.ddim_schedule(run.sched_config, tr["timesteps"])
+        # the reference's tables and the program's schedule on the configuration's
+        # scheduler, refused here, before anything is built, where the reference
+        # does not follow it
+        self.tables = schedule.edit_tables(run.sched_config, tr)
+        self.flow = self.tables["prediction_type"] == "flow"
+        if self.flow:
+            sched, save_ts = program.flow_schedule(run.sched_config, tr)
+        else:
+            sched = program.ddim_schedule(run.sched_config, tr["timesteps"])
+            if tr.get("start") is not None:
+                sched = ddim.truncate_schedule(sched, tr["start"])
+            save_ts = ddim.save_grid(
+                tr["inversion_steps"], tr["save_steps"],
+                num_train_timesteps=run.sched_config["num_train_timesteps"])[0]
         self.prediction_kw = program.prediction_kw(run.sched_config)
         self.unet = arch.program_model("unet", run.unet_spec, run.state["unet"])
         self.controlnet = (None if run.controlnet_spec is None else arch.program_model(
@@ -60,19 +83,13 @@ class Stage:
         self.cond = None if self.controlnet is None else inputs.canny(frames).to(dt)
         del frames
 
-        if tr.get("start") is not None:
-            sched = ddim.truncate_schedule(sched, tr["start"])
-        save_ts = ddim.save_grid(tr["inversion_steps"], tr["save_steps"],
-                                 num_train_timesteps=run.sched_config["num_train_timesteps"])[0]
         pnp = tr["editor"] == "pnp"
         gates = dict(pnp_attn_t=tr["pnp_attn_t"], pnp_f_t=tr["pnp_f_t"]) if pnp else {}
         self.steps = pipeline.split_schedule(
             pipeline.make_edit_schedule(sched, save_ts, **gates), 1)
 
         # the harness's inputs, handed to both sides
-        self.tables = schedule.edit_tables(run.sched_config, tr)
-        ac0 = float(schedule.alphas_cumprod(run.sched_config)[self.tables["t"][0]])
-        self.x_init = (ac0**0.5 * x0 + (1 - ac0) ** 0.5 * eps).to(dt)
+        self.x_init = inputs.start_latents(x0, eps, self.tables).to(dt)
         self.traj = inputs.source_trajectory(x0, eps, run.sched_config, tr["save_steps"]).to(dt)
         del x0, eps
         ctx = run.unet_spec.cross_attention_dim
@@ -134,5 +151,6 @@ class Stage:
             if control is not None:
                 x_out = ref(control, x_in, pos).to(x_in.dtype)
             out.append({"step": k, "position": pos,
-                        "numbers": checks.step_numbers(x_out, ref(P, x_in, pos))})
+                        "numbers": checks.step_numbers(x_out, ref(P, x_in, pos),
+                                                       x_in if self.flow else None)})
         return out

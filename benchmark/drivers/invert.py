@@ -11,7 +11,8 @@ sampled steps, and the trajectory slots the window wrote.
 
 The schedule is the configuration's, as in the edit stage
 (``drivers/edit.py``, ``program.py``): a scheduler the reference does not
-follow is refused before anything is built, and where the
+follow, a flow scheduler among them (TokenFlow defines no flow inversion),
+is refused before anything is built, and where the
 ``prediction_type`` is not "epsilon" the inversion is handed
 ``prediction_type=<value>``; a program whose inversion does not take it
 fails in set-up with its own TypeError. That is the program's contract."""
@@ -32,6 +33,7 @@ class Stage:
 
         self.run, tr, arch = run, run.traffic, run.arch
         dev, dt = run.device, run.dtype
+        self.tables = schedule.inversion_tables(run.sched_config, tr)
         self.sched = program.ddim_schedule(run.sched_config, tr["timesteps"])
         self.prediction_kw = program.prediction_kw(run.sched_config)
         self.unet = arch.program_model("unet", run.unet_spec, run.state["unet"])
@@ -48,7 +50,6 @@ class Stage:
         stack = types.SimpleNamespace(unet_apply=self.unet, dtype=dt)
         self.eps_fn = build_eps_fn(stack, self.embed, None, self.controlnet, self.cond,
                                    **program_kw)
-        self.tables = schedule.inversion_tables(run.sched_config, tr)
         self.carry = None
         self.sample = checks.Sample(run.seed, tr["compared_later_steps"])
         self.saved = checks.Sample(run.seed + 1, size=0)

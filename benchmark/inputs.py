@@ -67,9 +67,25 @@ def noise(shape, seed: int, device) -> torch.Tensor:
     return torch.randn(shape, generator=_gen(seed, SALT_NOISE, device), device=device)
 
 
+def start_latents(x0: torch.Tensor, eps: torch.Tensor, tables: dict) -> torch.Tensor:
+    """The latents an edit starts from: the clean latents noised to the
+    first edit step's level, DDIM's forward formula at its alpha_t, or
+    rectified flow's (1 - sigma) x0 + sigma eps at its sigma."""
+    if tables["prediction_type"] == "flow":
+        s0 = float(tables["sigma"][0])
+        return (1 - s0) * x0 + s0 * eps
+    ac0 = float(tables["alpha_t"][0])
+    return ac0**0.5 * x0 + (1 - ac0) ** 0.5 * eps
+
+
 def source_trajectory(x0: torch.Tensor, eps: torch.Tensor, sched: dict, save_steps: int):
     """(save_steps, F, h, w, 4) fp32: the clean latents noised to each save
-    timestep with one noise per frame, DDIM's forward formula."""
+    timestep with one noise per frame, DDIM's forward formula, or rectified
+    flow's at each sigma of the ascending save grid."""
+    if schedule.is_flow(sched):
+        s = torch.as_tensor(schedule.flow_sigmas(sched, save_steps)[::-1].copy(),
+                            device=x0.device)[:, None, None, None, None]
+        return (1 - s) * x0[None] + s * eps[None]
     ac = schedule.alphas_cumprod(sched)
     a = torch.as_tensor(ac[schedule.save_grid(sched, save_steps)], device=x0.device)
     a = a[:, None, None, None, None]

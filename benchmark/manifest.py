@@ -114,11 +114,14 @@ def architecture(name: str, root: Path = HERE) -> ModuleType:
       module names none), handed to ``reference_model("unet", ...)``.
 
     The configuration's ``scheduler`` is the harness's, not the module's:
-    both sides run DDIM on it, and ``reference/schedule.py`` lists the keys
-    followed (scaled-linear betas with any start, end, training timesteps,
-    ``steps_offset`` and ``set_alpha_to_one``; ``prediction_type`` epsilon
-    or v_prediction; ``timestep_spacing`` leading) and refuses the rest by
-    name."""
+    both sides run its family on it, rectified flow for a
+    ``FlowMatchEulerDiscreteScheduler`` (a static ``shift`` over any
+    training timesteps; the model outputs the velocity) and DDIM for every
+    other class (scaled-linear betas with any start, end, training
+    timesteps, ``steps_offset`` and ``set_alpha_to_one``;
+    ``prediction_type`` epsilon or v_prediction; ``timestep_spacing``
+    leading). ``reference/schedule.py`` lists the keys followed and
+    refuses the rest by name."""
     path = root / "architectures" / f"{name}.py"
     if not path.exists():
         raise FileNotFoundError(f"architecture {name!r}: no module {path}")

@@ -1,5 +1,6 @@
 """The system under test: the PyTorch and CUDA port's kernel library, its
-dtypes, its DDIM schedule on a configuration's scheduler, and the loading
+dtypes, its schedule on a configuration's scheduler (DDIM, or rectified
+flow for a ``FlowMatchEulerDiscreteScheduler``), and the loading
 of the benchmark's state dict into a model of the port by key name, as the
 port loads a diffusers checkpoint. The models themselves are built by the
 architecture's module (``architectures/<name>.py::program_model``). Only
@@ -44,9 +45,32 @@ def ddim_schedule(sched: dict, steps: int):
     return ddim.make_schedule(steps, **ref_schedule.ddim_parameters(sched))
 
 
+def flow_schedule(sched: dict, traffic: dict) -> tuple:
+    """(the program's flow schedule of the traffic's ``timesteps``, cut at
+    its ``start`` where it has one; the save grid's timesteps, ascending),
+    through the port's ``tokenflow_torch.diffusion.flow``:
+
+    - ``flow.make_schedule(steps, num_train_timesteps=N, shift=s)``;
+    - ``flow.truncate_schedule(schedule, start)``, SDEdit's cut by index;
+    - ``flow.save_grid(save_steps, num_train_timesteps=N, shift=s)``;
+
+    each called with the reference's ``flow_parameters`` as keywords, the
+    numbers the reference's tables are made of
+    (``reference/schedule.py``). A port without these entries fails here
+    with its own error: that is the program's contract."""
+    p = ref_schedule.flow_parameters(sched)
+    import tokenflow_torch.diffusion.flow as flow
+
+    schedule = flow.make_schedule(traffic["timesteps"], **p)
+    if traffic.get("start") is not None:
+        schedule = flow.truncate_schedule(schedule, traffic["start"])
+    return schedule, flow.save_grid(traffic["save_steps"], **p)
+
+
 def prediction_kw(sched: dict) -> dict:
     """The keyword arguments that tell the program's entries what the
     denoiser outputs: none for eps, so an eps configuration calls the
-    program as its editors do; ``prediction_type`` otherwise."""
+    program as its editors do; ``prediction_type`` otherwise ("v_prediction",
+    or "flow" for the velocity of rectified flow)."""
     kind = ref_schedule.prediction_type(sched)
     return {} if kind == "epsilon" else {"prediction_type": kind}

@@ -1,7 +1,7 @@
 """The benchmark's plain reference: Stable Diffusion's UNet and ControlNet,
-DDIM, and the TokenFlow edit step in plain PyTorch, written from the
-published architecture and TokenFlow's edit (a frozen, kernel-free copy of
-the measured program's maths). It imports nothing of the program and takes
+DDIM and rectified flow's Euler step, and the TokenFlow edit step in plain
+PyTorch, written from the published architecture and TokenFlow's edit (a
+frozen, kernel-free copy of the measured program's maths). It imports nothing of the program and takes
 none of its weights, tables or state: the harness hands it the same state
 dict and inputs it hands the program.
 

@@ -3,7 +3,7 @@ operand of a convolution, linear layer, attention product or match
 similarity rounded to fp8 e4m3 under a per-tensor scale, products summed in
 fp32 (the control: the next precision below the configuration's bf16, as an
 fp8 tensor-core product computes it). Norms, softmax, blends and the DDIM
-update stay fp32 in both."""
+or flow update stay fp32 in both."""
 
 from __future__ import annotations
 

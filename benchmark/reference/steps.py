@@ -12,7 +12,13 @@ streams share x, so guiding v and converting equals guiding eps); the
 DDIM update then reads eps and x0 from the guided output at the level the
 sample sits at: an edit step's ``alpha_t``, an inversion step's
 ``alpha_prev`` (diffusers' DDIMInverseScheduler). For v-prediction
-x0 = sqrt(a) x - sqrt(1 - a) v and eps = sqrt(a) v + sqrt(1 - a) x."""
+x0 = sqrt(a) x - sqrt(1 - a) v and eps = sqrt(a) v + sqrt(1 - a) x.
+
+Under rectified flow (``prediction_type`` "flow") the output is the
+velocity, the model is called with the float t = sigma N, and the Euler
+step moves the sample by (sigma_next - sigma) times the guided velocity, in
+fp32 (diffusers' FlowMatchEulerDiscreteScheduler.step). The DDIM paths
+call the model with ``int(t)``."""
 
 from __future__ import annotations
 
@@ -45,6 +51,18 @@ def _ddim(x, out, alpha_from, alpha_to, prediction: str):
     return torch.sqrt(a_to) * x0 + torch.sqrt(1 - a_to) * eps
 
 
+def _edit_update(x, out, tables: dict, i: int):
+    """Edit step ``i``'s update on the guided output ``out``: DDIM from
+    alpha_t to alpha_prev, or the Euler step of rectified flow from sigma
+    to sigma_next on the velocity."""
+    if tables["prediction_type"] != "flow":
+        return _ddim(x, out, tables["alpha_t"][i], tables["alpha_prev"][i],
+                     tables["prediction_type"])
+    s, s_next = (torch.tensor(float(tables[k][i]), dtype=torch.float32, device=x.device)
+                 for k in ("sigma", "sigma_next"))
+    return x + (s_next - s) * out
+
+
 def _residuals(P, controlnet, sample, t, ctx, cond, kw):
     if controlnet is None:
         return {}
@@ -71,7 +89,7 @@ def edit_step(P: Precision, unet, controlnet, x, src, embeds3, tables: dict, i: 
     f = x.shape[0]
     piv = torch.as_tensor(pivots, dtype=torch.long, device=x.device)
     k = len(piv)
-    t = int(tables["t"][i])
+    t = float(tables["t"][i]) if tables["prediction_type"] == "flow" else int(tables["t"][i])
     pnp = traffic.get("editor") == "pnp"
     gates = dict(pnp=pnp, qk_gate=bool(tables["qk_gate"][i]),
                  conv_gate=bool(tables["conv_gate"][i]), qk_sites=inject[0],
@@ -96,8 +114,7 @@ def edit_step(P: Precision, unet, controlnet, x, src, embeds3, tables: dict, i: 
         e, _ = unet(P, sample, t, ctx, edit, **res, **kw)
         e3 = e.reshape(n, 3, *e.shape[1:])
         out.append(e3[:, 1] + traffic["guidance_scale"] * (e3[:, 2] - e3[:, 1]))
-    return _ddim(x, torch.cat(out), tables["alpha_t"][i], tables["alpha_prev"][i],
-                 tables["prediction_type"])
+    return _edit_update(x, torch.cat(out), tables, i)
 
 
 @torch.no_grad()

@@ -107,14 +107,76 @@ def _equal(a: ddim.DDIMSchedule, b: ddim.DDIMSchedule) -> bool:
             and np.array_equal(a.timesteps, b.timesteps))
 
 
-@pytest.mark.parametrize("config", sorted(p.stem for p in BENCH.glob("configs/*.json")))
+def _scheduler(config: str) -> dict:
+    return json.loads((BENCH / "configs" / f"{config}.json").read_text())["scheduler"]
+
+
+EPS_CONFIGS = sorted(p.stem for p in BENCH.glob("configs/*.json")
+                     if schedule.prediction_type(_scheduler(p.stem)) == "epsilon")
+
+
+@pytest.mark.parametrize("config", EPS_CONFIGS)
 @pytest.mark.parametrize("steps", [50, 500])
 def test_the_cells_configurations_build_the_schedule_the_drivers_built_before(config, steps):
-    """Every configuration with a cell carries SD's schedule: the program's
-    schedule from its scheduler is the port's default one, bit for bit."""
-    sched = json.loads((BENCH / "configs" / f"{config}.json").read_text())["scheduler"]
+    """Every eps configuration with a cell carries SD's schedule: the
+    program's schedule from its scheduler is the port's default one, bit for
+    bit."""
+    sched = _scheduler(config)
     assert _equal(program.ddim_schedule(sched, steps), ddim.make_schedule(steps))
     assert program.prediction_kw(sched) == {}
+
+
+# HunyuanDiT v1.2's SDEdit tables at 50 steps cut at 0.9, as the harness
+# built them before rectified flow: t = 861, 841, ..., 1 and slots 43..0;
+# alpha_t below, alpha_prev the next step's alpha_t and, after the last,
+# alphas_cumprod[0] (scaled-linear betas 0.00085 to 0.03)
+HUNYUAN_ALPHA_T = [
+    0.00023788293765392154, 0.000379516975954175, 0.000594819022808224,
+    0.0009161756024695933, 0.0013872886775061488, 0.002065869979560375,
+    0.0030264980159699917, 0.004363470710813999, 0.006193419452756643,
+    0.008657410740852356, 0.011922200210392475, 0.01618032716214657,
+    0.021648701280355453, 0.02856544591486454, 0.037184786051511765,
+    0.047769978642463684, 0.06058431789278984, 0.07588055729866028,
+    0.09388913959264755, 0.11480583250522614, 0.1387794315814972, 0.16590042412281036,
+    0.1961911916732788, 0.22959861159324646, 0.26598963141441345, 0.3051501214504242,
+    0.34678733348846436, 0.39053598046302795, 0.43596744537353516, 0.482602059841156,
+    0.5299233198165894, 0.5773938894271851, 0.6244720220565796, 0.6706278920173645,
+    0.7153590321540833, 0.7582043409347534, 0.7987557053565979, 0.8366671800613403,
+    0.8716619610786438, 0.9035358428955078, 0.9321587681770325, 0.9574735164642334,
+    0.9794923663139343, 0.9982923269271851,
+]
+HUNYUAN_FINAL_ALPHA = 0.9991499781608582
+
+
+@pytest.mark.parametrize("config", ["hunyuandit_v12"])
+@pytest.mark.parametrize("steps", [50, 500])
+def test_the_v_configuration_s_tables_are_pinned(config, steps):
+    """The DiT's scheduler (betas to 0.03, v-prediction) reads the tables
+    it read before, the program's schedule and the reference's bit for bit,
+    and the program is told v. At 50 steps cut at 0.9 the tables are
+    pinned whole; the 500-step grid (cut at 0.9: t = 897, 895, ..., 1)
+    holds the same alphas at the 50-step grid's t."""
+    sched = _scheduler(config)
+    assert sched["beta_end"] == 0.03 and schedule.prediction_type(sched) == "v_prediction"
+    traffic = {"timesteps": steps, "save_steps": steps, "start": 0.9}
+    tables = schedule.edit_tables(sched, traffic)
+    assert tables["prediction_type"] == "v_prediction"
+    first = 861 if steps == 50 else 897
+    np.testing.assert_array_equal(tables["t"], np.arange(first, 0, -1000 // steps))
+    np.testing.assert_array_equal(tables["slot"], np.arange(len(tables["t"]) - 1, -1, -1))
+    want = np.asarray(HUNYUAN_ALPHA_T, dtype=np.float32)
+    on_50 = np.isin(tables["t"], np.arange(861, 0, -20))
+    np.testing.assert_array_equal(tables["alpha_t"][on_50], want)
+    if steps == 50:
+        np.testing.assert_array_equal(tables["alpha_prev"],
+                                      np.append(want[1:], np.float32(HUNYUAN_FINAL_ALPHA)))
+    assert tables["alpha_prev"][-1] == np.float32(HUNYUAN_FINAL_ALPHA)
+    prog = ddim.truncate_schedule(program.ddim_schedule(sched, steps), 0.9)
+    alpha_t, alpha_prev = prog.step_alphas()
+    np.testing.assert_array_equal(prog.timesteps, tables["t"])
+    np.testing.assert_array_equal(alpha_t, tables["alpha_t"])
+    np.testing.assert_array_equal(alpha_prev, tables["alpha_prev"])
+    assert program.prediction_kw(sched) == {"prediction_type": "v_prediction"}
 
 
 @pytest.mark.parametrize("keys", [{"beta_end": 0.03}, {"set_alpha_to_one": True},
@@ -151,9 +213,13 @@ def test_the_port_s_default_betas_are_not_correct_there(root, cell, capsys, monk
     the drivers built it before they read the configuration: the program
     and the reference run different noise levels, and the run is not
     correct. (SDEdit's two tiny steps lie at low noise, where the two
-    schedules differ least: its cell reads just over its limit, 0.174.)"""
+    schedules differ least: its cell reads just over its limit, 0.174.) The
+    window holds six steps however slow the machine, so a later step is
+    compared: the inversion's first step starts at the final alpha, where
+    the two schedules nearly agree."""
     default = ddim.make_schedule
     monkeypatch.setattr(ddim, "make_schedule", lambda steps, **kw: default(steps))
+    monkeypatch.setattr(harness, "window", tiny.fixed_window(6))
     result = _run(root, cell, capsys)
     assert result["correct"] is False and result["failed"] >= 1
     state = result["checks"]["state_rel_l2"]

@@ -53,11 +53,13 @@ def _dump(path: Path, obj) -> None:
 
 
 def copy_with_tiny_cells(dest: Path, limits, cells: dict = TINY_CELLS,
-                         configs: dict | None = None) -> Path:
+                         configs: dict | None = None, traffic: dict | None = None) -> Path:
     """``dest``/BENCHMARK.json and ``dest``/benchmark: the benchmark with
     the tiny configurations (and ``configs``: name -> the keys a configuration
-    sets over sd21's), mixes and ``cells`` added, each with the output limits
-    ``limits(cell)``; returns the copy's benchmark directory."""
+    sets over sd21's), mixes (and ``traffic``: name -> mix) and ``cells``
+    added, each with the output limits ``limits(cell)``; returns the copy's
+    benchmark directory."""
+    mixes = {**TINY_TRAFFIC, **(traffic or {})}
     root = dest / "benchmark"
     shutil.copytree(BENCH, root, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
@@ -66,16 +68,16 @@ def copy_with_tiny_cells(dest: Path, limits, cells: dict = TINY_CELLS,
                "tiny_cn": {"unet": TINY_UNET, "controlnet": TINY_CONTROLNET}, **(configs or {})}
     for name, keys in configs.items():
         _dump(root / "configs" / f"{name}.json", dict(config, name=name, **keys))
-    for name, traffic in TINY_TRAFFIC.items():
-        _dump(root / "traffic" / f"{name}.json", traffic)
-    for cell, (cfg, traffic) in cells.items():
-        bench["workloads"].append({"name": cell, "config": cfg, "traffic": traffic,
+    for name, mix in mixes.items():
+        _dump(root / "traffic" / f"{name}.json", mix)
+    for cell, (cfg, mix) in cells.items():
+        bench["workloads"].append({"name": cell, "config": cfg, "traffic": mix,
                                    "chips": 1, "why": "test"})
         _dump(root / "limits" / f"{cell}.json", {"limits": limits(cell)})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             stage = "invert" if "invert" in m.get("moves", m["name"]) else "edit"
             m["workloads"] += [c for c, (_, t) in cells.items()
-                               if TINY_TRAFFIC[t]["stage"] == stage]
+                               if mixes[t]["stage"] == stage]
     _dump(dest / "BENCHMARK.json", bench)
     return root
